@@ -1,0 +1,141 @@
+"""Public de-duplication engine — the port of ``repro.core.engine``.
+
+    cfg   = DedupConfig.for_variant("rlbsbf", memory_bits=1 << 31, packed=True)
+    dedup = Dedup(cfg)                               # on the CUDA device
+    state = dedup.init()
+    state, res = dedup.process(state, keys)          # one batched step
+    state, dup = dedup.run_stream(state, long_keys)  # the whole stream
+
+An engine is fully determined by its frozen ``DedupConfig`` and its device.
+It runs on ``cuda`` unless the caller passes ``device="cpu"``; without a
+CUDA device and without that request it raises, and it never falls back.
+On CUDA the step goes through the hand-written kernels (hashmix and the
+bitset step), on the CPU through their plain PyTorch versions; at fixed
+seed both reproduce the JAX package's reports and state bit for bit.
+``partitionable`` picks JAX's threefry counter layout for the randomized
+deletions (``core.prng``): True matches JAX's default since 0.5, False the
+original layout, under which the reference's pinned digests were captured.
+
+In place of jit caching and donation (DESIGN §3.5): PyTorch runs eagerly,
+so nothing is compiled per width, and ``process_cache_size`` /
+``stream_cache_size`` count the distinct widths and stream lengths seen.
+``process`` does not change the caller's state: it clones the filter
+first. ``run_stream`` and ``process_padded(donate=True)`` update the filter
+tensor in place — do not reuse the state passed to them; thread the
+returned one. ``run_stream`` is a loop over batches that never waits on
+the host: keys, reports and state stay on the device until the caller
+reads them.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Tuple
+
+import torch
+
+from . import u32
+from .batched import BatchResult, make_batched_step
+from .config import DedupConfig
+from .device import resolve_device
+from .state import FilterState, init_state
+
+
+def next_pow2(n: int) -> int:
+    """Smallest power of two >= max(n, 1)."""
+    return 1 << max(0, (int(n) - 1).bit_length())
+
+
+def _as_valid(valid, n: int, device) -> torch.Tensor:
+    if valid is None:
+        return torch.ones((n,), dtype=torch.bool, device=device)
+    return torch.as_tensor(valid, device=device).to(torch.bool).contiguous()
+
+
+class Dedup:
+    def __init__(self, cfg: DedupConfig, device=None, *,
+                 partitionable: bool = True):
+        self.cfg = cfg.validate()
+        self.device = resolve_device(device)
+        self._step = make_batched_step(self.cfg, self.device, partitionable)
+        self._widths: set = set()
+        self._stream_lengths: set = set()
+
+    # ------------------------------------------------------------------ //
+    def init(self, seed: int | None = None) -> FilterState:
+        return init_state(self.cfg, seed, device=self.device)
+
+    def process(self, state: FilterState, keys, valid=None
+                ) -> Tuple[FilterState, BatchResult]:
+        """One batched step over keys (B,) (taken as uint32). The caller's
+        ``state`` is left as it was."""
+        keys = u32.as_words(keys, self.device)
+        valid = _as_valid(valid, keys.shape[0], self.device)
+        self._widths.add(int(keys.shape[0]))
+        return self._step(state._replace(bits=state.bits.clone()), keys,
+                          valid)
+
+    def process_padded(self, state: FilterState, keys, valid=None, *,
+                       width: int | None = None, donate: bool = False
+                       ) -> Tuple[FilterState, BatchResult]:
+        """``process`` with ``(keys, valid)`` padded by invalid lanes up to
+        ``width`` (default ``max(cfg.batch_size, next_pow2(n))``), the
+        serving front-end's bucket contract (DESIGN §5.2); the result is
+        sliced back to the request length. The step's randomness is drawn
+        at the padded width. ``donate=True`` updates the filter in place."""
+        keys = u32.as_words(keys, self.device)
+        n = int(keys.shape[0])
+        if width is None:
+            width = max(self.cfg.batch_size, next_pow2(n))
+        if n > width:
+            raise ValueError(f"batch of {n} exceeds pad width {width}")
+        valid = _as_valid(valid, n, self.device)
+        keys_p = torch.nn.functional.pad(keys, (0, width - n))
+        valid_p = torch.nn.functional.pad(valid, (0, width - n))
+        self._widths.add(width)
+        if not donate:
+            state = state._replace(bits=state.bits.clone())
+        state, res = self._step(state, keys_p, valid_p)
+        if width != n:
+            res = BatchResult(*(x[:n] for x in res))
+        return state, res
+
+    def process_cache_size(self) -> int:
+        """Distinct step widths seen (the serving bucket probe, §5.2)."""
+        return len(self._widths)
+
+    # ------------------------------------------------------------------ //
+    def run_stream(self, state: FilterState, keys
+                   ) -> Tuple[FilterState, torch.Tensor]:
+        """The batched engine over a whole (N,) stream, tail padded with
+        invalid lanes; returns per-element duplicate reports (N,) bool on
+        the device. The input state's filter is updated in place."""
+        b = self.cfg.batch_size
+        keys = u32.as_words(keys, self.device)
+        n = int(keys.shape[0])
+        n_pad = (-n) % b
+        kb = torch.nn.functional.pad(keys, (0, n_pad)).view(-1, b)
+        vb = (torch.arange(n + n_pad, device=self.device) < n).view(-1, b)
+        dups = torch.empty(kb.shape, dtype=torch.bool, device=self.device)
+        self._stream_lengths.add(n)
+        for i in range(kb.shape[0]):
+            state, res = self._step(state, kb[i], vb[i])
+            dups[i] = res.dup
+        return state, dups.reshape(-1)[:n]
+
+    def stream_cache_size(self) -> int:
+        """Distinct stream lengths seen by ``run_stream``."""
+        return len(self._stream_lengths)
+
+
+@functools.lru_cache(maxsize=64)
+def _cached_engine(cfg: DedupConfig, device: str, partitionable: bool
+                   ) -> Dedup:
+    return Dedup(cfg, device, partitionable=partitionable)
+
+
+def get_engine(cfg: DedupConfig, device=None, *,
+               partitionable: bool = True) -> Dedup:
+    """Engines hold no stream state, so equal (config, device, threefry
+    layout) triples share one engine."""
+    return _cached_engine(cfg, str(resolve_device(device)), partitionable)

@@ -1,0 +1,103 @@
+"""Vectorized uint32 hash family for Bloom-filter probing and key routing —
+the port of ``repro.core.hashing``.
+
+murmur3's 32-bit finalizer (fmix32) seeded per hash slot, reduced to a bit
+position by mask (power-of-two ``s``) or modulo. Keys and hashes travel as
+int32 bit patterns; the arithmetic runs on int64 values masked to 32 bits
+(``core.u32``). On a CUDA tensor with the plain layout, ``hash_positions``
+is the hashmix kernel (``kernels/hashmix.py``); on the CPU it is the plain
+PyTorch form below. The blocked layout (DESIGN §3.3) runs on the CPU only.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import u32
+from ..kernels import hashmix as _hashmix
+
+__all__ = ["fmix32", "hash_slots", "hash_positions", "route_hash",
+           "range_bucket", "derive_seeds"]
+
+_GOLDEN = np.uint32(0x9E3779B9)
+M1 = 0x85EBCA6B
+M2 = 0xC2B2AE35
+
+
+def fmix32(x: torch.Tensor) -> torch.Tensor:
+    """murmur3 finalizer on int64 values in [0, 2^32) -> int64 values."""
+    x = x ^ (x >> 16)
+    x = u32.mul32(x, M1)
+    x = x ^ (x >> 13)
+    x = u32.mul32(x, M2)
+    return x ^ (x >> 16)
+
+
+def derive_seeds(base_seed: int, k: int, channel: int = 0) -> np.ndarray:
+    """k decorrelated uint32 seeds (host numpy; ``channel`` separates probe,
+    block, routing and deletion uses so they never alias)."""
+    base = np.uint32(base_seed & 0xFFFFFFFF) ^ np.uint32(
+        (channel * M2) & 0xFFFFFFFF)
+    with np.errstate(over="ignore"):
+        idx = (np.arange(1, k + 1, dtype=np.uint32) * _GOLDEN) ^ base
+    x = idx
+    x = x ^ (x >> 16)
+    x = (x * np.uint32(M1)) & np.uint32(0xFFFFFFFF)
+    x = x ^ (x >> 13)
+    x = (x * np.uint32(M2)) & np.uint32(0xFFFFFFFF)
+    x = x ^ (x >> 16)
+    return x.astype(np.uint32)
+
+
+def hash_slots(keys: torch.Tensor, seeds: torch.Tensor) -> torch.Tensor:
+    """keys (...,) and seeds (k,) int32 words -> (..., k) int64 hashes."""
+    return fmix32(u32.to_u64(keys)[..., None] ^ u32.to_u64(seeds))
+
+
+def hash_positions(keys: torch.Tensor, seeds: torch.Tensor, s: int,
+                   block_bits: int = 0,
+                   block_seeds: torch.Tensor | None = None) -> torch.Tensor:
+    """Bit positions in [0, s) for each of the k filters -> (..., k) int32.
+    ``seeds`` (k,) int32 words on the keys' device (``derive_seeds`` moved
+    there once by the caller, so a step copies nothing from the host).
+
+    ``block_bits`` > 0 selects the blocked layout (DESIGN §3.3): a hash
+    over ``block_seeds`` picks a 2^block_bits-bit block per filter and the
+    bit lands inside it."""
+    if block_bits <= 0:
+        return _hashmix.hashmix(keys, seeds, s=s)
+    if keys.is_cuda:
+        raise NotImplementedError(
+            "the blocked layout (block_bits > 0) has no CUDA kernel yet — "
+            "ROADMAP Queue 2 item 5")
+    if block_seeds is None:
+        raise ValueError("blocked layout needs block_seeds")
+    h = hash_slots(keys, seeds)
+    bsize = 1 << block_bits
+    n_blocks = max(1, s // bsize)
+    block = hash_slots(keys, block_seeds) % n_blocks
+    return (block * bsize + (h & (bsize - 1))).to(torch.int32)
+
+
+def route_hash(keys: torch.Tensor, n_shards: int, base_seed: int
+               ) -> torch.Tensor:
+    """Shard id in [0, n_shards) (channel 7: independent of every probe)."""
+    seed = int(derive_seeds(base_seed, 1, channel=7)[0])
+    h = fmix32(u32.to_u64(keys) ^ seed)
+    if n_shards & (n_shards - 1) == 0:
+        return (h & (n_shards - 1)).to(torch.int32)
+    return (h % n_shards).to(torch.int32)
+
+
+def range_bucket(keys: torch.Tensor, n_buckets: int) -> torch.Tensor:
+    """Router bucket in [0, n_buckets) by contiguous key range (DESIGN §4.4)."""
+    k = u32.to_u64(keys)
+    if n_buckets & (n_buckets - 1) == 0:
+        shift = 32 - (n_buckets.bit_length() - 1)
+        if shift >= 32:
+            return torch.zeros(keys.shape, dtype=torch.int32,
+                               device=keys.device)
+        return (k >> shift).to(torch.int32)
+    stride = (1 << 32) // n_buckets + 1
+    return torch.clamp(k // stride, max=n_buckets - 1).to(torch.int32)
