@@ -3,15 +3,32 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from the sources in this checkout, holds
-each against its plain PyTorch version on the card, reproduces the
-reference's pinned digests on CUDA, drives the main path — rlbsbf on the
-paper's 256 MB table (k = 2, s = 2^30 bits per row) at batch width 8192
-over a 2^24-record stream with the paper's 60% distinct fraction — and
-times each kernel beside its bound. Every phase fails the run; the last
-line of standard output is ``{"ok": true, "device": {...}}`` only when all
-of them passed. Without a CUDA device, or without the ``src/repro_torch``
-package beside this file, it exits non-zero and prints no result.
+Builds the port's CUDA kernels from the sources in this checkout (one
+``nvcc`` per source, all at once), holds each against its plain PyTorch
+version on the card at the paper's 256 MB table — the bitset step for
+rsbf, bsbf, bsbfsd and rlbsbf, the counter step for sbf, sbf at Max 1,
+swbf, cms and hh (sbf at Max 1 at 128 MB: its one plane of 2^31 cells
+would overflow the int32 sentinel), hashmix, bloom_probe and
+scatter_delta — and reproduces the reference's seven pinned digests on
+CUDA. Then it drives three paths
+over one 2^24-record stream at the paper's 60% distinct fraction, batch
+8192, each with the launch counts set to 0 just before and read just
+after:
+
+* rlbsbf on the 256 MB table (k = 2, s = 2^30 bits per row): hashmix and
+  the bitset step;
+* sbf, the paper's baseline, on the 256 MB table (k = 3, Max 3, 2^30
+  two-bit cells): hashmix and the counter step, then one ``estimate`` and
+  one ``top_cells``;
+* a classic Bloom filter through ``kernels/ops.py`` on the rlbsbf table's
+  shape, over the stream's first 2^21 records: hashmix, bloom_probe and
+  scatter_delta.
+
+Last it times each kernel beside its bound and profiles a step of each
+engine path. Every phase fails the run; the last line of standard output
+is ``{"ok": true, "device": {...}}`` only when all of them passed. Without
+a CUDA device, or without the ``src/repro_torch`` package beside this
+file, it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -32,6 +49,7 @@ SEED = 0
 MEMORY_BITS = 1 << 31            # the paper's 256 MB table (configs/paper_dedup.py)
 BATCH = 8192                     # DedupConfig.batch_size
 STREAM_N = 1 << 24               # the paper's 695M-1B records, cut for time
+OPS_N = 1 << 21                  # the ops path's prefix of the stream
 DISTINCT_FRAC = 0.60             # the paper's 60% distinct (Section 6)
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_OPS_PER_S = 67e12           # H100 SXM float32 outside the tensor cores
@@ -40,11 +58,36 @@ PINNED_DIGESTS = {               # tests/test_sketch_template.py (reference)
     "bsbfsd": "9936da3ee28dfb25",
     "rlbsbf": "2fa66ecae9583e86",
     "rsbf": "6371d978a8821296",
+    "sbf": "be5220c6e677d339",
+    "sbf_d1": "b5702a4fbe9dc5c0",
+    "swbf": "4580749bdb028080",
 }
+BITSET = ("rsbf", "bsbf", "bsbfsd", "rlbsbf")
+COUNTER = ("sbf", "sbf_d1", "swbf", "cms", "hh")
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def config(name, **kw):
+    """The port's config for a variant name of the digest grid: the bitset
+    variants and sbf on the plane layout, sbf_d1 = sbf at Max 1."""
+    from repro_torch.core import DedupConfig
+    if name in BITSET:
+        return DedupConfig.for_variant(name, packed=True, **kw)
+    if name == "sbf":
+        return DedupConfig.for_variant("sbf", layout="planes", **kw)
+    if name == "sbf_d1":
+        return DedupConfig.for_variant("sbf", layout="planes", sbf_max=1,
+                                       **kw)
+    return DedupConfig.for_variant(name, **kw)
+
+
+def abs_err(a, b) -> int:
+    """Largest absolute difference of two tensors taken as uint32 values."""
+    from repro_torch.core import u32
+    return int((u32.to_u64(a) - u32.to_u64(b)).abs().max())
 
 
 def step_inputs(cfg, state, keys, valid, partitionable=True):
@@ -83,6 +126,166 @@ def random_state(cfg, rng, position: int):
     return state_from_numpy(leaves, cfg, "cuda")
 
 
+def random_counter_state(cfg, rng, position: int):
+    """A counter state with random cells, half of them zero, its exact
+    nonzero-cell load, and for swbf a ring of random sorted slots, handed
+    to the port through ``state_from_numpy`` at stream ``position``. Every
+    d-bit value is a valid cell: the grid's caps are all 2^d - 1."""
+    import torch
+    from repro_torch.convert import state_from_numpy
+    from repro_torch.core import packed, u32
+    d, w = cfg.n_planes, cfg.s_words
+    planes = rng.integers(0, 2 ** 32, (d, w), dtype=np.uint32)
+    planes &= rng.integers(0, 2 ** 32, w, dtype=np.uint32)[None]
+    tail = cfg.s - 32 * (w - 1)                  # cells past s stay zero
+    if tail < 32:
+        planes[:, -1] &= np.uint32((1 << tail) - 1)
+    nz = packed.planes_nonzero(u32.from_numpy_u32(planes, "cuda"))
+    leaves = {"bits": planes[:, None, :] if d > 1 else planes,
+              "position": np.int32(position),
+              "load": packed.popcount(nz[None]).cpu().numpy(),
+              "rng": np.array([0, cfg.seed], np.uint32)}
+    if cfg.variant == "swbf":
+        e = cfg.batch_size * cfg.k
+        ev = rng.integers(0, cfg.s, (cfg.window, e))
+        ev[rng.random((cfg.window, e)) < 0.3] = 32 * w
+        leaves["ring_events"] = np.sort(ev, axis=1).astype(np.int32)
+        leaves["ring_slot"] = np.int32(3)
+    del planes, nz
+    torch.cuda.empty_cache()
+    return state_from_numpy(leaves, cfg, "cuda")
+
+
+def counter_inputs(cfg, spec, state, keys, valid):
+    """What the engine's counter step hands the kernel for one batch (the
+    events with their delta planes, which only the plain version reads),
+    and the key the step leaves behind."""
+    import torch
+    from repro_torch.core import batched, hashing, u32
+    dev = state.bits.device
+    seeds = u32.from_numpy_u32(hashing.derive_seeds(cfg.seed, cfg.k), dev)
+    kw = u32.from_numpy_u32(keys, dev)
+    v = torch.as_tensor(valid, device=dev)
+    pos = hashing.hash_positions(kw, seeds, cfg.s)
+    seen = batched.intra_batch_seen(kw, v) if spec.uses_seen else None
+    rng, rnd = (spec.draw(cfg, state.rng, len(keys)) if spec.draw
+                else (state.rng, None))
+    ev = spec.make_events(cfg)(state, pos, v, rnd)
+    return rng, (pos, v, seen, state.load, ev)
+
+
+def phase_counter(rng):
+    """The counter step against its plain version for the five counter
+    configs at 256 MB (sbf_d1 at 128 MB), both values of
+    ``kernel_accumulate``, over a repeated-key, a ragged and a fresh batch
+    each."""
+    import dataclasses
+    import torch
+    from repro_torch.core import batched, packed
+    from repro_torch.core.sketch import get_spec
+    from repro_torch.kernels.fused_template import (counter_step,
+                                                    counter_step_plain)
+    worst = 0
+    valid_all = np.ones(BATCH, bool)
+    ragged = np.arange(BATCH) < 5000
+    for name in COUNTER:
+        # sbf at Max 1 has one plane: 256 MB would be 2^31 cells, whose
+        # sentinel 32·W = 2^31 overflows int32 (in the reference too), so it
+        # runs at 128 MB
+        memory = MEMORY_BITS // 2 if name == "sbf_d1" else MEMORY_BITS
+        base = config(name, memory_bits=memory, batch_size=BATCH)
+        spec = get_spec(base.variant)
+        start = random_counter_state(base, rng, 5000)
+        batches = [
+            ("repeated keys", rng.integers(0, 300, BATCH), valid_all),
+            ("ragged valid", rng.integers(0, 2 ** 32, BATCH), ragged),
+            ("fresh keys", rng.integers(0, 2 ** 32, BATCH), valid_all),
+        ]
+        for accumulate in (False, True):
+            cfg = dataclasses.replace(base, kernel_accumulate=accumulate)
+            state = start
+            for label, keys, valid in batches:
+                rng_next, args = counter_inputs(cfg, spec, state,
+                                                keys.astype(np.uint32), valid)
+                pos, v, seen, load_in, ev = args
+                planes = batched.sbf_planes_3d(state.bits)[:, 0, :]
+                got = planes.clone()
+                dup, load = counter_step(cfg, spec, got, *args)
+                new, dup_p, load_p = counter_step_plain(cfg, spec, planes,
+                                                        *args)
+                torch.cuda.synchronize()
+                diff = (got != new).sum().item()
+                worst = max(worst, abs_err(got, new), abs_err(dup, dup_p),
+                            abs_err(load, load_p))
+                nz = packed.popcount(packed.planes_nonzero(got)[None])
+                ok = (diff == 0 and torch.equal(dup, dup_p)
+                      and torch.equal(load, load_p) and torch.equal(load, nz))
+                log(f"[counter] {name} d={cfg.n_planes} k={cfg.k} "
+                    f"s={cfg.s} accumulate={accumulate} {label}: "
+                    f"dup={int(dup.sum())} load={load.tolist()} words "
+                    f"differing={diff} -> "
+                    f"{'exactly equal' if ok else 'MISMATCH'}")
+                if not ok:
+                    raise AssertionError(f"counter step != plain: {name} "
+                                         f"accumulate={accumulate} {label}")
+                ring = (batched.ring_push(state.ring, ev.ring_payload,
+                                          cfg.window)
+                        if ev.ring_payload is not None else state.ring)
+                state = state._replace(
+                    bits=got[:, None, :] if got.shape[0] > 1 else got,
+                    load=load, rng=rng_next, ring=ring,
+                    position=state.position + int(v.sum()))
+                del planes, new, ev, args
+        del start, state, got
+        torch.cuda.empty_cache()
+    return worst
+
+
+def phase_ops(rng):
+    """bloom_probe and scatter_delta (OR and AND-NOT; disabled lanes as -1
+    and as >= W) against their plain versions at k = 2, W = 2^25,
+    B = 8192; -> the largest differences (probe, scatter)."""
+    import torch
+    from repro_torch.core import u32
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.bloom_probe import bloom_probe_plain
+    from repro_torch.kernels.scatter_delta import scatter_delta_plain
+    k, w = 2, 1 << 25
+    words = u32.from_numpy_u32(rng.integers(0, 2 ** 32, (k, w),
+                                            dtype=np.uint32), "cuda")
+    idx = torch.from_numpy(rng.integers(0, w, (BATCH, k)).astype(np.int32)
+                           ).cuda()
+    mask = u32.to_i32(1 << torch.from_numpy(rng.integers(0, 32, (BATCH, k)))
+                      .cuda())
+    hits = ops.probe(words, idx, mask)
+    want = bloom_probe_plain(words, idx, mask)
+    torch.cuda.synchronize()
+    probe_err, scatter_err = abs_err(hits, want), 0
+    if not torch.equal(hits, want):
+        raise AssertionError("bloom_probe != plain")
+    log(f"[ops] bloom_probe k={k} W={w} B={BATCH}: hits={int(hits.sum())}, "
+        f"exactly equal to the plain version")
+    off = torch.from_numpy(rng.random((BATCH, k)) < 0.2).cuda()
+    for disabled in (-1, w, w + 12345):
+        di = torch.where(off, disabled, idx).to(torch.int32).contiguous()
+        delta = scatter_delta_plain(di, mask, w)
+        got_or = ops.scatter_or(words, di, mask)
+        got_andnot = ops.scatter_andnot(words, di, mask)
+        torch.cuda.synchronize()
+        scatter_err = max(scatter_err, abs_err(got_or, words | delta),
+                          abs_err(got_andnot, words & ~delta))
+        if not (torch.equal(got_or, words | delta)
+                and torch.equal(got_andnot, words & ~delta)):
+            raise AssertionError(f"scatter_delta != plain, disabled lanes "
+                                 f"{disabled}")
+        log(f"[ops] scatter_or / scatter_andnot k={k} W={w} B={BATCH}, "
+            f"disabled lanes as {disabled}: "
+            f"{int((got_or != words).sum())} / "
+            f"{int((got_andnot != words).sum())} words changed, exactly "
+            f"equal to the plain version")
+    return probe_err, scatter_err
+
+
 def phase_hashmix(rng):
     import torch
     from repro_torch.core import DedupConfig, hashing, u32
@@ -110,17 +313,12 @@ def phase_hashmix(rng):
 
 def phase_bitset(rng):
     import torch
-    from repro_torch.core import DedupConfig, packed, u32
+    from repro_torch.core import packed
     from repro_torch.kernels.fused_template import (bitset_step,
                                                     bitset_step_plain)
-
-    def abs_err(a, b):
-        return int((u32.to_u64(a) - u32.to_u64(b)).abs().max())
-
     worst = 0
-    for variant in ("rsbf", "bsbf", "bsbfsd", "rlbsbf"):
-        cfg = DedupConfig.for_variant(variant, memory_bits=MEMORY_BITS,
-                                      packed=True)
+    for variant in BITSET:
+        cfg = config(variant, memory_bits=MEMORY_BITS)
         # position s - 4000 puts rsbf's phase-1 -> phase-2 boundary inside
         # the batches
         state = random_state(cfg, rng, cfg.s - 4000)
@@ -165,10 +363,10 @@ def phase_bitset(rng):
 
 def phase_digests():
     from repro_torch.convert import state_to_numpy
-    from repro_torch.core import Dedup, DedupConfig
+    from repro_torch.core import Dedup
     for name, want in PINNED_DIGESTS.items():
-        cfg = DedupConfig.for_variant(name, memory_bits=1 << 14,
-                                      batch_size=256, packed=True)
+        cfg = config(name, memory_bits=1 << 14, batch_size=256,
+                     **({"window": 4} if name == "swbf" else {}))
         # the digests were captured under JAX's original threefry layout
         eng = Dedup(cfg, "cuda", partitionable=False)
         state = eng.init()
@@ -184,28 +382,34 @@ def phase_digests():
             h.update(res.dup.cpu().numpy().tobytes())
             h.update(res.inserted.cpu().numpy().tobytes())
         leaves = state_to_numpy(state)
-        for key in ("bits", "load", "position", "rng"):
-            h.update(leaves[key].tobytes())
+        for key in ("bits", "load", "position", "rng", "ring_events",
+                    "ring_slot"):
+            if key in leaves:
+                h.update(leaves[key].tobytes())
         got = h.hexdigest()[:16]
         log(f"[digest] {name}: {got} (pinned {want})")
         if got != want:
             raise AssertionError(f"pinned digest mismatch for {name}")
 
 
-def phase_main_path():
-    import torch
-    from repro_torch.core import Dedup, DedupConfig, packed
+def make_stream():
+    """The 2^24-record stream every path reads, made once on the host."""
     from repro_torch.data.streams import controlled_distinct_stream
-    from repro_torch.dedup.metrics import fpr_fnr
-    from repro_torch.kernels.fused_template import bitset_step
-    from repro_torch.kernels.hashmix import hashmix
-    cfg = DedupConfig.for_variant("rlbsbf", memory_bits=MEMORY_BITS,
-                                  packed=True, batch_size=BATCH)
     t0 = time.perf_counter()
     keys, truth = controlled_distinct_stream(STREAM_N, DISTINCT_FRAC,
                                              seed=SEED)
-    log(f"[main] stream of {STREAM_N} records ({DISTINCT_FRAC:.0%} distinct)"
-        f" made in {time.perf_counter() - t0:.1f} s on the host")
+    log(f"[stream] {STREAM_N} records ({DISTINCT_FRAC:.0%} distinct) made in "
+        f"{time.perf_counter() - t0:.1f} s on the host")
+    return keys, truth
+
+
+def phase_main_path(keys, truth):
+    import torch
+    from repro_torch.core import Dedup, packed
+    from repro_torch.dedup.metrics import fpr_fnr
+    from repro_torch.kernels.fused_template import bitset_step
+    from repro_torch.kernels.hashmix import hashmix
+    cfg = config("rlbsbf", memory_bits=MEMORY_BITS, batch_size=BATCH)
     eng = Dedup(cfg)
     state = eng.init()
     torch.cuda.synchronize()
@@ -240,6 +444,117 @@ def phase_main_path():
     return cfg, state, launches, secs
 
 
+def phase_sbf_path(keys, truth):
+    """sbf, the paper's baseline, on the 256 MB table over the same stream;
+    then the counter read-outs on its final state."""
+    import torch
+    from repro_torch.core import Dedup, packed
+    from repro_torch.dedup.metrics import fpr_fnr
+    from repro_torch.kernels.fused_template import counter_step
+    from repro_torch.kernels.hashmix import hashmix
+    cfg = config("sbf", memory_bits=MEMORY_BITS, batch_size=BATCH)
+    eng = Dedup(cfg)
+    state = eng.init()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    hashmix.launches = 0
+    counter_step.launches = 0
+    t0 = time.perf_counter()
+    state, dup = eng.run_stream(state, keys)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {"hashmix": hashmix.launches,
+                "counter_step": counter_step.launches}
+    peak = torch.cuda.max_memory_allocated()
+    fpr, fnr = fpr_fnr(dup, truth)
+    nz = packed.popcount(packed.planes_nonzero(state.bits[:, 0, :])[None])
+    exact = torch.equal(state.load, nz)
+    load = int(state.load[0])
+    log(f"[sbf] sbf 256 MB k={cfg.k} Max={cfg.sbf_max} "
+        f"P={cfg.sbf_p_effective} d={cfg.n_planes} s={cfg.s} cells "
+        f"batch={BATCH}: {STREAM_N} elements in {secs:.4f} s = "
+        f"{STREAM_N / secs:.1f} elements/s (host clock, ends in "
+        f"synchronize)")
+    log(f"[sbf] FPR={fpr:.6g} FNR={fnr:.6g} load={load} nonzero cells "
+        f"(fraction {load / cfg.s:.6g}) position={int(state.position)} "
+        f"load==nonzero popcount: {exact}")
+    log(f"[sbf] kernel launches: {launches}; peak memory allocated "
+        f"{peak / 2 ** 20:.1f} MiB")
+    if not (dup.shape == (STREAM_N,) and exact
+            and int(state.position) == STREAM_N + 1
+            and 0.0 <= fpr < 0.05 and 0.0 <= fnr < 0.5):
+        raise AssertionError("sbf path result out of bounds")
+    if min(launches.values()) < 1:
+        raise AssertionError(f"a kernel of the sbf path never ran: "
+                             f"{launches}")
+    est = eng.estimate(state, keys[-BATCH:])
+    cells, counts = eng.top_cells(state, 16)
+    torch.cuda.synchronize()
+    hist = torch.bincount(est.long(), minlength=cfg.sbf_max + 1).tolist()
+    log(f"[sbf] estimate over the stream's last {BATCH} keys: counts of "
+        f"values 0..{cfg.sbf_max} = {hist}")
+    log(f"[sbf] top_cells(16): cells={cells.tolist()} "
+        f"counts={counts.tolist()}; peak memory allocated "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 20:.1f} MiB")
+    if not (est.shape == (BATCH,) and int(est.max()) <= cfg.sbf_max
+            and int(counts[0]) == cfg.sbf_max
+            and bool((counts[:-1] >= counts[1:]).all())):
+        raise AssertionError("sbf read-outs out of bounds")
+    return cfg, state, launches, secs
+
+
+def phase_ops_path(keys, truth):
+    """A classic Bloom filter through ``kernels/ops.py``, as a user of
+    those entry points builds one: k = 2 rows of 2^30 bits (the rlbsbf
+    table's shape), each batch probed with ``fused_probe`` and its
+    unreported keys set with ``scatter_or`` (-1 disables a lane). Afterwards
+    every key of the prefix must probe present: a Bloom filter has no false
+    negatives for what it holds."""
+    import torch
+    from repro_torch.core import hashing, packed, u32
+    from repro_torch.dedup.metrics import fpr_fnr, truth_from_stream
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.bloom_probe import bloom_probe
+    from repro_torch.kernels.hashmix import hashmix
+    from repro_torch.kernels.scatter_delta import scatter_delta
+    cfg = config("rlbsbf", memory_bits=MEMORY_BITS)
+    seeds = u32.from_numpy_u32(hashing.derive_seeds(cfg.seed, cfg.k), "cuda")
+    kw = u32.from_numpy_u32(keys[:OPS_N], "cuda")
+    words = torch.zeros((cfg.k, cfg.s_words), dtype=torch.int32,
+                        device="cuda")
+    dups = torch.empty((OPS_N,), dtype=torch.bool, device="cuda")
+    torch.cuda.synchronize()
+    hashmix.launches = bloom_probe.launches = scatter_delta.launches = 0
+    t0 = time.perf_counter()
+    for i in range(0, OPS_N, BATCH):
+        dup, _, pos = ops.fused_probe(kw[i:i + BATCH], words, seeds, cfg.s)
+        w_idx, mask = packed.split_pos(pos)
+        w_idx = torch.where(dup[:, None], -1, w_idx).to(torch.int32)
+        words = ops.scatter_or(words, w_idx.contiguous(), mask)
+        dups[i:i + BATCH] = dup
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {"hashmix": hashmix.launches,
+                "bloom_probe": bloom_probe.launches,
+                "scatter_delta": scatter_delta.launches}
+    fpr, fnr = fpr_fnr(dups, truth_from_stream(keys[:OPS_N]))
+    held = all(bool(ops.fused_probe(kw[i:i + BATCH], words, seeds,
+                                    cfg.s)[0].all())
+               for i in range(0, OPS_N, BATCH))
+    log(f"[ops path] Bloom filter k={cfg.k} s={cfg.s} batch={BATCH} over "
+        f"{OPS_N} records: {OPS_N / secs:.1f} elements/s (host clock); "
+        f"FPR={fpr:.6g} FNR={fnr:.6g} (a key repeated inside its own batch "
+        f"is not caught: both copies probe before the insert); set bits "
+        f"{packed.popcount(words).tolist()}; every key held afterwards: "
+        f"{held}; kernel launches: {launches}")
+    if not (held and 0.0 <= fpr < 0.05):
+        raise AssertionError("ops path result out of bounds")
+    if min(launches.values()) < 1:
+        raise AssertionError(f"a kernel of the ops path never ran: "
+                             f"{launches}")
+    return launches
+
+
 def bitset_step_bytes(cfg, words, pos, rnd, v, seen, i_t, load) -> int:
     """The bytes one bitset step must move on these inputs: each input it
     needs read once, each output written once, each filter word it must
@@ -268,6 +583,37 @@ def bitset_step_bytes(cfg, words, pos, rnd, v, seen, i_t, load) -> int:
     inputs = 4 * k * n_valid + 2 * b + 4 * k + 4 * int(del_mask.sum())
     outputs = 2 * b + 4 * k                 # dup, inserted, load
     return inputs + draws + outputs + 4 * (n_read + n_written)
+
+
+def counter_step_bytes(cfg, spec, pos, v, seen, load, ev):
+    """(bytes, operations) one counter step must spend on these inputs:
+    positions of valid lanes, the valid and seen flags, the run heads of
+    both event lists (cell, and count where one is needed), each distinct
+    plane word it must probe or update read once and each word it updates
+    written once, and the outputs (dup, load)."""
+    import torch
+    d, w, k = cfg.n_planes, cfg.s_words, cfg.k
+    b = pos.shape[0]
+    sentinel = 32 * w
+
+    def heads(events, head):
+        return events[head & (events < sentinel)]
+
+    ins = heads(ev.ins_events, ev.ins_heads)
+    sub = heads(ev.sub_events, ev.sub_heads) if spec.has_sub else ins[:0]
+    touched = torch.unique(torch.cat([ins >> 5, sub >> 5]))
+    probe_w = (pos.long() >> 5)[v].reshape(-1)
+    n_read = d * torch.unique(torch.cat([probe_w, touched])).numel()
+    n_written = d * touched.numel()
+    inputs = (4 * k * int(v.sum()) + b * (2 if spec.uses_seen else 1) + 4
+              + 8 * sub.numel()
+              + (4 if spec.combine == "set" else 8) * ins.numel())
+    outputs = b + 4                                  # dup, load
+    # ~d + 4 operations per probed cell, per event and per plane of an
+    # updated word a handful more (masks, chains, popcounts)
+    ops = (b * k * (d + 4) + (sub.numel() + ins.numel()) * (d + 4)
+           + touched.numel() * 8 * d)
+    return inputs + outputs + 4 * (n_read + n_written), ops
 
 
 def bound(nbytes: float, ops: float):
@@ -321,93 +667,183 @@ def timed(make_run, n: int, names=None):
             "the profiler saw no such kernel")
 
 
-def phase_timings(cfg, state, card):
+def chained(step, state_words, load):
+    """A run of ``step(words, i, load) -> (words, load)`` over the batches,
+    each call on the filter and load the one before it left."""
+    cur = [state_words, load]
+
+    def one(i):
+        cur[0], cur[1] = step(cur[0], i, cur[1])
+    return one
+
+
+def phase_timings(cfg, state, sbf_cfg, sbf_state, card):
     """Per-kernel device times on 16 fresh batches past the main stream,
-    each launch on the filter the one before it left, as the stream runs:
-    the kernels' own rows of a torch.profiler trace, the plain versions'
-    device kernels on the same inputs, and the bound from what these
-    batches need."""
-    from repro_torch.core import hashing, u32
+    each step launch on the filter the one before it left, as the stream
+    runs: the kernels' own rows of a torch.profiler trace, the plain
+    versions' device kernels on the same inputs, and the bound from what
+    these batches need. hashmix, the bitset step, bloom_probe and
+    scatter_delta run at the rlbsbf table's shapes (k = 2, W = 2^25), the
+    counter step at sbf's."""
+    import torch
+    from repro_torch.core import batched, hashing, packed, u32
+    from repro_torch.core.sketch import get_spec
     from repro_torch.data.streams import controlled_distinct_stream
-    from repro_torch.kernels.fused_template import (bitset_step,
-                                                    bitset_step_plain)
+    from repro_torch.kernels.bloom_probe import bloom_probe, \
+        bloom_probe_plain
+    from repro_torch.kernels.fused_template import (
+        bitset_step, bitset_step_plain, counter_step, counter_step_plain)
     from repro_torch.kernels.hashmix import hashmix, hashmix_plain
-    n_b, k = 16, cfg.k
+    from repro_torch.kernels.scatter_delta import (scatter_delta,
+                                                   scatter_delta_plain)
+    n_b, k, w = 16, cfg.k, cfg.s_words
     more, _ = controlled_distinct_stream(n_b * BATCH, DISTINCT_FRAC,
                                          seed=SEED + 1)
+    batches = [more[i * BATCH:(i + 1) * BATCH] for i in range(n_b)]
     valid = np.ones(BATCH, bool)
     seeds = u32.from_numpy_u32(hashing.derive_seeds(cfg.seed, k), "cuda")
-    keys = [u32.from_numpy_u32(more[i * BATCH:(i + 1) * BATCH], "cuda")
-            for i in range(n_b)]
+    keys = [u32.from_numpy_u32(x, "cuda") for x in batches]
     inputs, nbytes = [], 0
     st = state._replace(bits=state.bits.clone())
-    for i in range(n_b):
-        rng, args = step_inputs(cfg, st, more[i * BATCH:(i + 1) * BATCH],
-                                valid)
+    for x in batches:
+        rng, args = step_inputs(cfg, st, x, valid)
         nbytes += bitset_step_bytes(cfg, st.bits, *args, st.load)
         inputs.append(args)
         _, _, load = bitset_step(cfg, st.bits, *args, st.load)
         st = st._replace(position=st.position + BATCH, rng=rng, load=load)
     del st
+    spec = get_spec("sbf")
+    c_inputs, c_bytes, c_ops = [], 0, 0
+    st = sbf_state._replace(bits=sbf_state.bits.clone())
+    for x in batches:
+        rng, args = counter_inputs(sbf_cfg, spec, st, x, valid)
+        nb, no = counter_step_bytes(sbf_cfg, spec, *args)
+        c_bytes, c_ops = c_bytes + nb, c_ops + no
+        c_inputs.append(args[:3] + args[4:])           # the load chains
+        _, load = counter_step(sbf_cfg, spec, st.bits[:, 0, :], *args)
+        st = st._replace(position=st.position + BATCH, rng=rng, load=load)
+    del st
+    # the ops functions on the rlbsbf filter: probe every key, scatter the
+    # keys the probe did not find
+    pos = [hashmix_plain(x, seeds, cfg.s) for x in keys]
+    idx = [packed.split_pos(p) for p in pos]
+    hits = [bloom_probe_plain(state.bits, i, m) for i, m in idx]
+    sc_idx = [torch.where(h.all(dim=1)[:, None] != 0, -1, i).to(torch.int32)
+              .contiguous() for h, (i, _) in zip(hits, idx)]
+    probed = torch.cat([(torch.arange(k, device="cuda") * w + i.long())
+                        .reshape(-1) for i, _ in idx])
+    n_probed = torch.unique(probed).numel()
 
-    def hashmix_run():
-        return lambda i: hashmix(keys[i], seeds, s=cfg.s)
+    def bitset(words, i, load):
+        return words, bitset_step(cfg, words, *inputs[i], load)[2]
 
-    def hashmix_plain_run():
-        return lambda i: hashmix_plain(keys[i], seeds, cfg.s)
+    def bitset_plain(words, i, load):
+        new, _, _, load = bitset_step_plain(cfg, words, *inputs[i], load)
+        return new, load
 
-    def step_run():
-        words, load = state.bits.clone(), [state.load]
+    def counter(planes, i, load):
+        pos_, v_, seen_, ev_ = c_inputs[i]
+        return planes, counter_step(sbf_cfg, spec, planes, pos_, v_, seen_,
+                                    load, ev_)[1]
 
-        def one(i):
-            load[0] = bitset_step(cfg, words, *inputs[i], load[0])[2]
-        return one
+    def counter_plain(planes, i, load):
+        pos_, v_, seen_, ev_ = c_inputs[i]
+        new, _, load = counter_step_plain(sbf_cfg, spec, planes, pos_, v_,
+                                          seen_, load, ev_)
+        return new, load
 
-    def step_plain_run():
-        words, load = [state.bits], [state.load]
-
-        def one(i):
-            words[0], _, _, load[0] = bitset_step_plain(cfg, words[0],
-                                                        *inputs[i], load[0])
-        return one
-
-    bounds = {
-        # 4 B per key in, 4 per seed, 4 per position out; ~10 integer
-        # operations per (key, row): xor, three xor-shifts, two multiplies,
-        # mask or modulo
-        "hashmix": (4 * BATCH + 4 * k + 4 * BATCH * k, 10 * BATCH * k),
-        # ~4 operations per probe, ~10 for the decision, ~4 per update
-        "bitset_step": (nbytes / n_b, BATCH * (8 * k + 10)),
+    sbf_planes = sbf_state.bits[:, 0, :]
+    runs = {
+        "hashmix": (lambda: lambda i: hashmix(keys[i], seeds, s=cfg.s),
+                    lambda: lambda i: hashmix_plain(keys[i], seeds, cfg.s),
+                    ("hashmix_kernel",),
+                    # 4 B per key in, 4 per seed, 4 per position out; ~10
+                    # integer operations per (key, row)
+                    (4 * BATCH + 4 * k + 4 * BATCH * k, 10 * BATCH * k)),
+        "bitset_step": (
+            lambda: chained(bitset, state.bits.clone(), state.load),
+            lambda: chained(bitset_plain, state.bits, state.load),
+            ("probe_decide", "apply_deletes", "apply_inserts"),
+            # ~4 operations per probe, ~10 for the decision, ~4 per update
+            (nbytes / n_b, BATCH * (8 * k + 10))),
+        "counter_step": (
+            lambda: chained(counter, sbf_planes.clone(), sbf_state.load),
+            lambda: chained(counter_plain, sbf_planes, sbf_state.load),
+            ("counter_probe_decide", "counter_apply"),
+            (c_bytes / n_b, c_ops / n_b)),
+        "bloom_probe": (
+            lambda: lambda i: bloom_probe(state.bits, *idx[i]),
+            lambda: lambda i: bloom_probe_plain(state.bits, *idx[i]),
+            ("bloom_probe_kernel",),
+            # index and mask in, each distinct word gathered once, hits out
+            ((9 * BATCH * k + 4 * n_probed / n_b), 3 * BATCH * k)),
+        # the wrapper's zero fill is part of the function: its (k, W) delta
+        # must be written whole
+        "scatter_delta": (
+            lambda: lambda i: scatter_delta(sc_idx[i], idx[i][1], w=w),
+            lambda: lambda i: scatter_delta_plain(sc_idx[i], idx[i][1], w),
+            None,
+            (8 * BATCH * k + 4 * k * w, 2 * BATCH * k)),
     }
-    runs = {"hashmix": (hashmix_run, hashmix_plain_run, ("hashmix_kernel",)),
-            "bitset_step": (step_run, step_plain_run,
-                            ("probe_decide", "apply_deletes",
-                             "apply_inserts"))}
     out = {}
-    for name, (run, plain_run, kernels) in runs.items():
+    for name, (run, plain_run, kernels, work) in runs.items():
         run()(0)                                       # warm
         ms, how = timed(run, n_b, kernels)
         plain_ms, plain_how = timed(plain_run, n_b)
         through_wrapper = wall_ms(run(), n_b)
-        bound_ms, bound_by = bound(*bounds[name])
+        bound_ms, bound_by = bound(*work)
         out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                          bound_by=bound_by)
         log(f"[time] {name}: kernel {ms:.6f} ms per call ({how}); plain "
             f"version {plain_ms:.6f} ms per call ({plain_how}); bound "
-            f"{bound_ms:.7f} ms by {bound_by}; through its wrapper, calls "
-            f"back to back: {through_wrapper:.6f} ms per call (CUDA events; "
-            f"{card})")
+            f"{bound_ms:.7f} ms by {bound_by} ({work[0]:.0f} bytes, "
+            f"{work[1]:.0f} operations); through its wrapper, calls back to "
+            f"back: {through_wrapper:.6f} ms per call (CUDA events; {card})")
     return out
 
 
-def phase_profile(cfg, state, card):
-    """Where a main-path step's time goes: the host clock per call of the
-    step's two plain-PyTorch pieces (each call synchronised; the kernels'
-    times are the "time" phase's), then torch.profiler over 16 steps for
-    the device's busy time, its kernel count and idle share."""
+def bitset_pieces(cfg, st, kw, v):
+    """The plain-PyTorch pieces of a bitset step, for the host clock."""
+    from repro_torch.core import batched
+    return {
+        "intra_batch_seen (sort join)":
+            lambda: batched.intra_batch_seen(kw, v),
+        "draw_randomness (threefry)":
+            lambda: batched.draw_randomness(cfg, st.rng, BATCH),
+    }
+
+
+def sbf_pieces(cfg, st, kw, v):
+    """The plain-PyTorch pieces of an sbf step, for the host clock."""
+    from repro_torch.core import batched, hashing, u32
+    from repro_torch.kernels import fused_template as ft
+    seeds = u32.from_numpy_u32(hashing.derive_seeds(cfg.seed, cfg.k), "cuda")
+    pos = hashing.hash_positions(kw, seeds, cfg.s)
+    _, start = batched.draw_sbf_randomness(cfg, st.rng, BATCH)
+    ev = batched.sbf_event_deltas(cfg, pos, start, v, build_planes=False)
+    sentinel = 32 * cfg.s_words
+    return {
+        "draw_sbf_randomness (threefry)":
+            lambda: batched.draw_sbf_randomness(cfg, st.rng, BATCH),
+        "sbf_event_deltas (the two event sorts, no planes)":
+            lambda: batched.sbf_event_deltas(cfg, pos, start, v,
+                                             build_planes=False),
+        "kernel operands (_head_operands of both lists)":
+            lambda: (ft._head_operands(ev.dec_sorted, ev.dec_head,
+                                       cfg.sbf_max, sentinel),
+                     ft._head_operands(ev.set_sorted, ev.set_head, 0,
+                                       sentinel)),
+    }
+
+
+def phase_profile(cfg, state, card, make_pieces, kernels):
+    """Where a step's time goes on the path of ``cfg``: the host clock per
+    call of the step's plain-PyTorch pieces (each call synchronised; the
+    kernels' times are the "time" phase's), then torch.profiler over 16
+    steps for the device's busy time, its kernel count and idle share."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.core import Dedup, batched, u32
+    from repro_torch.core import Dedup, u32
     from repro_torch.data.streams import controlled_distinct_stream
     n_b = 16
     keys, _ = controlled_distinct_stream(n_b * BATCH, DISTINCT_FRAC,
@@ -416,20 +852,15 @@ def phase_profile(cfg, state, card):
     st = state._replace(bits=state.bits.clone())
     kw = u32.from_numpy_u32(keys[:BATCH], "cuda")
     v = torch.ones(BATCH, dtype=torch.bool, device="cuda")
-    pieces = {
-        "intra_batch_seen (sort join)":
-            lambda: batched.intra_batch_seen(kw, v),
-        "draw_randomness (threefry)":
-            lambda: batched.draw_randomness(cfg, st.rng, BATCH),
-    }
-    for name, fn in pieces.items():
+    tag = f"{cfg.variant} 256 MB, batch {BATCH}"
+    for name, fn in make_pieces(cfg, st, kw, v).items():
         fn()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(n_b):
             fn()
             torch.cuda.synchronize()
-        log(f"[profile] piece {name}: "
+        log(f"[profile] {cfg.variant} piece {name}: "
             f"{(time.perf_counter() - t0) / n_b * 1e3:.4f} ms per call "
             f"(host clock, synchronised; {card})")
     eng.run_stream(st, keys[:BATCH])                  # warm
@@ -448,20 +879,18 @@ def phase_profile(cfg, state, card):
     busy = sum(r.self_device_time_total for r in dev_rows) / 1e3 / n_b
     n_kernels = sum(r.count for r in dev_rows) / n_b
     n_ops = sum(r.count for r in rows if r.key.startswith("aten::")) / n_b
-    log(f"[profile] main-path step (rlbsbf 256 MB, batch {BATCH}): host "
-        f"wall {wall:.4f} ms per step unprofiled; {n_ops:.1f} aten ops per "
-        f"step on the host ({card})")
+    log(f"[profile] step ({tag}): host wall {wall:.4f} ms per step "
+        f"unprofiled; {n_ops:.1f} aten ops per step on the host ({card})")
     if dev_rows:
-        log(f"[profile] device busy {busy:.4f} ms per step in {n_kernels:.1f} "
-            f"kernels; idle share {max(0.0, 1 - busy / wall):.4f} of the "
-            f"unprofiled wall")
+        log(f"[profile] {cfg.variant} device busy {busy:.4f} ms per step in "
+            f"{n_kernels:.1f} kernels; idle share "
+            f"{max(0.0, 1 - busy / wall):.4f} of the unprofiled wall")
         ours = []
-        for x in ("hashmix_kernel", "probe_decide", "apply_deletes",
-                  "apply_inserts"):
+        for x in ("hashmix_kernel",) + kernels:
             us = sum(r.self_device_time_total for r in dev_rows if x in r.key)
             ours.append(f"{x} {us / 1e3 / n_b:.6f} ms")
-        log(f"[profile] the port's kernels per step in this trace: "
-            f"{', '.join(ours)}")
+        log(f"[profile] {cfg.variant}: the port's kernels per step in this "
+            f"trace: {', '.join(ours)}")
         for r in sorted(dev_rows, key=lambda r: -r.self_device_time_total
                         )[:12]:
             log(f"[profile]   {r.self_device_time_total / 1e3 / n_b:9.4f} ms"
@@ -501,24 +930,36 @@ def main() -> int:
         for line in text.strip().splitlines():
             log(f"[build] {name}: {line}")
     rng = np.random.default_rng(SEED)
-    err_hash = phase_hashmix(rng)
-    err_step = phase_bitset(rng)
+    err = {"hashmix": phase_hashmix(rng), "bitset_step": phase_bitset(rng),
+           "counter_step": phase_counter(rng)}
+    err["bloom_probe"], err["scatter_delta"] = phase_ops(rng)
     phase_digests()
-    cfg, state, launches, _ = phase_main_path()
-    times = phase_timings(cfg, state, card)
-    phase_profile(cfg, state, card)
-    kernels = [
-        dict(name="hashmix", route="cuda",
-             source="src/repro_torch/kernels/csrc/hashmix.cu",
-             replaces="src/repro/kernels/hashmix.py:46",
-             launches=launches["hashmix"], max_abs_err=err_hash,
-             library_ms=None, **times["hashmix"]),
-        dict(name="bitset_step", route="cuda",
-             source="src/repro_torch/kernels/csrc/bitset_step.cu",
-             replaces="src/repro/kernels/fused_template.py:349",
-             launches=launches["bitset_step"], max_abs_err=err_step,
-             library_ms=None, **times["bitset_step"]),
+    keys, truth = make_stream()
+    cfg, state, launches, _ = phase_main_path(keys, truth)
+    sbf_cfg, sbf_state, sbf_launches, _ = phase_sbf_path(keys, truth)
+    ops_launches = phase_ops_path(keys, truth)
+    del keys, truth
+    times = phase_timings(cfg, state, sbf_cfg, sbf_state, card)
+    phase_profile(cfg, state, card, bitset_pieces,
+                  ("probe_decide", "apply_deletes", "apply_inserts"))
+    phase_profile(sbf_cfg, sbf_state, card, sbf_pieces,
+                  ("counter_probe_decide", "counter_apply"))
+    # each kernel's launches are those of the path that carries it
+    rows = [
+        ("hashmix", "hashmix.cu", "hashmix.py:46", launches),
+        ("bitset_step", "bitset_step.cu", "fused_template.py:349", launches),
+        ("counter_step", "counter_step.cu", "fused_template.py:131",
+         sbf_launches),
+        ("bloom_probe", "bloom_probe.cu", "bloom_probe.py:42", ops_launches),
+        ("scatter_delta", "scatter_delta.cu", "scatter_delta.py:54",
+         ops_launches),
     ]
+    kernels = [dict(name=name, route="cuda",
+                    source=f"src/repro_torch/kernels/csrc/{src}",
+                    replaces=f"src/repro/kernels/{tpu}",
+                    launches=path[name], max_abs_err=err[name],
+                    library_ms=None, **times[name])
+               for name, src, tpu, path in rows]
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,25 +1,31 @@
-"""Batched engine, bitset family — the port of ``repro.core.batched``.
+"""Batched engine — the port of ``repro.core.batched``.
 
 Processes B stream elements per step (DESIGN §3.1):
 
   1. hash all B keys (``hash_positions`` — the hashmix kernel on CUDA),
   2. exact intra-batch first-occurrence detection by sorting the keys,
   3. draw the step's randomness from the state's threefry key,
-  4. probe the batch-entry snapshot, decide per variant, apply deletions
-     then insertions (R = (A & ~D) | I, insertions win) and update the
-     exact per-row load — the bitset step (``kernels/fused_template.py``:
-     the hand-written kernel on CUDA, its plain version on the CPU).
+  4. probe the batch-entry snapshot, decide per variant and update the
+     filter and its exact load in one fused step
+     (``kernels/fused_template.py``: the hand-written kernel on CUDA, its
+     plain version on the CPU):
+     * bitset family (rsbf, bsbf, bsbfsd, rlbsbf): deletions then
+       insertions, R = (A & ~D) | I, insertions win;
+     * counter family (sbf, swbf, cms, hh; DESIGN §3.6-§3.8): d-bit cells
+       as bit-planes, saturating subtract (sbf decay runs, swbf's expiring
+       ring slot) then set-to-Max (sbf) or saturating add.
 
-Steps 1-3 are plain PyTorch on both devices, as they are XLA outside the
-Pallas call in the reference. ``valid`` masks let ragged stream tails ride
-through fixed-width steps as no-ops. A step updates ``state.bits`` in
-place and returns the new state around the same tensor; the engine clones
-first where the caller keeps its state (DESIGN §3.5).
+Steps 1-3, and the counter family's sorted event lists, are plain PyTorch
+on both devices, as they are XLA outside the Pallas call in the reference.
+``valid`` masks let ragged stream tails ride through fixed-width steps as
+no-ops. A step updates ``state.bits`` in place and returns the new state
+around the same tensor; the engine clones first where the caller keeps its
+state (DESIGN §3.5).
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -28,8 +34,10 @@ from . import prng, u32
 from .config import DedupConfig
 from .device import resolve_device
 from .hashing import derive_seeds, hash_positions
-from .packed import popcount, run_heads
-from .state import FilterState
+from .packed import (clamped_run_counts, count_planes_from_sorted,
+                     planes_nonzero, popcount, probe_cell_values, run_heads,
+                     run_heads_1d)
+from .state import FilterState, WindowRing
 from ..kernels import fused_template as _fused
 
 
@@ -180,33 +188,248 @@ def make_bitset_step(cfg: DedupConfig, spec, device=None,
     return step
 
 
+# ------------------------------------------------------- counter family //
+
+class SbfBatchDeltas(NamedTuple):
+    """One SBF batch's events (DESIGN §3.6): the sorted decrement and
+    set-to-Max cells with their run heads, and — when built — the word
+    deltas the plain step applies. The CUDA step reads only the sorted
+    lists; ``count_planes`` and ``set_delta`` are then None."""
+    count_planes: Optional[torch.Tensor]  # (d, W) int32 — decrement counts
+                                          #   per cell, clamped to Max
+    set_delta: Optional[torch.Tensor]     # (W,) int32 — set-to-Max cells
+    dec_sorted: torch.Tensor   # (B·P,) int64 sorted decrement cells
+                               #   (sentinel 32·W for invalid lanes)
+    dec_head: torch.Tensor     # (B·P,) bool — first event of each cell
+    set_sorted: torch.Tensor   # (B·k,) int64 sorted set-to-Max cells
+    set_head: torch.Tensor     # (B·k,) bool — first event of each cell
+
+
+def draw_sbf_randomness(cfg: DedupConfig, rng: torch.Tensor, b: int,
+                        partitionable: bool = True):
+    """SBF's per-batch randomness, in the reference's frozen order: one
+    2-way split, then the decrement-run start cells ``randint(r, (B,), 0,
+    s)``."""
+    rng, r = prng.split(rng, 2, partitionable)
+    return rng, prng.randint(r, (b,), 0, cfg.s, partitionable)
+
+
+def sbf_event_deltas(cfg: DedupConfig, pos: torch.Tensor,
+                     start: torch.Tensor, valid: torch.Tensor,
+                     build_planes: bool = True) -> SbfBatchDeltas:
+    """Batch events -> sorted event lists (and, with ``build_planes``,
+    word deltas). Each valid element decrements the P contiguous cells from its
+    random start, wrapping at s, and sets its k cells to Max: a cell's
+    decrement is the number of runs covering it, read off the sorted list
+    clamped to Max (lossless, since value <= Max)."""
+    w = cfg.s_words
+    sentinel = 32 * w
+    p_run = cfg.sbf_p_effective
+    run = (start.to(torch.int64)[:, None]
+           + torch.arange(p_run, device=pos.device)) % cfg.s      # (B, P)
+    spd = torch.sort(torch.where(valid[:, None], run, sentinel)
+                     .reshape(-1)).values
+    sps = torch.sort(torch.where(valid[:, None], pos.to(torch.int64),
+                                 sentinel).reshape(-1)).values
+    set_head = run_heads_1d(sps)
+    if not build_planes:
+        return SbfBatchDeltas(None, None, spd, run_heads_1d(spd), sps,
+                              set_head)
+    dec_head, cnt = clamped_run_counts(spd, cfg.sbf_max)
+    count_planes = count_planes_from_sorted(spd, dec_head, cnt,
+                                            cfg.n_planes, w)
+    # head-only single-bit masks are disjoint within a word: the sum is
+    # the OR
+    keep = set_head & (sps < sentinel)
+    acc = torch.zeros((w,), dtype=torch.int64, device=pos.device)
+    acc.index_add_(0, torch.where(keep, sps >> 5, 0),
+                   torch.where(keep, 1 << (sps & 31), 0))
+    return SbfBatchDeltas(count_planes, u32.to_i32(acc), spd, dec_head, sps,
+                          set_head)
+
+
+def sbf_planes_3d(bits: torch.Tensor) -> torch.Tensor:
+    """A counter plane state as (d, 1, W) — Max == 1 squeezes d."""
+    return bits if bits.dim() == 3 else bits[None]
+
+
+class CountBatchDeltas(NamedTuple):
+    """One batch's insert/increment events (DESIGN §3.7/§3.8): the sorted
+    list padded to the event width, its run heads, and — when built — the
+    per-cell multiplicities clamped to 2^d - 1 as bit-planes."""
+    count_planes: Optional[torch.Tensor]  # (d, W) int32
+    ins_sorted: torch.Tensor   # (E,) int64 sorted insert cells, sentinel
+                               #   32·W padded to the event width
+    ins_head: torch.Tensor     # (E,) bool — first event of each cell
+
+
+def count_event_deltas(cfg: DedupConfig, pos: torch.Tensor,
+                       valid: torch.Tensor, width: int,
+                       build_planes: bool = True) -> CountBatchDeltas:
+    """A batch's B·k insert positions -> the sorted event list padded with
+    sentinels to ``width`` (B·k for cms/hh, the ring's event capacity for
+    swbf) and, with ``build_planes``, its clamped count planes."""
+    w, d = cfg.s_words, cfg.n_planes
+    sentinel = 32 * w
+    flat = torch.where(valid[:, None], pos.to(torch.int64),
+                       sentinel).reshape(-1)
+    if width < flat.shape[0]:
+        raise ValueError(
+            f"{cfg.variant} step saw {flat.shape[0]} events but the event "
+            f"width is {width} — init the state with event_capacity >= the "
+            f"step's element count (DESIGN §3.7)")
+    if width > flat.shape[0]:
+        flat = torch.nn.functional.pad(flat, (0, width - flat.shape[0]),
+                                       value=sentinel)
+    sp = torch.sort(flat).values
+    if not build_planes:
+        return CountBatchDeltas(None, sp, run_heads_1d(sp))
+    head, cnt = clamped_run_counts(sp, (1 << d) - 1)
+    return CountBatchDeltas(count_planes_from_sorted(sp, head, cnt, d, w),
+                            sp, head)
+
+
+def ring_expire_planes(cfg: DedupConfig, ring: WindowRing,
+                       build_planes: bool = True):
+    """The expiring slot's sorted event list -> (events int64, heads, count
+    planes or None): exactly what the arriving batch added, re-expanded
+    (the list is already sorted, so no sort)."""
+    slot = ring.slot.to(torch.int64).reshape(1)
+    ev = ring.events.index_select(0, slot)[0].to(torch.int64)
+    if not build_planes:
+        return ev, run_heads_1d(ev), None
+    d = cfg.n_planes
+    head, cnt = clamped_run_counts(ev, (1 << d) - 1)
+    return ev, head, count_planes_from_sorted(ev, head, cnt, d, cfg.s_words)
+
+
+def ring_push(ring: WindowRing, ev: CountBatchDeltas, window: int
+              ) -> WindowRing:
+    """Overwrite the expired slot with the arriving batch's event list and
+    advance. Out of place: the ring is a few hundred kB, and a state the
+    caller keeps must stay as it was (``Dedup.process``)."""
+    slot = ring.slot.to(torch.int64).reshape(1)
+    events = ring.events.index_copy(0, slot,
+                                    ev.ins_sorted.to(torch.int32)[None])
+    return WindowRing(events, (ring.slot + 1) % window)
+
+
+class CounterStepDeltas(NamedTuple):
+    """A counter-family batch reduced to the step's operands (DESIGN §3.8),
+    built per spec (``core.sketch``). The sorted event lists are what the
+    CUDA kernel reads and what the exact load accounting reads; the plane
+    deltas, built only for the plain step, are what the reference's jnp
+    step applies. ``None`` marks an op the sketch lacks (or planes not
+    built). Order: subtract, then set/add (insertions win)."""
+    sub_planes: Optional[torch.Tensor]   # (d, W) int32 decrement planes
+    sub_events: Optional[torch.Tensor]   # (E,) int64 sorted decrement cells
+    sub_heads: Optional[torch.Tensor]    # (E,) bool first event per cell
+    add_planes: Optional[torch.Tensor]   # (d, W) int32 increment planes
+    set_delta: Optional[torch.Tensor]    # (W,) int32 set-to-Max OR mask
+    ins_events: torch.Tensor             # (E',) int64 sorted insert cells
+    ins_heads: torch.Tensor              # (E',) bool first event per cell
+    ring_payload: Optional[CountBatchDeltas]  # swbf: this batch's ring slot
+
+
+def make_counter_planes_step(cfg: DedupConfig, spec, device=None,
+                             partitionable: bool = True) -> BatchedStep:
+    """The counter-family step (DESIGN §3.8) on the (d, W) bit-plane
+    algebra, specialized by a ``SketchSpec``: probe (nonzero bit or d-bit
+    value), the spec's decision, its events, and the exact nonzero-cell
+    load. sbf, swbf, cms and hh are this function under their specs. The
+    fused counter step (``kernels/fused_template.py::counter_step``) does
+    the probe, decide and update; on CUDA no (d, W) delta plane is built.
+    The reference's fleet form (``params_aware=True``) is not ported yet
+    (ROADMAP Queue 1 item 8)."""
+    cfg = cfg.validate()
+    device = resolve_device(device)
+    seeds = u32.from_numpy_u32(derive_seeds(cfg.seed, cfg.k, channel=0),
+                               device)
+    bseeds = (u32.from_numpy_u32(derive_seeds(cfg.seed, cfg.k, channel=1),
+                                 device) if cfg.block_bits else None)
+    events_fn = spec.make_events(cfg)
+
+    def step(state: FilterState, keys: torch.Tensor, valid: torch.Tensor):
+        b = keys.shape[0]
+        planes = sbf_planes_3d(state.bits)[:, 0, :]     # (d, W) view
+        pos = hash_positions(keys, seeds, cfg.s, cfg.block_bits, bseeds)
+        seen = intra_batch_seen(keys, valid) if spec.uses_seen else None
+        if spec.draw is not None:
+            rng, rnd = spec.draw(cfg, state.rng, b, partitionable)
+        else:
+            rng, rnd = state.rng, None
+        ev = events_fn(state, pos, valid, rnd,
+                       build_planes=keys.device.type == "cpu")
+        dup, load = _fused.counter_step(cfg, spec, planes, pos, valid, seen,
+                                        state.load, ev)
+        if cfg.debug_exact_load:
+            load = popcount(planes_nonzero(planes)[None])
+        ring = state.ring
+        if ev.ring_payload is not None:
+            ring = ring_push(ring, ev.ring_payload, cfg.window)
+        n_valid = valid.sum(dtype=torch.int32)
+        new = FilterState(state.bits, state.position + n_valid, load, rng,
+                          ring)
+        return new, BatchResult(dup=dup, inserted=valid)
+
+    return step
+
+
+def make_sbf_planes_step(cfg: DedupConfig, device=None,
+                         partitionable: bool = True) -> BatchedStep:
+    """SBF on the plane layout: the counter step under the "sbf" spec."""
+    from .sketch import get_spec
+    return make_counter_planes_step(cfg, get_spec("sbf"), device,
+                                    partitionable)
+
+
+def make_swbf_planes_step(cfg: DedupConfig, device=None) -> BatchedStep:
+    """The sliding-window counting filter (DESIGN §3.7): the counter step
+    under the "swbf" spec (it draws no randomness)."""
+    from .sketch import get_spec
+    return make_counter_planes_step(cfg, get_spec("swbf"), device)
+
+
+def make_estimate_fn(cfg: DedupConfig, device=None):
+    """Frequency read-out for the counter family (DESIGN §3.8):
+    estimate(state, keys) -> (B,) int32, the MIN over the k probed d-bit
+    cells. Read-only. Plain PyTorch on both devices (hashing aside): the
+    reference has no kernel here."""
+    cfg = cfg.validate()
+    device = resolve_device(device)
+    seeds = u32.from_numpy_u32(derive_seeds(cfg.seed, cfg.k, channel=0),
+                               device)
+    bseeds = (u32.from_numpy_u32(derive_seeds(cfg.seed, cfg.k, channel=1),
+                                 device) if cfg.block_bits else None)
+
+    def estimate(state: FilterState, keys: torch.Tensor) -> torch.Tensor:
+        planes = sbf_planes_3d(state.bits)[:, 0, :]
+        pos = hash_positions(keys, seeds, cfg.s, cfg.block_bits, bseeds)
+        return probe_cell_values(planes, pos).min(dim=1).values
+
+    return estimate
+
+
 def make_templated_step(cfg: DedupConfig, spec=None, device=None,
                         partitionable: bool = True) -> BatchedStep:
     """Resolve the variant's ``SketchSpec`` and hand it to its family's
-    generator — the bitset family in this slice (DESIGN §3.8)."""
+    generator (DESIGN §3.8)."""
     cfg = cfg.validate()
     if spec is None:
         from .sketch import get_spec
         spec = get_spec(cfg.variant)
-    if spec.family != "bitset":
-        raise NotImplementedError(
-            f"the {spec.family} family arrives with the counter-step "
-            f"kernel — ROADMAP Queue 1 item 5 and Queue 2 item 2")
+    if spec.family == "counter":
+        return make_counter_planes_step(cfg, spec, device, partitionable)
     return make_bitset_step(cfg, spec, device, partitionable)
 
 
 def make_batched_step(cfg: DedupConfig, device=None,
                       partitionable: bool = True) -> BatchedStep:
     """The engine's step for ``cfg`` on ``device`` (``cuda`` unless the
-    caller passes ``"cpu"``; ``core.device``); refuses what this slice of
-    the port does not run yet, naming the ROADMAP queue that brings it."""
+    caller passes ``"cpu"``; ``core.device``); refuses what the port does
+    not run yet, naming the ROADMAP queue that brings it."""
     cfg = cfg.validate()
     device = resolve_device(device)
-    if cfg.is_counter:
-        raise NotImplementedError(
-            f"{cfg.variant} is a counter-family sketch; it arrives with the "
-            f"counter-step kernel — ROADMAP Queue 1 item 5 and Queue 2 "
-            f"item 2")
     if not cfg.is_planes:
         raise NotImplementedError(
             "the dense8 layout and the sequential oracle are not ported "

@@ -1,23 +1,32 @@
-"""Filter state — the port of ``repro.core.state`` for the plane layout at
-d = 1 (DESIGN §3.6), the only layout this slice of the port runs.
+"""Filter state — the port of ``repro.core.state`` for the plane layout
+(DESIGN §3.6).
 
-``bits`` is the (k, W) filter: k rows of W = ceil(s/32) words, 32 bits per
-word, bit j of word w holding position 32·w + j — bit for bit the JAX
-package's packed layout. Like every uint32 array of the port it is an
-int32 tensor holding the uint32 bit pattern (``core.u32``), so
-``repro_torch.convert.state_to_numpy`` returns the same bytes as
-``np.asarray(state.bits)`` in JAX.
+``bits`` holds the filter as int32 tensors of uint32 BIT PATTERNS
+(``core.u32``), bit j of word w holding cell 32·w + j — bit for bit the
+JAX package's plane layout, so ``repro_torch.convert.state_to_numpy``
+returns the same bytes as ``np.asarray(state.bits)`` in JAX:
+
+* the paper's 1-bit variants (rsbf, bsbf, bsbfsd, rlbsbf): (k, W), k rows
+  of W = ceil(s/32) words;
+* the counter family (sbf, swbf, cms, hh): d bit-planes of one row of
+  d-bit cells, the (d, 1, W) stack — cell j's value is
+  sum_p plane[p] bit j << p. At d == 1 (sbf with Max = 1) the plane axis is
+  squeezed to (1, W), as in the reference.
 
 ``position`` is the 1-indexed stream position ``i`` of the next element
 (RSBF's insert probability is s/i), ``load`` the exact per-row count of set
-bits (DESIGN §3.1), and ``rng`` the (2,) threefry key data — the explicit
-generator of the randomized deletions (``core.prng``). All four live on the
-engine's device, so a stream of steps never waits on the host.
+bits — of nonzero cells for the counter family (DESIGN §3.1) — and ``rng``
+the (2,) threefry key data (``core.prng``). ``ring`` is swbf's sliding
+window (DESIGN §3.7): the last ``window`` batches' sorted insert-event
+lists and the slot the next batch expires; ``None`` for every other
+variant. All of it lives on the engine's device, so a stream of steps never
+waits on the host.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import dataclasses
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -26,28 +35,87 @@ from .config import DedupConfig
 from .device import resolve_device
 
 
-class FilterState(NamedTuple):
-    bits: torch.Tensor       # (k, W) int32 words
+class WindowRing(NamedTuple):
+    """swbf's ring of the last ``window`` batches' insert events.
+
+    ``events``: (window, E) int32 — each slot one batch's insert cells as a
+    SORTED list padded with the sentinel 32·W; at expiry the slot is the
+    subtract operand of the counter step (``core.batched``).
+    ``slot``: () int32 — the next slot to expire and overwrite."""
+    events: torch.Tensor
+    slot: torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class FilterState:
+    """The engine's state. It behaves as the reference's pytree does:
+    iterating it yields its leaves, and a ``ring`` that is None is no leaf,
+    so a bitset state is the same four tensors as before the ring existed.
+    ``_replace`` returns a copy with the named fields changed."""
+    bits: torch.Tensor       # (k, W) | (d, 1, W) | (1, W) int32 words
     position: torch.Tensor   # () int32 — 1-indexed next stream position
-    load: torch.Tensor       # (k,) int32 — set bits per row
+    load: torch.Tensor       # (k,) int32 — set bits (nonzero cells)
     rng: torch.Tensor        # (2,) int32 — threefry key data
+    ring: Optional[WindowRing] = None   # swbf sliding-window ring (§3.7)
+
+    def __iter__(self):
+        yield from (self.bits, self.position, self.load, self.rng)
+        if self.ring is not None:
+            yield self.ring
+
+    def _replace(self, **changes) -> "FilterState":
+        return dataclasses.replace(self, **changes)
+
+    @property
+    def n_planes(self) -> int:
+        """Bit-planes of the word layout (1 unless it holds counters)."""
+        return self.bits.shape[0] if self.bits.dim() == 3 else 1
 
 
-def init_state(cfg: DedupConfig, seed: int | None = None,
-               device=None) -> FilterState:
+def bits_shape(cfg: DedupConfig) -> tuple:
+    """The ``bits`` leaf's shape on the plane layout: (d, n_rows, W) for
+    d > 1 planes, else the squeezed (n_rows, W)."""
+    d = cfg.n_planes
+    return ((d, cfg.n_rows, cfg.s_words) if d > 1
+            else (cfg.n_rows, cfg.s_words))
+
+
+def init_ring(cfg: DedupConfig, event_capacity: int | None = None,
+              device=None) -> WindowRing:
+    """An empty sliding-window ring on ``device`` (``cuda`` unless the
+    caller passes ``"cpu"``). ``event_capacity`` is the widest per-step
+    element count the ring must absorb (default ``cfg.batch_size``). A slot
+    of sentinels decrements nothing, so the warm-up batches need no special
+    case."""
+    device = resolve_device(device)
+    cap = cfg.batch_size if event_capacity is None else event_capacity
+    return WindowRing(
+        events=torch.full((cfg.window, cap * cfg.k), 32 * cfg.s_words,
+                          dtype=torch.int32, device=device),
+        slot=torch.zeros((), dtype=torch.int32, device=device),
+    )
+
+
+def init_state(cfg: DedupConfig, seed: int | None = None, device=None,
+               event_capacity: int | None = None) -> FilterState:
     """An empty filter on ``device`` (``cuda`` unless the caller passes
-    ``"cpu"``; ``core.device``)."""
+    ``"cpu"``; ``core.device``). ``event_capacity`` sizes swbf's ring."""
     cfg.validate()
     device = resolve_device(device)
     seed = cfg.seed if seed is None else seed
+    ring = (init_ring(cfg, event_capacity, device)
+            if cfg.variant == "swbf" else None)
     return FilterState(
-        bits=torch.zeros((cfg.n_rows, cfg.s_words), dtype=torch.int32,
-                         device=device),
+        bits=torch.zeros(bits_shape(cfg), dtype=torch.int32, device=device),
         position=torch.ones((), dtype=torch.int32, device=device),
         load=torch.zeros((cfg.n_rows,), dtype=torch.int32, device=device),
         rng=prng.PRNGKey(seed, device=device),
+        ring=ring,
     )
 
 
 def state_memory_bytes(state: FilterState) -> int:
-    return sum(x.numel() * x.element_size() for x in state)
+    leaves = [state.bits, state.position, state.load, state.rng]
+    if state.ring is not None:
+        leaves += list(state.ring)
+    return sum(x.numel() * x.element_size() for x in leaves)

@@ -20,6 +20,25 @@ def truth_from_stream(keys: np.ndarray) -> np.ndarray:
     return truth
 
 
+def windowed_truth_from_stream(keys: np.ndarray, window: int,
+                               batch_size: int) -> np.ndarray:
+    """Batch-windowed ground truth matching the swbf semantics (DESIGN
+    §3.7): True where the key occurred within the previous ``window``
+    batches or earlier in the element's own batch. If the key's most recent
+    prior occurrence fell out of the window, so did every older one — so
+    only the immediate predecessor is checked (one stable sort)."""
+    keys = np.asarray(keys)
+    n = keys.shape[0]
+    order = np.argsort(keys, kind="stable")
+    sk = keys[order]
+    prev = np.full(n, -1, dtype=np.int64)
+    same = sk[1:] == sk[:-1]
+    prev[order[1:][same]] = order[:-1][same]
+    batch = np.arange(n, dtype=np.int64) // batch_size
+    prev_batch = np.where(prev >= 0, prev // batch_size, np.int64(-1))
+    return (prev >= 0) & (prev_batch >= batch - window)
+
+
 def fpr_fnr(reported, truth) -> tuple:
     """(FPR, FNR): distinct elements reported duplicate over all distinct
     elements, and duplicates reported distinct over all duplicates."""

@@ -27,7 +27,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("hashmix", "bitset_step")
+SOURCES = ("hashmix", "bitset_step", "counter_step", "bloom_probe",
+           "scatter_delta")
 
 _lock = threading.Lock()
 _libs: dict = {}

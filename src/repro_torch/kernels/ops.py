@@ -1,0 +1,56 @@
+"""Public wrappers around the port's probe and scatter kernels — the port of
+``repro/kernels/ops.py``.
+
+``fused_probe`` chains hashmix -> split -> bloom_probe -> AND-reduce: the
+paper's "report duplicate / distinct" decision of Algorithms 1-4 in two
+kernel launches. Each function runs where its tensors lie: the
+hand-written kernels on CUDA, their plain versions on the CPU. Words, keys,
+seeds and masks are int32 tensors of uint32 bit patterns (``core.u32``).
+
+One difference from the reference: ``probe`` does not refuse filter rows
+over 8 MiB. That limit was the TPU's VMEM budget for a row pinned in fast
+memory; the CUDA kernel gathers from device memory, where it means nothing.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..core import packed
+from .bloom_probe import bloom_probe
+from .hashmix import hashmix
+from .scatter_delta import scatter_delta
+
+
+def hash_positions(keys: torch.Tensor, seeds: torch.Tensor, s: int
+                   ) -> torch.Tensor:
+    """(B,) keys -> (B, k) int32 positions (the hashmix kernel)."""
+    return hashmix(keys, seeds, s=s)
+
+
+def probe(words: torch.Tensor, word_idx: torch.Tensor,
+          bit_mask: torch.Tensor) -> torch.Tensor:
+    """(k, W) packed filter + (B, k) probes -> (B, k) uint8 hits."""
+    return bloom_probe(words, word_idx, bit_mask)
+
+
+def fused_probe(keys: torch.Tensor, words: torch.Tensor, seeds: torch.Tensor,
+                s: int):
+    """keys (B,) -> (dup (B,) bool, hits (B, k) uint8, pos (B, k) int32)."""
+    pos = hash_positions(keys, seeds, s)
+    w_idx, mask = packed.split_pos(pos)
+    hits = probe(words, w_idx, mask)
+    return (hits == 1).all(dim=1), hits, pos
+
+
+def scatter_or(words: torch.Tensor, word_idx: torch.Tensor,
+               bit_mask: torch.Tensor) -> torch.Tensor:
+    """Set bits: words (k, W) | the OR-delta of (B, k) masks. Disabled
+    lanes: word_idx = -1 (or any index outside [0, W))."""
+    return words | scatter_delta(word_idx, bit_mask, w=words.shape[1])
+
+
+def scatter_andnot(words: torch.Tensor, word_idx: torch.Tensor,
+                   bit_mask: torch.Tensor) -> torch.Tensor:
+    """Clear bits (same contract as ``scatter_or``)."""
+    return words & ~scatter_delta(word_idx, bit_mask, w=words.shape[1])

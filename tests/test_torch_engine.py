@@ -214,10 +214,14 @@ def test_device_rule_and_refusals():
     assert get_engine(cfg, "cpu") is get_engine(cfg, "cpu")
     assert get_engine(cfg, "cpu") is not get_engine(cfg, "cpu",
                                                     partitionable=False)
-    for variant in ("sbf", "swbf", "cms", "hh"):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-            Dedup(DedupConfig.for_variant(variant, memory_bits=1 << 12),
-                  "cpu")
+    # sbf defaults to dense8, which is not ported; swbf, cms and hh resolve
+    # to the plane layout and run
+    with pytest.raises(NotImplementedError, match="dense8"):
+        Dedup(DedupConfig.for_variant("sbf", memory_bits=1 << 12), "cpu")
+    for variant in ("swbf", "cms", "hh"):
+        eng = Dedup(DedupConfig.for_variant(variant, memory_bits=1 << 12),
+                    "cpu")
+        assert eng.cfg.is_counter and eng.cfg.is_planes
     with pytest.raises(NotImplementedError, match="dense8"):
         Dedup(DedupConfig.for_variant("rlbsbf", memory_bits=1 << 12), "cpu")
     with pytest.raises(NotImplementedError, match="n_tenants"):

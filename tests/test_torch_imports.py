@@ -27,7 +27,9 @@ def _imported_roots(path: pathlib.Path):
 
 def test_port_files_found():
     names = {p.name for p in FILES}
-    assert {"engine.py", "hashmix.py", "fused_template.py",
+    assert {"engine.py", "hashmix.py", "fused_template.py", "sketch.py",
+            "state.py", "packed.py", "convert.py", "metrics.py",
+            "bloom_probe.py", "scatter_delta.py", "ops.py",
             "chip_smoke.py"} <= names
 
 
