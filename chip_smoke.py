@@ -24,8 +24,20 @@ after:
   shape, over the stream's first 2^21 records: hashmix, bloom_probe and
   scatter_delta.
 
-Last it times each kernel beside its bound and profiles a step of each
-engine path. Every phase fails the run; the last line of standard output
+Then the tenant fleets (DESIGN §4.6): 32 tenants of 8 MB each (the paper's
+smallest table per tenant, 256 MiB stacked). Its "fleet" phase holds both
+step kernels over their tenant grid axis against their plain versions
+(the bitset step for the four variants; the params-aware counter step for
+sbf with per-tenant Max 3 / 2, swbf with per-tenant windows, cms with
+per-tenant thresholds, and hh), and two paths run ``FleetDedup.run_stream``
+over the stream's first 2^23 records with tenant ids drawn uniformly from a
+seeded generator (capacity 512 per tenant and step):
+
+* fleet-rlbsbf-32x8MB: rlbsbf, k = 2, s = 2^25 per row;
+* fleet-sbf-32x8MB-hetero: sbf on planes, d = 2, per-tenant Max 3 and 2.
+
+Last it times each kernel beside its bound, and the fleet forms, and
+profiles a step of each engine and fleet path. Every phase fails the run; the last line of standard output
 is ``{"ok": true, "device": {...}}`` only when all of them passed. Without
 a CUDA device, or without the ``src/repro_torch`` package beside this
 file, it exits non-zero and prints no result.
@@ -33,6 +45,7 @@ file, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import json
 import os
@@ -50,6 +63,10 @@ MEMORY_BITS = 1 << 31            # the paper's 256 MB table (configs/paper_dedup
 BATCH = 8192                     # DedupConfig.batch_size
 STREAM_N = 1 << 24               # the paper's 695M-1B records, cut for time
 OPS_N = 1 << 21                  # the ops path's prefix of the stream
+FLEET_T = 32                     # tenants of a fleet path
+FLEET_MEMORY_BITS = 1 << 26      # 8 MB per tenant (PAPER_MEMORIES_MB[0])
+FLEET_N = 1 << 23                # the fleet paths' prefix of the stream
+FLEET_CAPACITY = 512             # FleetDedup's default: ceil(2·8192 / 32)
 DISTINCT_FRAC = 0.60             # the paper's 60% distinct (Section 6)
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_OPS_PER_S = 67e12           # H100 SXM float32 outside the tensor cores
@@ -66,8 +83,16 @@ BITSET = ("rsbf", "bsbf", "bsbfsd", "rlbsbf")
 COUNTER = ("sbf", "sbf_d1", "swbf", "cms", "hh")
 
 
+T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def stamp(phase: str) -> None:
+    """The seconds since the script started, at the end of a phase."""
+    log(f"[elapsed] {phase} done at {time.perf_counter() - T0:.1f} s")
 
 
 def config(name, **kw):
@@ -555,15 +580,285 @@ def phase_ops_path(keys, truth):
     return launches
 
 
+def fleet_config(name, **kw):
+    """A fleet of FLEET_T tenants of 8 MB each for a digest-grid name."""
+    cfg = config(name, memory_bits=FLEET_MEMORY_BITS, batch_size=BATCH, **kw)
+    return dataclasses.replace(cfg, n_tenants=FLEET_T).validate()
+
+
+def fleet_knobs(cfg):
+    """Heterogeneous per-tenant rows on the card: sbf Max alternating 3 and
+    2 (one bit_length, so one plane count), cms/hh thresholds 1, 2, 3, 2,
+    ..., swbf windows cycling through 1..window."""
+    import torch
+    t = np.arange(cfg.n_tenants)
+    low = max(1 << (cfg.sbf_max.bit_length() - 1), cfg.sbf_max - 1)
+    rows = {"max_value": np.where(t % 2 == 0, cfg.sbf_max, low),
+            "threshold": np.array([1, 2, 3, 2])[t % 4],
+            "window": 1 + t % max(cfg.window, 1)}
+    return {n: torch.from_numpy(v.astype(np.int32)).cuda()
+            for n, v in rows.items()}
+
+
+def fleet_slots(rng, hi, frac):
+    """(T, C) slot keys from [0, hi) with a fraction ``frac`` valid; the
+    last tenant's row is empty, as a tenant without traffic has."""
+    keys = rng.integers(0, hi, (FLEET_T, FLEET_CAPACITY), dtype=np.uint64)
+    valid = rng.random((FLEET_T, FLEET_CAPACITY)) < frac
+    valid[-1] = False
+    return keys.astype(np.uint32), valid
+
+
+def fleet_kernel_inputs(cfg, spec, state, slot_keys, slot_valid):
+    """What the fleet step hands its kernel for one (T, C) slot grid, and
+    the keys the step leaves behind: the bitset step's or the counter
+    step's operands, built by the port's own functions."""
+    import torch
+    from repro_torch.core import batched, hashing, u32
+    seeds = u32.from_numpy_u32(hashing.derive_seeds(cfg.seed, cfg.k), "cuda")
+    kw = u32.as_words(slot_keys, "cuda")
+    v = torch.as_tensor(slot_valid, device="cuda")
+    c = v.shape[1]
+    pos = hashing.hash_positions(kw, seeds, cfg.s)
+    if spec.family == "bitset":
+        seen = batched.intra_batch_seen(kw, v)
+        i_t = state.position[:, None] + torch.arange(c, dtype=torch.int32,
+                                                     device="cuda")
+        rng, rnd = batched.draw_randomness(cfg, state.rng, c)
+        return rng, (pos, rnd, v, seen, i_t)
+    seen = batched.intra_batch_seen(kw, v) if spec.uses_seen else None
+    rng, rnd = (spec.draw(cfg, state.rng, c) if spec.draw
+                else (state.rng, None))
+    return rng, (pos, v, seen, state.load,
+                 spec.make_events(cfg)(state, pos, v, rnd))
+
+
+def random_fleet_state(cfg, rng, position: int):
+    """A stacked fleet state at ~50% density per tenant (random words, or
+    random d-bit cells half of them zero), its exact per-tenant load, the
+    tenant-folded keys, and for swbf a ring of random sorted slots whose
+    current slot differs by tenant."""
+    import torch
+    from repro_torch.core import packed, u32
+    from repro_torch.core.fleet import init_fleet_state
+    from repro_torch.core.state import FilterState, WindowRing
+    t, w = cfg.n_tenants, cfg.s_words
+    base = init_fleet_state(cfg, event_capacity=FLEET_CAPACITY)
+    tail = cfg.s - 32 * (w - 1)
+    if not cfg.is_counter:
+        words = rng.integers(0, 2 ** 32, (t, cfg.k, w), dtype=np.uint32)
+        if tail < 32:
+            words[..., -1] &= np.uint32((1 << tail) - 1)
+        bits = u32.from_numpy_u32(words, "cuda")
+        del words
+        return FilterState(bits, base.position + position - 1,
+                           packed.popcount(bits), base.rng)
+    d = cfg.n_planes
+    planes = rng.integers(0, 2 ** 32, (t, d, w), dtype=np.uint32)
+    planes &= rng.integers(0, 2 ** 32, (t, 1, w), dtype=np.uint32)
+    if tail < 32:
+        planes[..., -1] &= np.uint32((1 << tail) - 1)
+    planes = u32.from_numpy_u32(planes, "cuda")
+    load = packed.popcount(packed.planes_nonzero(planes.transpose(0, 1)))
+    ring = None
+    if base.ring is not None:
+        e = base.ring.events.shape[-1]
+        ev = rng.integers(0, cfg.s, (t, cfg.window, e))
+        ev[rng.random(ev.shape) < 0.3] = 32 * w
+        ring = WindowRing(
+            torch.from_numpy(np.sort(ev, axis=-1).astype(np.int32)).cuda(),
+            torch.from_numpy((np.arange(t) % cfg.window).astype(np.int32))
+            .cuda())
+    bits = planes[:, :, None, :] if d > 1 else planes
+    return FilterState(bits, base.position + position - 1, load[:, None],
+                       base.rng, ring)
+
+
+def phase_fleet(rng):
+    """Both step kernels over their tenant grid axis against their plain
+    versions at T = 32 x 8 MB: the bitset step for the four variants, the
+    params-aware counter step for sbf (Max 3 / 2), swbf (windows
+    1..window), cms (thresholds 1, 2, 3, 2, ...) and hh; over a
+    repeated-key, a ragged and a fresh slot grid each, the last tenant's
+    row empty. -> the largest differences (bitset, counter)."""
+    import torch
+    from repro_torch.core import batched, packed
+    from repro_torch.core.sketch import get_spec
+    from repro_torch.kernels.fused_template import (
+        bitset_step, bitset_step_plain, counter_step, counter_step_plain)
+    grids = [("repeated keys", 300, 0.9), ("ragged valid", 2 ** 32, 0.6),
+             ("fresh keys", 2 ** 32, 1.0)]
+    worst_b = worst_c = 0
+    for variant in BITSET:
+        cfg = fleet_config(variant)
+        spec = get_spec(variant)
+        state = random_fleet_state(cfg, rng, cfg.s - 4000)
+        for label, hi, frac in grids:
+            rng_next, args = fleet_kernel_inputs(cfg, spec, state,
+                                                 *fleet_slots(rng, hi, frac))
+            words = state.bits.clone()
+            dup, ins, load = bitset_step(cfg, words, *args, state.load)
+            new, dup_p, ins_p, load_p = bitset_step_plain(
+                cfg, state.bits, *args, state.load)
+            torch.cuda.synchronize()
+            diff = (words != new).sum().item()
+            worst_b = max(worst_b, abs_err(words, new), abs_err(dup, dup_p),
+                          abs_err(ins, ins_p), abs_err(load, load_p))
+            ok = (diff == 0 and torch.equal(dup, dup_p)
+                  and torch.equal(ins, ins_p) and torch.equal(load, load_p)
+                  and torch.equal(load, packed.popcount(words))
+                  and torch.equal(words[-1], state.bits[-1]))
+            log(f"[fleet] bitset {variant} T={FLEET_T} k={cfg.k} "
+                f"s={cfg.s} C={FLEET_CAPACITY} {label}: dup={int(dup.sum())} "
+                f"inserted={int(ins.sum())} words differing={diff} -> "
+                f"{'exactly equal' if ok else 'MISMATCH'}")
+            if not ok:
+                raise AssertionError(f"fleet bitset step != plain: "
+                                     f"{variant} {label}")
+            state = state._replace(
+                bits=words, load=load, rng=rng_next,
+                position=state.position + args[2].sum(1, dtype=torch.int32))
+        del state, words, new
+        torch.cuda.empty_cache()
+    for name in ("sbf", "swbf", "cms", "hh"):
+        cfg = fleet_config(name)
+        spec = get_spec(cfg.variant)
+        knobs = fleet_knobs(cfg)
+        state = random_fleet_state(cfg, rng, 5000)
+        for label, hi, frac in grids:
+            rng_next, args = fleet_kernel_inputs(cfg, spec, state,
+                                                 *fleet_slots(rng, hi, frac))
+            pos, v, seen, load_in, ev = args
+            planes = batched.fleet_planes(state.bits)
+            got = planes.clone()
+            dup, load = counter_step(cfg, spec, got, *args,
+                                     threshold=knobs["threshold"],
+                                     max_value=knobs["max_value"])
+            new, dup_p, load_p = counter_step_plain(
+                cfg, spec, planes, *args, knobs["threshold"],
+                knobs["max_value"])
+            torch.cuda.synchronize()
+            diff = (got != new).sum().item()
+            worst_c = max(worst_c, abs_err(got, new), abs_err(dup, dup_p),
+                          abs_err(load, load_p))
+            nz = packed.popcount(packed.planes_nonzero(got.transpose(0, 1)))
+            ok = (diff == 0 and torch.equal(dup, dup_p)
+                  and torch.equal(load, load_p)
+                  and torch.equal(load[:, 0], nz))
+            log(f"[fleet] counter {name} T={FLEET_T} d={cfg.n_planes} "
+                f"k={cfg.k} s={cfg.s} C={FLEET_CAPACITY} {label}: "
+                f"dup={int(dup.sum())} words differing={diff} -> "
+                f"{'exactly equal' if ok else 'MISMATCH'}")
+            if not ok:
+                raise AssertionError(f"fleet counter step != plain: {name} "
+                                     f"{label}")
+            ring = (batched.ring_push(state.ring, ev.ring_payload,
+                                      knobs["window"])
+                    if ev.ring_payload is not None else state.ring)
+            state = state._replace(
+                bits=got[:, :, None, :] if got.shape[1] > 1 else got,
+                load=load, rng=rng_next, ring=ring,
+                position=state.position + v.sum(1, dtype=torch.int32))
+            del planes, new, ev, args
+        del state, got
+        torch.cuda.empty_cache()
+    return worst_b, worst_c
+
+
+def fleet_stream(keys):
+    """The fleet paths' mixed stream: the stream's first FLEET_N keys, each
+    with a tenant id drawn uniformly from a seeded generator, and the exact
+    ground truth per (tenant, key) pair — a repeat in another tenant is
+    distinct by the isolation contract."""
+    from repro_torch.dedup.metrics import truth_from_stream
+    keys = keys[:FLEET_N]
+    tenants = np.random.default_rng(SEED + 3).integers(
+        0, FLEET_T, FLEET_N).astype(np.int32)
+    pairs = (tenants.astype(np.uint64) << np.uint64(32)) | keys
+    return keys, tenants, truth_from_stream(pairs)
+
+
+def phase_fleet_path(name, keys, tenants, truth):
+    """A 32 x 8 MB fleet over the mixed stream through
+    ``FleetDedup.run_stream``: one hashmix and one step launch per fleet
+    step, overflow 0, FPR and FNR per (tenant, key), each tenant's load
+    equal to its popcount and its position to its lane count."""
+    import torch
+    from repro_torch.core import batched, packed
+    from repro_torch.core.fleet import FleetDedup, default_tenant_params
+    from repro_torch.dedup.metrics import fpr_fnr
+    from repro_torch.kernels.fused_template import bitset_step, counter_step
+    from repro_torch.kernels.hashmix import hashmix
+    cfg = fleet_config(name)
+    params = default_tenant_params(cfg, FLEET_CAPACITY)
+    hetero = cfg.is_counter
+    if hetero:
+        params = params._replace(max_value=fleet_knobs(cfg)["max_value"])
+    fleet = FleetDedup(cfg, params=params)
+    if fleet.capacity != FLEET_CAPACITY:
+        raise AssertionError(f"fleet capacity {fleet.capacity}")
+    step = counter_step if cfg.is_counter else bitset_step
+    step_name = "counter_step" if cfg.is_counter else "bitset_step"
+    state = fleet.init()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    hashmix.launches = 0
+    step.launches = 0
+    t0 = time.perf_counter()
+    state, dup, ovf = fleet.run_stream(state, keys, tenants)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {"hashmix": hashmix.launches, step_name: step.launches}
+    peak = torch.cuda.max_memory_allocated()
+    n_steps = -(-FLEET_N // BATCH)
+    fpr, fnr = fpr_fnr(dup, truth)
+    overflow = int(ovf.sum())
+    if cfg.is_counter:
+        nz = packed.popcount(packed.planes_nonzero(
+            batched.fleet_planes(state.bits).transpose(0, 1)))[:, None]
+    else:
+        nz = packed.popcount(state.bits)
+    exact = torch.equal(state.load, nz)
+    lanes = np.bincount(tenants, minlength=FLEET_T) + 1
+    placed = np.array_equal(state.position.cpu().numpy(), lanes)
+    tag = (f"fleet-{name}-{FLEET_T}x8MB" + ("-hetero" if hetero else ""))
+    knobs = (f" Max per tenant {params.max_value.tolist()[:4]}..."
+             if hetero else "")
+    log(f"[{tag}] {FLEET_T} tenants x 8 MB, k={cfg.k} s={cfg.s} per row, "
+        f"C={fleet.capacity}{knobs}, batch {BATCH}: {FLEET_N} elements in "
+        f"{secs:.4f} s = {FLEET_N / secs:.1f} elements/s (host clock, ends "
+        f"in synchronize); {n_steps} fleet steps, "
+        f"{secs / n_steps * 1e3:.4f} ms per step")
+    log(f"[{tag}] FPR={fpr:.6g} FNR={fnr:.6g} per (tenant, key); overflow "
+        f"{overflow}; load==popcount per tenant: {exact}; position==lanes "
+        f"per tenant: {placed}; load (tenants 0-3) "
+        f"{state.load[:4].tolist()}")
+    log(f"[{tag}] kernel launches: {launches}; peak memory allocated "
+        f"{peak / 2 ** 20:.1f} MiB")
+    if not (dup.shape == (FLEET_N,) and exact and placed and overflow == 0
+            and 0.0 <= fpr < 0.05 and 0.0 <= fnr < 0.5):
+        raise AssertionError(f"{tag} result out of bounds")
+    if launches != {"hashmix": n_steps, step_name: n_steps}:
+        raise AssertionError(f"{tag}: expected one launch of each kernel "
+                             f"per fleet step ({n_steps}), got {launches}")
+    return fleet, state, launches
+
+
 def bitset_step_bytes(cfg, words, pos, rnd, v, seen, i_t, load) -> int:
     """The bytes one bitset step must move on these inputs: each input it
     needs read once, each output written once, each filter word it must
     probe or update read once and each word it updates written once. What
     it needs depends on the data, so the decisions come from the plain
     decide: pos only for valid lanes, the variant's draws only where the
-    decide reads them, del_pos only for enabled deletes."""
+    decide reads them, del_pos only for enabled deletes. A fleet's operands
+    (leading tenant axis) sum over its tenants, whose words are disjoint."""
     import torch
     from repro_torch.core import batched, packed
+    if words.dim() == 3:
+        return sum(bitset_step_bytes(
+            cfg, words[t], pos[t], batched.BatchRandomness(
+                *(x[t] for x in rnd)), v[t], seen[t], i_t[t], load[t])
+            for t in range(words.shape[0]))
     b, k = pos.shape
     decide = batched.make_decision_fn(cfg)
     _, ins, del_mask = decide(packed.probe_packed(words, pos), v, seen, i_t,
@@ -590,8 +885,18 @@ def counter_step_bytes(cfg, spec, pos, v, seen, load, ev):
     positions of valid lanes, the valid and seen flags, the run heads of
     both event lists (cell, and count where one is needed), each distinct
     plane word it must probe or update read once and each word it updates
-    written once, and the outputs (dup, load)."""
+    written once, and the outputs (dup, load). A fleet's operands (leading
+    tenant axis) sum over its tenants, each adding its threshold and
+    set-to-Max value."""
     import torch
+    from repro_torch.kernels.fused_template import _tenant_events
+    if pos.dim() == 3:
+        per = [counter_step_bytes(cfg, spec, pos[t], v[t],
+                                  None if seen is None else seen[t], load[t],
+                                  _tenant_events(ev, t))
+               for t in range(pos.shape[0])]
+        return (sum(x[0] for x in per) + 8 * pos.shape[0],
+                sum(x[1] for x in per))
     d, w, k = cfg.n_planes, cfg.s_words, cfg.k
     b = pos.shape[0]
     sentinel = 32 * w
@@ -677,14 +982,54 @@ def chained(step, state_words, load):
     return one
 
 
-def phase_timings(cfg, state, sbf_cfg, sbf_state, card):
+def fleet_batches(fleet, state, more, tenants):
+    """The 16 timing batches as a fleet's kernel operands, each built on
+    the state the step before it left, with their summed (bytes, ops)."""
+    import torch
+    from repro_torch.core import batched, u32
+    from repro_torch.core.sketch import get_spec
+    from repro_torch.kernels.fused_template import bitset_step, counter_step
+    cfg = fleet.cfg
+    spec = get_spec(cfg.variant)
+    p = fleet.params
+    st = state._replace(bits=state.bits.clone())
+    inputs, nbytes, nops = [], 0, 0
+    v = torch.ones(BATCH, dtype=torch.bool, device="cuda")
+    for i in range(len(more) // BATCH):
+        sl = slice(i * BATCH, (i + 1) * BATCH)
+        slot_keys, slot_valid, *_ = fleet.route(
+            u32.from_numpy_u32(more[sl], "cuda"),
+            torch.from_numpy(tenants[sl]).cuda(), v)
+        rng, args = fleet_kernel_inputs(cfg, spec, st, slot_keys, slot_valid)
+        if spec.family == "bitset":
+            nbytes += bitset_step_bytes(cfg, st.bits, *args, st.load)
+            nops += FLEET_T * FLEET_CAPACITY * (8 * cfg.k + 10)
+            _, _, load = bitset_step(cfg, st.bits, *args, st.load)
+            inputs.append(args)
+        else:
+            nb, no = counter_step_bytes(cfg, spec, *args)
+            nbytes, nops = nbytes + nb, nops + no
+            _, load = counter_step(cfg, spec, batched.fleet_planes(st.bits),
+                                   *args,
+                                   threshold=p.threshold,
+                                   max_value=p.max_value)
+            inputs.append(args[:3] + args[4:])         # the load chains
+        st = st._replace(rng=rng, load=load, position=st.position
+                         + slot_valid.sum(1, dtype=torch.int32))
+    del st
+    return inputs, nbytes, nops
+
+
+def phase_timings(cfg, state, sbf_cfg, sbf_state, card, fleets):
     """Per-kernel device times on 16 fresh batches past the main stream,
     each step launch on the filter the one before it left, as the stream
     runs: the kernels' own rows of a torch.profiler trace, the plain
     versions' device kernels on the same inputs, and the bound from what
     these batches need. hashmix, the bitset step, bloom_probe and
     scatter_delta run at the rlbsbf table's shapes (k = 2, W = 2^25), the
-    counter step at sbf's."""
+    counter step at sbf's; the fleet forms at the fleet paths' 32 x 8 MB,
+    each batch routed by the fleet (``fleets``: the two paths' fleets and
+    final states)."""
     import torch
     from repro_torch.core import batched, hashing, packed, u32
     from repro_torch.core.sketch import get_spec
@@ -753,6 +1098,34 @@ def phase_timings(cfg, state, sbf_cfg, sbf_state, card):
         return new, load
 
     sbf_planes = sbf_state.bits[:, 0, :]
+    (fb, fb_state), (fc, fc_state) = fleets
+    f_ten = np.random.default_rng(SEED + 4).integers(
+        0, FLEET_T, n_b * BATCH).astype(np.int32)
+    fb_in, fb_bytes, fb_ops = fleet_batches(fb, fb_state, more, f_ten)
+    fc_in, fc_bytes, fc_ops = fleet_batches(fc, fc_state, more, f_ten)
+    fcp = fc.params
+
+    def fleet_bitset(words, i, load):
+        return words, bitset_step(fb.cfg, words, *fb_in[i], load)[2]
+
+    def fleet_bitset_plain(words, i, load):
+        new, _, _, load = bitset_step_plain(fb.cfg, words, *fb_in[i], load)
+        return new, load
+
+    def fleet_counter(planes, i, load):
+        pos_, v_, seen_, ev_ = fc_in[i]
+        return planes, counter_step(fc.cfg, spec, planes, pos_, v_, seen_,
+                                    load, ev_, threshold=fcp.threshold,
+                                    max_value=fcp.max_value)[1]
+
+    def fleet_counter_plain(planes, i, load):
+        pos_, v_, seen_, ev_ = fc_in[i]
+        new, _, load = counter_step_plain(fc.cfg, spec, planes, pos_, v_,
+                                          seen_, load, ev_, fcp.threshold,
+                                          fcp.max_value)
+        return new, load
+
+    fc_planes = batched.fleet_planes(fc_state.bits)
     runs = {
         "hashmix": (lambda: lambda i: hashmix(keys[i], seeds, s=cfg.s),
                     lambda: lambda i: hashmix_plain(keys[i], seeds, cfg.s),
@@ -784,6 +1157,18 @@ def phase_timings(cfg, state, sbf_cfg, sbf_state, card):
             lambda: lambda i: scatter_delta_plain(sc_idx[i], idx[i][1], w),
             None,
             (8 * BATCH * k + 4 * k * w, 2 * BATCH * k)),
+        # the fleet forms: one launch for the 32 tenants' (T, C) grid
+        "bitset_step_fleet": (
+            lambda: chained(fleet_bitset, fb_state.bits.clone(),
+                            fb_state.load),
+            lambda: chained(fleet_bitset_plain, fb_state.bits, fb_state.load),
+            ("probe_decide", "apply_deletes", "apply_inserts"),
+            (fb_bytes / n_b, fb_ops / n_b)),
+        "counter_step_params_aware": (
+            lambda: chained(fleet_counter, fc_planes.clone(), fc_state.load),
+            lambda: chained(fleet_counter_plain, fc_planes, fc_state.load),
+            ("counter_probe_decide", "counter_apply"),
+            (fc_bytes / n_b, fc_ops / n_b)),
     }
     out = {}
     for name, (run, plain_run, kernels, work) in runs.items():
@@ -836,10 +1221,41 @@ def sbf_pieces(cfg, st, kw, v):
     }
 
 
-def phase_profile(cfg, state, card, make_pieces, kernels):
-    """Where a step's time goes on the path of ``cfg``: the host clock per
-    call of the step's plain-PyTorch pieces (each call synchronised; the
-    kernels' times are the "time" phase's), then torch.profiler over 16
+def fleet_pieces(fleet, tenants):
+    """The plain-PyTorch pieces of a fleet step, for the host clock: the
+    routing, and the step's draws over the (T, 2) keys; sbf's event sorts
+    over the (T, C) grid."""
+    def make(cfg, st, kw, v):
+        import torch
+        from repro_torch.core import batched, hashing, u32
+        ten = torch.from_numpy(tenants[:BATCH]).cuda()
+        slot_keys, slot_valid, *_ = fleet.route(kw, ten, v)
+        c = slot_keys.shape[1]
+        pieces = {"route (tenant_rank, slot scatter)":
+                  lambda: fleet.route(kw, ten, v)}
+        if cfg.variant != "sbf":
+            pieces["draw_randomness over (32, 2) keys (threefry)"] = \
+                lambda: batched.draw_randomness(cfg, st.rng, c)
+            return pieces
+        seeds = u32.from_numpy_u32(hashing.derive_seeds(cfg.seed, cfg.k),
+                                   "cuda")
+        pos = hashing.hash_positions(slot_keys, seeds, cfg.s)
+        _, start = batched.draw_sbf_randomness(cfg, st.rng, c)
+        pieces["draw_sbf_randomness over (32, 2) keys (threefry)"] = \
+            lambda: batched.draw_sbf_randomness(cfg, st.rng, c)
+        pieces["sbf_event_deltas over (32, C) (the two event sorts)"] = \
+            lambda: batched.sbf_event_deltas(cfg, pos, start, slot_valid,
+                                             build_planes=False)
+        return pieces
+    return make
+
+
+def phase_profile(cfg, state, card, make_pieces, kernels, fleet=None,
+                  tenants=None):
+    """Where a step's time goes on the path of ``cfg`` (of ``fleet`` when
+    given, its mixed batches' tenant ids from ``tenants``): the host clock
+    per call of the step's plain-PyTorch pieces (each call synchronised;
+    the kernels' times are the "time" phase's), then torch.profiler over 16
     steps for the device's busy time, its kernel count and idle share."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -848,11 +1264,21 @@ def phase_profile(cfg, state, card, make_pieces, kernels):
     n_b = 16
     keys, _ = controlled_distinct_stream(n_b * BATCH, DISTINCT_FRAC,
                                          seed=SEED + 2)
-    eng = Dedup(cfg)
+    if fleet is None:
+        eng = Dedup(cfg)
+        tag = f"{cfg.variant} 256 MB, batch {BATCH}"
+
+        def run(st, x):
+            return eng.run_stream(st, x)[0]
+    else:
+        tag = (f"{cfg.variant} fleet {FLEET_T} x 8 MB, batch {BATCH}, "
+               f"C={fleet.capacity}")
+
+        def run(st, x):
+            return fleet.run_stream(st, x, tenants[:len(x)])[0]
     st = state._replace(bits=state.bits.clone())
     kw = u32.from_numpy_u32(keys[:BATCH], "cuda")
     v = torch.ones(BATCH, dtype=torch.bool, device="cuda")
-    tag = f"{cfg.variant} 256 MB, batch {BATCH}"
     for name, fn in make_pieces(cfg, st, kw, v).items():
         fn()
         torch.cuda.synchronize()
@@ -860,18 +1286,18 @@ def phase_profile(cfg, state, card, make_pieces, kernels):
         for _ in range(n_b):
             fn()
             torch.cuda.synchronize()
-        log(f"[profile] {cfg.variant} piece {name}: "
+        log(f"[profile] {tag}: piece {name}: "
             f"{(time.perf_counter() - t0) / n_b * 1e3:.4f} ms per call "
             f"(host clock, synchronised; {card})")
-    eng.run_stream(st, keys[:BATCH])                  # warm
+    st = run(st, keys[:BATCH])                        # warm
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    st, _ = eng.run_stream(st, keys)
+    st = run(st, keys)
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / n_b * 1e3
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        st, _ = eng.run_stream(st, keys)
+        st = run(st, keys)
         torch.cuda.synchronize()
     rows = prof.key_averages()
     dev_rows = [r for r in rows if str(getattr(r, "device_type", "")).endswith(
@@ -882,14 +1308,14 @@ def phase_profile(cfg, state, card, make_pieces, kernels):
     log(f"[profile] step ({tag}): host wall {wall:.4f} ms per step "
         f"unprofiled; {n_ops:.1f} aten ops per step on the host ({card})")
     if dev_rows:
-        log(f"[profile] {cfg.variant} device busy {busy:.4f} ms per step in "
+        log(f"[profile] {tag}: device busy {busy:.4f} ms per step in "
             f"{n_kernels:.1f} kernels; idle share "
             f"{max(0.0, 1 - busy / wall):.4f} of the unprofiled wall")
         ours = []
         for x in ("hashmix_kernel",) + kernels:
             us = sum(r.self_device_time_total for r in dev_rows if x in r.key)
             ours.append(f"{x} {us / 1e3 / n_b:.6f} ms")
-        log(f"[profile] {cfg.variant}: the port's kernels per step in this "
+        log(f"[profile] {tag}: the port's kernels per step in this "
             f"trace: {', '.join(ours)}")
         for r in sorted(dev_rows, key=lambda r: -r.self_device_time_total
                         )[:12]:
@@ -933,33 +1359,62 @@ def main() -> int:
     err = {"hashmix": phase_hashmix(rng), "bitset_step": phase_bitset(rng),
            "counter_step": phase_counter(rng)}
     err["bloom_probe"], err["scatter_delta"] = phase_ops(rng)
+    stamp("kernels against plain")
+    err["bitset_step_fleet"], err["counter_step_params_aware"] = \
+        phase_fleet(rng)
+    stamp("fleet")
     phase_digests()
     keys, truth = make_stream()
     cfg, state, launches, _ = phase_main_path(keys, truth)
     sbf_cfg, sbf_state, sbf_launches, _ = phase_sbf_path(keys, truth)
     ops_launches = phase_ops_path(keys, truth)
+    stamp("digests, stream and the three paths")
+    f_keys, f_tenants, f_truth = fleet_stream(keys)
     del keys, truth
-    times = phase_timings(cfg, state, sbf_cfg, sbf_state, card)
-    phase_profile(cfg, state, card, bitset_pieces,
-                  ("probe_decide", "apply_deletes", "apply_inserts"))
-    phase_profile(sbf_cfg, sbf_state, card, sbf_pieces,
-                  ("counter_probe_decide", "counter_apply"))
+    fb, fb_state, fb_launches = phase_fleet_path("rlbsbf", f_keys, f_tenants,
+                                                 f_truth)
+    fc, fc_state, fc_launches = phase_fleet_path("sbf", f_keys, f_tenants,
+                                                 f_truth)
+    del f_keys, f_tenants, f_truth
+    stamp("fleet paths")
+    times = phase_timings(cfg, state, sbf_cfg, sbf_state, card,
+                          ((fb, fb_state), (fc, fc_state)))
+    stamp("time")
+    bitset_kernels = ("probe_decide", "apply_deletes", "apply_inserts")
+    counter_kernels = ("counter_probe_decide", "counter_apply")
+    phase_profile(cfg, state, card, bitset_pieces, bitset_kernels)
+    phase_profile(sbf_cfg, sbf_state, card, sbf_pieces, counter_kernels)
+    p_tenants = np.random.default_rng(SEED + 5).integers(
+        0, FLEET_T, 16 * BATCH).astype(np.int32)
+    for fleet, st, kern in ((fb, fb_state, bitset_kernels),
+                            (fc, fc_state, counter_kernels)):
+        phase_profile(fleet.cfg, st, card, fleet_pieces(fleet, p_tenants),
+                      kern, fleet=fleet, tenants=p_tenants)
+    stamp("profile")
     # each kernel's launches are those of the path that carries it
     rows = [
-        ("hashmix", "hashmix.cu", "hashmix.py:46", launches),
-        ("bitset_step", "bitset_step.cu", "fused_template.py:349", launches),
+        ("hashmix", "hashmix.cu", "hashmix.py:46", launches, "hashmix"),
+        ("bitset_step", "bitset_step.cu", "fused_template.py:349", launches,
+         "bitset_step"),
         ("counter_step", "counter_step.cu", "fused_template.py:131",
-         sbf_launches),
-        ("bloom_probe", "bloom_probe.cu", "bloom_probe.py:42", ops_launches),
+         sbf_launches, "counter_step"),
+        ("bloom_probe", "bloom_probe.cu", "bloom_probe.py:42", ops_launches,
+         "bloom_probe"),
         ("scatter_delta", "scatter_delta.cu", "scatter_delta.py:54",
-         ops_launches),
+         ops_launches, "scatter_delta"),
+        # the tenant-grid forms on the fleet paths; the counter step's is
+        # the TPU kernel's params_aware=True form
+        ("bitset_step_fleet", "bitset_step.cu", "fused_template.py:349",
+         fb_launches, "bitset_step"),
+        ("counter_step_params_aware", "counter_step.cu",
+         "fused_template.py:131", fc_launches, "counter_step"),
     ]
     kernels = [dict(name=name, route="cuda",
                     source=f"src/repro_torch/kernels/csrc/{src}",
                     replaces=f"src/repro/kernels/{tpu}",
-                    launches=path[name], max_abs_err=err[name],
+                    launches=path[key], max_abs_err=err[name],
                     library_ms=None, **times[name])
-               for name, src, tpu, path in rows]
+               for name, src, tpu, path, key in rows]
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -14,6 +14,11 @@ int32 — the reference's ``state.ring.events`` and ``state.ring.slot``.
 ``FilterState`` from such a dict, ``state_to_numpy`` returns one with the
 same dtypes and bytes, and ``config_from_dict`` takes a config from
 ``dataclasses.asdict`` of either package's ``DedupConfig``.
+
+A tenant fleet's state (DESIGN §4.6, ``core.fleet``) crosses the same way
+with ``fleet=True``: every leaf carries a leading axis of T =
+``cfg.n_tenants`` — the reference ``FleetDedup``'s stacked leaves, its
+(T, 2) rng key data and its stacked ring included.
 """
 
 from __future__ import annotations
@@ -37,10 +42,13 @@ def config_from_dict(d: dict) -> DedupConfig:
     return DedupConfig(**d).validate()
 
 
-def state_from_numpy(leaves: dict, cfg: DedupConfig, device=None
-                     ) -> FilterState:
+def state_from_numpy(leaves: dict, cfg: DedupConfig, device=None, *,
+                     fleet: bool = False) -> FilterState:
+    """The port's state from numpy leaves; ``fleet=True`` takes a fleet's
+    stacked leaves, each with a leading axis of ``cfg.n_tenants``."""
     device = resolve_device(device)
-    shape = bits_shape(cfg)
+    lead = (cfg.n_tenants,) if fleet else ()
+    shape = lead + bits_shape(cfg)
     bits = np.asarray(leaves["bits"])
     load = np.asarray(leaves["load"])
     rng = np.asarray(leaves["rng"])
@@ -48,26 +56,28 @@ def state_from_numpy(leaves: dict, cfg: DedupConfig, device=None
     if bits.shape != shape or bits.dtype != np.uint32:
         raise ValueError(f"bits must be uint32 {shape} for this config, "
                          f"got {bits.dtype} {bits.shape}")
-    if load.shape != (cfg.n_rows,) or rng.shape != (2,) or position.shape:
-        raise ValueError(f"load ({cfg.n_rows},), rng (2,) and a scalar "
-                         f"position expected; got {load.shape}, "
+    if (load.shape != lead + (cfg.n_rows,) or rng.shape != lead + (2,)
+            or position.shape != lead):
+        raise ValueError(f"load {lead + (cfg.n_rows,)}, rng {lead + (2,)} "
+                         f"and position {lead} expected; got {load.shape}, "
                          f"{rng.shape}, {position.shape}")
     ring = None
     if cfg.variant == "swbf":
         events = np.asarray(leaves["ring_events"])
         slot = np.asarray(leaves["ring_slot"])
-        if (events.ndim != 2 or events.shape[0] != cfg.window
-                or events.dtype != np.int32 or slot.shape):
-            raise ValueError(f"ring_events must be int32 ({cfg.window}, E) "
-                             f"and ring_slot a scalar; got {events.dtype} "
-                             f"{events.shape} and {slot.shape}")
+        if (events.ndim != len(lead) + 2
+                or events.shape[:len(lead) + 1] != lead + (cfg.window,)
+                or events.dtype != np.int32 or slot.shape != lead):
+            raise ValueError(f"ring_events must be int32 "
+                             f"{lead + (cfg.window,)} + (E,) and ring_slot "
+                             f"{lead}; got {events.dtype} {events.shape} "
+                             f"and {slot.shape}")
         ring = WindowRing(
             events=torch.from_numpy(events.copy()).to(device),
-            slot=torch.tensor(int(slot), dtype=torch.int32, device=device))
+            slot=torch.from_numpy(slot.astype(np.int32)).to(device))
     return FilterState(
         bits=u32.from_numpy_u32(bits, device),
-        position=torch.tensor(int(position), dtype=torch.int32,
-                              device=device),
+        position=torch.from_numpy(position.astype(np.int32)).to(device),
         load=torch.from_numpy(load.astype(np.int32)).to(device),
         rng=u32.from_numpy_u32(rng, device),
         ring=ring,
@@ -75,14 +85,17 @@ def state_from_numpy(leaves: dict, cfg: DedupConfig, device=None
 
 
 def state_to_numpy(state: FilterState) -> dict:
+    """numpy leaves of a state, one filter's or a fleet's stacked ones."""
+    def ints(x):
+        return x.detach().cpu().numpy().astype(np.int32)
+
     leaves = {
         "bits": u32.to_numpy_u32(state.bits),
-        "position": np.asarray(int(state.position), dtype=np.int32),
-        "load": state.load.detach().cpu().numpy().astype(np.int32),
+        "position": ints(state.position),
+        "load": ints(state.load),
         "rng": u32.to_numpy_u32(state.rng),
     }
     if state.ring is not None:
-        leaves["ring_events"] = state.ring.events.detach().cpu().numpy()
-        leaves["ring_slot"] = np.asarray(int(state.ring.slot),
-                                         dtype=np.int32)
+        leaves["ring_events"] = ints(state.ring.events)
+        leaves["ring_slot"] = ints(state.ring.slot)
     return leaves

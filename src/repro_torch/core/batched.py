@@ -21,6 +21,13 @@ on both devices, as they are XLA outside the Pallas call in the reference.
 no-ops. A step updates ``state.bits`` in place and returns the new state
 around the same tensor; the engine clones first where the caller keeps its
 state (DESIGN §3.5).
+
+Every step is written over a leading tenant axis (DESIGN §4.6): the state
+stacked (T, ...), keys and valid (T, C), the draws from the (T, 2) keys in
+one broadcast threefry evaluation, the event lists sorted per row, and one
+launch of each kernel for all T rows. ``params_aware=True`` returns that
+fleet step, ``step(state, keys, valid, tp)`` with ``TenantStepParams``
+rows; otherwise the step takes one filter and runs it as a fleet of one.
 """
 
 from __future__ import annotations
@@ -58,18 +65,55 @@ BatchedStep = Callable[[FilterState, torch.Tensor, torch.Tensor],
                        Tuple[FilterState, BatchResult]]
 
 
+class TenantStepParams(NamedTuple):
+    """Per-tenant numeric knobs of one fleet step (DESIGN §4.6), (T,)
+    int32 rows on the fleet's device. Only value-like knobs ride here;
+    everything that shapes the state (k, d, s, W, ring length) stays
+    fleet-wide. ``max_value`` keeps ``cfg.sbf_max``'s bit_length (d is
+    fixed); ``window`` is at most the ring length ``cfg.window``."""
+    max_value: torch.Tensor      # (T,) — sbf set-to-Max counter ceiling
+    threshold: torch.Tensor      # (T,) — cms/hh verdict threshold
+    window: torch.Tensor         # (T,) — swbf effective window (batches)
+
+
+def _lift(state: FilterState) -> FilterState:
+    """One filter's state as a fleet of one: a leading axis of 1 on every
+    leaf, as views, so the step's in-place update reaches the filter."""
+    ring = state.ring
+    if ring is not None:
+        ring = WindowRing(ring.events[None], ring.slot[None])
+    return FilterState(state.bits[None], state.position[None],
+                       state.load[None], state.rng[None], ring)
+
+
+def _one_filter(fleet_step) -> BatchedStep:
+    """The one-filter step ``(state, keys (B,), valid (B,))`` as the fleet
+    step over T = 1 — the same code and the same kernel launches."""
+    def step(state: FilterState, keys: torch.Tensor, valid: torch.Tensor):
+        new, res = fleet_step(_lift(state), keys[None], valid[None])
+        ring = new.ring
+        if ring is not None:
+            ring = WindowRing(ring.events[0], ring.slot[0])
+        return (FilterState(state.bits, new.position[0], new.load[0],
+                            new.rng[0], ring),
+                BatchResult(res.dup[0], res.inserted[0]))
+    return step
+
+
 def intra_batch_seen(keys: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-    """(B,) bool: True where an equal valid key occurs earlier in the batch.
-    Sort, rank by binary search, elect the earliest lane per key with a
-    scatter-min; invalid lanes share a sentinel key (DESIGN §3.1)."""
-    b = keys.shape[0]
+    """(..., B) bool: True where an equal valid key occurs earlier in the
+    same row of the batch. Sort each row, rank by binary search, elect the
+    earliest lane per key with a scatter-min; invalid lanes share a
+    sentinel key (DESIGN §3.1)."""
+    b = keys.shape[-1]
     sk = torch.where(valid, u32.to_u64(keys), u32.MASK)
-    sorted_k = torch.sort(sk).values
+    sorted_k = torch.sort(sk, dim=-1).values
     rank = torch.searchsorted(sorted_k, sk)
-    lane = torch.arange(b, dtype=torch.int64, device=keys.device)
-    winner = torch.full((b,), b, dtype=torch.int64, device=keys.device)
-    winner.scatter_reduce_(0, rank, lane, reduce="amin")
-    return (winner[rank] != lane) & valid
+    lane = torch.arange(b, dtype=torch.int64,
+                        device=keys.device).expand(sk.shape)
+    winner = torch.full(sk.shape, b, dtype=torch.int64, device=keys.device)
+    winner.scatter_reduce_(-1, rank, lane, reduce="amin")
+    return (winner.gather(-1, rank) != lane) & valid
 
 
 def draw_randomness(cfg: DedupConfig, rng: torch.Tensor, b: int,
@@ -78,16 +122,20 @@ def draw_randomness(cfg: DedupConfig, rng: torch.Tensor, b: int,
     """Split the state key and draw every random input of one step, in the
     reference's frozen order: one 4-way split, del_pos from r_del, then the
     variant's extra draws. ``partitionable`` picks JAX's threefry counter
-    layout (``core.prng``)."""
+    layout (``core.prng``). A (T, 2) key draws (T, B, ...) in one
+    evaluation, row t equal to the one-key draw with key t."""
     k, s, dev, part = cfg.k, cfg.s, rng.device, partitionable
-    rng, r_ins, r_del, r_aux = prng.split(rng, 4, part)
+    lead = tuple(rng.shape[:-1])
+    keys = prng.split(rng, 4, part)
+    rng, r_ins, r_del, r_aux = (keys[..., i, :] for i in range(4))
     del_pos = prng.randint(r_del, (b, k), 0, s, part)
     u_bern = (prng.uniform(r_ins, (b,), part) if cfg.variant == "rsbf"
-              else torch.zeros((b,), dtype=torch.float32, device=dev))
+              else torch.zeros(lead + (b,), dtype=torch.float32, device=dev))
     u_aux = (prng.uniform(r_aux, (b, k), part) if cfg.variant == "rlbsbf"
-             else torch.zeros((b, k), dtype=torch.float32, device=dev))
+             else torch.zeros(lead + (b, k), dtype=torch.float32,
+                              device=dev))
     which = (prng.randint(r_aux, (b,), 0, k, part) if cfg.variant == "bsbfsd"
-             else torch.zeros((b,), dtype=torch.int32, device=dev))
+             else torch.zeros(lead + (b,), dtype=torch.int32, device=dev))
     return rng, BatchRandomness(del_pos, u_bern, u_aux, which)
 
 
@@ -159,33 +207,45 @@ def load_delta_from_sorted(spi, pre_i, spd, pre_d, post_d, s: int
     return (gained - lost).to(torch.int32)
 
 
-def make_bitset_step(cfg: DedupConfig, spec, device=None,
-                     partitionable: bool = True) -> BatchedStep:
-    """The bitset-family step (DESIGN §3.1/§3.8) on the plane layout:
-    rsbf, bsbf, bsbfsd and rlbsbf are this function under their specs."""
-    cfg = cfg.validate()
-    device = resolve_device(device)
+def _seeds(cfg: DedupConfig, device):
+    """The probe seeds, and the block seeds of the blocked layout, moved
+    to ``device`` once when a step is built."""
     seeds = u32.from_numpy_u32(derive_seeds(cfg.seed, cfg.k, channel=0),
                                device)
     bseeds = (u32.from_numpy_u32(derive_seeds(cfg.seed, cfg.k, channel=1),
                                  device) if cfg.block_bits else None)
+    return seeds, bseeds
 
-    def step(state: FilterState, keys: torch.Tensor, valid: torch.Tensor):
-        b = keys.shape[0]
+
+def make_bitset_step(cfg: DedupConfig, spec, device=None,
+                     partitionable: bool = True,
+                     params_aware: bool = False) -> BatchedStep:
+    """The bitset-family step (DESIGN §3.1/§3.8) on the plane layout:
+    rsbf, bsbf, bsbfsd and rlbsbf are this function under their specs.
+    ``params_aware=True`` returns the fleet step over the stacked state; it
+    accepts the ``TenantStepParams`` and ignores them, as the reference
+    does — the bitset decisions have no value-like knob."""
+    cfg = cfg.validate()
+    device = resolve_device(device)
+    seeds, bseeds = _seeds(cfg, device)
+
+    def step(state: FilterState, keys: torch.Tensor, valid: torch.Tensor,
+             tp: Optional[TenantStepParams] = None):
+        b = keys.shape[-1]
         pos = hash_positions(keys, seeds, cfg.s, cfg.block_bits, bseeds)
         seen = intra_batch_seen(keys, valid)
-        i_t = state.position + torch.arange(b, dtype=torch.int32,
-                                            device=keys.device)
+        i_t = state.position[:, None] + torch.arange(
+            b, dtype=torch.int32, device=keys.device)
         rng, rnd = spec.draw(cfg, state.rng, b, partitionable)
         dup, insert, load = _fused.bitset_step(
             cfg, state.bits, pos, rnd, valid, seen, i_t, state.load)
         if cfg.debug_exact_load:
             load = popcount(state.bits)
-        n_valid = valid.sum(dtype=torch.int32)
+        n_valid = valid.sum(dim=-1, dtype=torch.int32)
         new = FilterState(state.bits, state.position + n_valid, load, rng)
         return new, BatchResult(dup=dup, inserted=insert)
 
-    return step
+    return step if params_aware else _one_filter(step)
 
 
 # ------------------------------------------------------- counter family //
@@ -194,7 +254,8 @@ class SbfBatchDeltas(NamedTuple):
     """One SBF batch's events (DESIGN §3.6): the sorted decrement and
     set-to-Max cells with their run heads, and — when built — the word
     deltas the plain step applies. The CUDA step reads only the sorted
-    lists; ``count_planes`` and ``set_delta`` are then None."""
+    lists; ``count_planes`` and ``set_delta`` are then None. A fleet's
+    events carry a leading tenant axis, each row sorted on its own."""
     count_planes: Optional[torch.Tensor]  # (d, W) int32 — decrement counts
                                           #   per cell, clamped to Max
     set_delta: Optional[torch.Tensor]     # (W,) int32 — set-to-Max cells
@@ -205,12 +266,22 @@ class SbfBatchDeltas(NamedTuple):
     set_head: torch.Tensor     # (B·k,) bool — first event of each cell
 
 
+def _per_row(fn, *xs):
+    """``fn`` of 1-D rows, applied to each row of the leading axes and
+    stacked — the plane builders, which only the CPU's plain step reads."""
+    if xs[0].dim() == 1:
+        return fn(*xs)
+    return torch.stack([_per_row(fn, *(x[i] for x in xs))
+                        for i in range(xs[0].shape[0])])
+
+
 def draw_sbf_randomness(cfg: DedupConfig, rng: torch.Tensor, b: int,
                         partitionable: bool = True):
     """SBF's per-batch randomness, in the reference's frozen order: one
     2-way split, then the decrement-run start cells ``randint(r, (B,), 0,
-    s)``."""
-    rng, r = prng.split(rng, 2, partitionable)
+    s)`` — (T, B) for a fleet's (T, 2) keys."""
+    keys = prng.split(rng, 2, partitionable)
+    rng, r = keys[..., 0, :], keys[..., 1, :]
     return rng, prng.randint(r, (b,), 0, cfg.s, partitionable)
 
 
@@ -218,39 +289,53 @@ def sbf_event_deltas(cfg: DedupConfig, pos: torch.Tensor,
                      start: torch.Tensor, valid: torch.Tensor,
                      build_planes: bool = True) -> SbfBatchDeltas:
     """Batch events -> sorted event lists (and, with ``build_planes``,
-    word deltas). Each valid element decrements the P contiguous cells from its
-    random start, wrapping at s, and sets its k cells to Max: a cell's
+    word deltas). Each valid element decrements the P contiguous cells from
+    its random start, wrapping at s, and sets its k cells to Max: a cell's
     decrement is the number of runs covering it, read off the sorted list
-    clamped to Max (lossless, since value <= Max)."""
+    clamped to the fleet-wide ``cfg.sbf_max`` (lossless, since value <=
+    Max). pos (..., B, k), start and valid (..., B)."""
     w = cfg.s_words
     sentinel = 32 * w
+    lead = pos.shape[:-2]
     p_run = cfg.sbf_p_effective
-    run = (start.to(torch.int64)[:, None]
-           + torch.arange(p_run, device=pos.device)) % cfg.s      # (B, P)
-    spd = torch.sort(torch.where(valid[:, None], run, sentinel)
-                     .reshape(-1)).values
-    sps = torch.sort(torch.where(valid[:, None], pos.to(torch.int64),
-                                 sentinel).reshape(-1)).values
+    run = (start.to(torch.int64)[..., None]
+           + torch.arange(p_run, device=pos.device)) % cfg.s   # (.., B, P)
+    spd = torch.sort(torch.where(valid[..., None], run, sentinel)
+                     .reshape(*lead, -1), dim=-1).values
+    sps = torch.sort(torch.where(valid[..., None], pos.to(torch.int64),
+                                 sentinel).reshape(*lead, -1),
+                     dim=-1).values
     set_head = run_heads_1d(sps)
     if not build_planes:
         return SbfBatchDeltas(None, None, spd, run_heads_1d(spd), sps,
                               set_head)
     dec_head, cnt = clamped_run_counts(spd, cfg.sbf_max)
-    count_planes = count_planes_from_sorted(spd, dec_head, cnt,
-                                            cfg.n_planes, w)
-    # head-only single-bit masks are disjoint within a word: the sum is
-    # the OR
-    keep = set_head & (sps < sentinel)
-    acc = torch.zeros((w,), dtype=torch.int64, device=pos.device)
-    acc.index_add_(0, torch.where(keep, sps >> 5, 0),
-                   torch.where(keep, 1 << (sps & 31), 0))
-    return SbfBatchDeltas(count_planes, u32.to_i32(acc), spd, dec_head, sps,
-                          set_head)
+    count_planes = _per_row(
+        lambda sp, h, c: count_planes_from_sorted(sp, h, c, cfg.n_planes, w),
+        spd, dec_head, cnt)
+
+    def set_words(sp, head):
+        # head-only single-bit masks are disjoint within a word: the sum is
+        # the OR
+        keep = head & (sp < sentinel)
+        acc = torch.zeros((w,), dtype=torch.int64, device=sp.device)
+        acc.index_add_(0, torch.where(keep, sp >> 5, 0),
+                       torch.where(keep, 1 << (sp & 31), 0))
+        return u32.to_i32(acc)
+
+    return SbfBatchDeltas(count_planes, _per_row(set_words, sps, set_head),
+                          spd, dec_head, sps, set_head)
 
 
 def sbf_planes_3d(bits: torch.Tensor) -> torch.Tensor:
     """A counter plane state as (d, 1, W) — Max == 1 squeezes d."""
     return bits if bits.dim() == 3 else bits[None]
+
+
+def fleet_planes(bits: torch.Tensor) -> torch.Tensor:
+    """A stacked counter state's ``bits`` — (T, d, 1, W), or (T, 1, W) at
+    d == 1 — as the (T, d, W) view the counter step updates in place."""
+    return bits[:, :, 0, :] if bits.dim() == 4 else bits
 
 
 class CountBatchDeltas(NamedTuple):
@@ -268,49 +353,63 @@ def count_event_deltas(cfg: DedupConfig, pos: torch.Tensor,
                        build_planes: bool = True) -> CountBatchDeltas:
     """A batch's B·k insert positions -> the sorted event list padded with
     sentinels to ``width`` (B·k for cms/hh, the ring's event capacity for
-    swbf) and, with ``build_planes``, its clamped count planes."""
+    swbf) and, with ``build_planes``, its clamped count planes. pos
+    (..., B, k) and valid (..., B) give one list per leading row."""
     w, d = cfg.s_words, cfg.n_planes
     sentinel = 32 * w
-    flat = torch.where(valid[:, None], pos.to(torch.int64),
-                       sentinel).reshape(-1)
-    if width < flat.shape[0]:
+    flat = torch.where(valid[..., None], pos.to(torch.int64),
+                       sentinel).reshape(*pos.shape[:-2], -1)
+    if width < flat.shape[-1]:
         raise ValueError(
-            f"{cfg.variant} step saw {flat.shape[0]} events but the event "
+            f"{cfg.variant} step saw {flat.shape[-1]} events but the event "
             f"width is {width} — init the state with event_capacity >= the "
             f"step's element count (DESIGN §3.7)")
-    if width > flat.shape[0]:
-        flat = torch.nn.functional.pad(flat, (0, width - flat.shape[0]),
+    if width > flat.shape[-1]:
+        flat = torch.nn.functional.pad(flat, (0, width - flat.shape[-1]),
                                        value=sentinel)
-    sp = torch.sort(flat).values
+    sp = torch.sort(flat, dim=-1).values
     if not build_planes:
         return CountBatchDeltas(None, sp, run_heads_1d(sp))
     head, cnt = clamped_run_counts(sp, (1 << d) - 1)
-    return CountBatchDeltas(count_planes_from_sorted(sp, head, cnt, d, w),
-                            sp, head)
+    return CountBatchDeltas(
+        _per_row(lambda x, h, c: count_planes_from_sorted(x, h, c, d, w),
+                 sp, head, cnt), sp, head)
+
+
+def _slot_index(ring: WindowRing) -> torch.Tensor:
+    """Each row's current slot as a gather/scatter index over the ring's
+    slot axis: (..., 1, E)."""
+    e = ring.events.shape[-1]
+    return ring.slot.to(torch.int64)[..., None, None].expand(
+        *ring.slot.shape, 1, e)
 
 
 def ring_expire_planes(cfg: DedupConfig, ring: WindowRing,
                        build_planes: bool = True):
     """The expiring slot's sorted event list -> (events int64, heads, count
     planes or None): exactly what the arriving batch added, re-expanded
-    (the list is already sorted, so no sort)."""
-    slot = ring.slot.to(torch.int64).reshape(1)
-    ev = ring.events.index_select(0, slot)[0].to(torch.int64)
+    (the list is already sorted, so no sort). A stacked ring (T, window,
+    E) with slots (T,) gives each row's own expiring slot."""
+    ev = ring.events.gather(-2, _slot_index(ring)).squeeze(-2)
+    ev = ev.to(torch.int64)
     if not build_planes:
         return ev, run_heads_1d(ev), None
-    d = cfg.n_planes
+    d, w = cfg.n_planes, cfg.s_words
     head, cnt = clamped_run_counts(ev, (1 << d) - 1)
-    return ev, head, count_planes_from_sorted(ev, head, cnt, d, cfg.s_words)
+    return ev, head, _per_row(
+        lambda x, h, c: count_planes_from_sorted(x, h, c, d, w), ev, head,
+        cnt)
 
 
-def ring_push(ring: WindowRing, ev: CountBatchDeltas, window: int
+def ring_push(ring: WindowRing, ev: CountBatchDeltas, window
               ) -> WindowRing:
     """Overwrite the expired slot with the arriving batch's event list and
-    advance. Out of place: the ring is a few hundred kB, and a state the
-    caller keeps must stay as it was (``Dedup.process``)."""
-    slot = ring.slot.to(torch.int64).reshape(1)
-    events = ring.events.index_copy(0, slot,
-                                    ev.ins_sorted.to(torch.int32)[None])
+    advance modulo ``window``: an int, or a fleet's (T,) tensor of
+    per-tenant windows (the reference's third value-like seam, outside the
+    kernel there too). Out of place: the ring is a few hundred kB, and a
+    state the caller keeps must stay as it was (``Dedup.process``)."""
+    events = ring.events.scatter(-2, _slot_index(ring),
+                                 ev.ins_sorted.to(torch.int32)[..., None, :])
     return WindowRing(events, (ring.slot + 1) % window)
 
 
@@ -320,7 +419,8 @@ class CounterStepDeltas(NamedTuple):
     CUDA kernel reads and what the exact load accounting reads; the plane
     deltas, built only for the plain step, are what the reference's jnp
     step applies. ``None`` marks an op the sketch lacks (or planes not
-    built). Order: subtract, then set/add (insertions win)."""
+    built). Order: subtract, then set/add (insertions win). A fleet's
+    operands carry a leading tenant axis."""
     sub_planes: Optional[torch.Tensor]   # (d, W) int32 decrement planes
     sub_events: Optional[torch.Tensor]   # (E,) int64 sorted decrement cells
     sub_heads: Optional[torch.Tensor]    # (E,) bool first event per cell
@@ -332,26 +432,35 @@ class CounterStepDeltas(NamedTuple):
 
 
 def make_counter_planes_step(cfg: DedupConfig, spec, device=None,
-                             partitionable: bool = True) -> BatchedStep:
+                             partitionable: bool = True,
+                             params_aware: bool = False) -> BatchedStep:
     """The counter-family step (DESIGN §3.8) on the (d, W) bit-plane
     algebra, specialized by a ``SketchSpec``: probe (nonzero bit or d-bit
     value), the spec's decision, its events, and the exact nonzero-cell
     load. sbf, swbf, cms and hh are this function under their specs. The
     fused counter step (``kernels/fused_template.py::counter_step``) does
     the probe, decide and update; on CUDA no (d, W) delta plane is built.
-    The reference's fleet form (``params_aware=True``) is not ported yet
-    (ROADMAP Queue 1 item 8)."""
+
+    ``params_aware=True`` returns the fleet step over the stacked state,
+    ``step(state, keys, valid, tp)``: the tenants' ``TenantStepParams``
+    replace the config at the reference's three value-like seams — the
+    cms/hh threshold and the sbf set-to-Max ceiling, read by the kernel
+    from (T,) device rows, and the swbf ring's advance modulus. Every shape
+    and every draw stays as it is, and the sbf events still clamp to the
+    fleet-wide ``cfg.sbf_max``, as the reference's do."""
     cfg = cfg.validate()
     device = resolve_device(device)
-    seeds = u32.from_numpy_u32(derive_seeds(cfg.seed, cfg.k, channel=0),
-                               device)
-    bseeds = (u32.from_numpy_u32(derive_seeds(cfg.seed, cfg.k, channel=1),
-                                 device) if cfg.block_bits else None)
+    seeds, bseeds = _seeds(cfg, device)
     events_fn = spec.make_events(cfg)
+    # the one-filter step's knobs, as (1,) rows like a fleet's
+    one = TenantStepParams(
+        *(torch.full((1,), v, dtype=torch.int32, device=device)
+          for v in (cfg.sbf_max, cfg.count_threshold, max(cfg.window, 1))))
 
-    def step(state: FilterState, keys: torch.Tensor, valid: torch.Tensor):
-        b = keys.shape[0]
-        planes = sbf_planes_3d(state.bits)[:, 0, :]     # (d, W) view
+    def step(state: FilterState, keys: torch.Tensor, valid: torch.Tensor,
+             tp: Optional[TenantStepParams] = None):
+        b = keys.shape[-1]
+        planes = fleet_planes(state.bits)               # (T, d, W) view
         pos = hash_positions(keys, seeds, cfg.s, cfg.block_bits, bseeds)
         seen = intra_batch_seen(keys, valid) if spec.uses_seen else None
         if spec.draw is not None:
@@ -360,19 +469,21 @@ def make_counter_planes_step(cfg: DedupConfig, spec, device=None,
             rng, rnd = state.rng, None
         ev = events_fn(state, pos, valid, rnd,
                        build_planes=keys.device.type == "cpu")
-        dup, load = _fused.counter_step(cfg, spec, planes, pos, valid, seen,
-                                        state.load, ev)
+        knobs = tp if params_aware else one
+        dup, load = _fused.counter_step(
+            cfg, spec, planes, pos, valid, seen, state.load, ev,
+            threshold=knobs.threshold, max_value=knobs.max_value)
         if cfg.debug_exact_load:
-            load = popcount(planes_nonzero(planes)[None])
+            load = popcount(planes_nonzero(planes.transpose(0, 1)))[:, None]
         ring = state.ring
         if ev.ring_payload is not None:
-            ring = ring_push(ring, ev.ring_payload, cfg.window)
-        n_valid = valid.sum(dtype=torch.int32)
+            ring = ring_push(ring, ev.ring_payload, knobs.window)
+        n_valid = valid.sum(dim=-1, dtype=torch.int32)
         new = FilterState(state.bits, state.position + n_valid, load, rng,
                           ring)
         return new, BatchResult(dup=dup, inserted=valid)
 
-    return step
+    return step if params_aware else _one_filter(step)
 
 
 def make_sbf_planes_step(cfg: DedupConfig, device=None,
@@ -397,10 +508,7 @@ def make_estimate_fn(cfg: DedupConfig, device=None):
     reference has no kernel here."""
     cfg = cfg.validate()
     device = resolve_device(device)
-    seeds = u32.from_numpy_u32(derive_seeds(cfg.seed, cfg.k, channel=0),
-                               device)
-    bseeds = (u32.from_numpy_u32(derive_seeds(cfg.seed, cfg.k, channel=1),
-                                 device) if cfg.block_bits else None)
+    seeds, bseeds = _seeds(cfg, device)
 
     def estimate(state: FilterState, keys: torch.Tensor) -> torch.Tensor:
         planes = sbf_planes_3d(state.bits)[:, 0, :]
@@ -411,16 +519,18 @@ def make_estimate_fn(cfg: DedupConfig, device=None):
 
 
 def make_templated_step(cfg: DedupConfig, spec=None, device=None,
-                        partitionable: bool = True) -> BatchedStep:
+                        partitionable: bool = True,
+                        params_aware: bool = False) -> BatchedStep:
     """Resolve the variant's ``SketchSpec`` and hand it to its family's
-    generator (DESIGN §3.8)."""
+    generator (DESIGN §3.8). ``params_aware=True`` returns the fleet step
+    ``(stacked state, keys (T, C), valid (T, C), TenantStepParams)``."""
     cfg = cfg.validate()
     if spec is None:
         from .sketch import get_spec
         spec = get_spec(cfg.variant)
-    if spec.family == "counter":
-        return make_counter_planes_step(cfg, spec, device, partitionable)
-    return make_bitset_step(cfg, spec, device, partitionable)
+    make = (make_counter_planes_step if spec.family == "counter"
+            else make_bitset_step)
+    return make(cfg, spec, device, partitionable, params_aware)
 
 
 def make_batched_step(cfg: DedupConfig, device=None,
@@ -437,11 +547,7 @@ def make_batched_step(cfg: DedupConfig, device=None,
             "layout='planes'")
     if cfg.n_tenants > 1:
         raise NotImplementedError(
-            "tenant fleets (n_tenants > 1) are not ported yet — ROADMAP "
-            "Queue 1 item 8")
-    if cfg.block_bits > 0 and device.type == "cuda":
-        raise NotImplementedError(
-            "the blocked layout (block_bits > 0) has no CUDA kernel yet — "
-            "ROADMAP Queue 2 item 5")
+            "n_tenants > 1 is a tenant fleet: run it with "
+            "repro_torch.core.fleet.FleetDedup (DESIGN §4.6)")
     return make_templated_step(cfg, device=device,
                                partitionable=partitionable)

@@ -4,9 +4,9 @@ the port of ``repro.core.hashing``.
 murmur3's 32-bit finalizer (fmix32) seeded per hash slot, reduced to a bit
 position by mask (power-of-two ``s``) or modulo. Keys and hashes travel as
 int32 bit patterns; the arithmetic runs on int64 values masked to 32 bits
-(``core.u32``). On a CUDA tensor with the plain layout, ``hash_positions``
-is the hashmix kernel (``kernels/hashmix.py``); on the CPU it is the plain
-PyTorch form below. The blocked layout (DESIGN §3.3) runs on the CPU only.
+(``core.u32``). ``hash_positions`` is the hashmix kernel
+(``kernels/hashmix.py``) on a CUDA tensor and its plain form on the CPU;
+the blocked layout (DESIGN §3.3) is two hashmix calls.
 """
 
 from __future__ import annotations
@@ -58,26 +58,27 @@ def hash_slots(keys: torch.Tensor, seeds: torch.Tensor) -> torch.Tensor:
 def hash_positions(keys: torch.Tensor, seeds: torch.Tensor, s: int,
                    block_bits: int = 0,
                    block_seeds: torch.Tensor | None = None) -> torch.Tensor:
-    """Bit positions in [0, s) for each of the k filters -> (..., k) int32.
-    ``seeds`` (k,) int32 words on the keys' device (``derive_seeds`` moved
-    there once by the caller, so a step copies nothing from the host).
+    """Bit positions in [0, s) for each of the k filters -> (..., k) int32
+    for keys (...,): one hashmix call over the flattened keys. ``seeds``
+    (k,) int32 words on the keys' device (``derive_seeds`` moved there once
+    by the caller, so a step copies nothing from the host).
 
     ``block_bits`` > 0 selects the blocked layout (DESIGN §3.3): a hash
     over ``block_seeds`` picks a 2^block_bits-bit block per filter and the
-    bit lands inside it."""
+    bit lands inside it — the reference's ``hb % n_blocks`` and ``h &
+    (bsize - 1)`` are hashmix at ``s = n_blocks`` and at ``s = bsize``, so
+    the layout is two hashmix calls, the product taken in int64."""
+    flat = keys.reshape(-1)
+    shape = (*keys.shape, seeds.shape[0])
     if block_bits <= 0:
-        return _hashmix.hashmix(keys, seeds, s=s)
-    if keys.is_cuda:
-        raise NotImplementedError(
-            "the blocked layout (block_bits > 0) has no CUDA kernel yet — "
-            "ROADMAP Queue 2 item 5")
+        return _hashmix.hashmix(flat, seeds, s=s).view(shape)
     if block_seeds is None:
         raise ValueError("blocked layout needs block_seeds")
-    h = hash_slots(keys, seeds)
     bsize = 1 << block_bits
     n_blocks = max(1, s // bsize)
-    block = hash_slots(keys, block_seeds) % n_blocks
-    return (block * bsize + (h & (bsize - 1))).to(torch.int32)
+    block = _hashmix.hashmix(flat, block_seeds, s=n_blocks).to(torch.int64)
+    bit = _hashmix.hashmix(flat, seeds, s=bsize)
+    return (block * bsize + bit).to(torch.int32).view(shape)
 
 
 def route_hash(keys: torch.Tensor, n_shards: int, base_seed: int

@@ -184,31 +184,34 @@ def counts_to_planes(acc: torch.Tensor, d: int, w: int) -> torch.Tensor:
 
 
 def run_heads_1d(sp: torch.Tensor) -> torch.Tensor:
-    """(n,) sorted -> True at the first event of each equal-value run."""
+    """(..., n) sorted along the last axis -> True at the first event of
+    each equal-value run of its row."""
     head = torch.ones_like(sp, dtype=torch.bool)
-    head[1:] = sp[1:] != sp[:-1]
+    head[..., 1:] = sp[..., 1:] != sp[..., :-1]
     return head
 
 
 def clamped_run_counts(sp: torch.Tensor, cmax: int):
-    """(n,) SORTED event cells -> (head bool, cnt int64): run-head flags and
-    each event's run length clamped to ``cmax`` (exact at every head, the
-    only places it is read). Caps up to 17 count with cmax - 1 shifted
-    equality compares, wider ones with two binary searches of the sorted
-    array against itself, as the reference does; the outputs are equal."""
-    n = sp.shape[0]
+    """(..., n) event cells SORTED along the last axis -> (head bool, cnt
+    int64): run-head flags and each event's run length in its row clamped
+    to ``cmax`` (exact at every head, the only places it is read). Caps up
+    to 17 count with cmax - 1 shifted equality compares, wider ones with
+    two binary searches of the sorted row against itself, as the reference
+    does; the outputs are equal."""
+    n = sp.shape[-1]
     head = run_heads_1d(sp)
     if cmax <= 1:
-        return head, torch.ones((n,), dtype=torch.int64, device=sp.device)
+        return head, torch.ones(sp.shape, dtype=torch.int64,
+                                device=sp.device)
     if cmax - 1 > 16:
         lo = torch.searchsorted(sp, sp, side="left")
         hi = torch.searchsorted(sp, sp, side="right")
         return head, torch.clamp(hi - lo, max=cmax)
-    cnt = torch.ones((n,), dtype=torch.int64, device=sp.device)
-    ext = torch.cat([sp, torch.full((cmax - 1,), -1, dtype=sp.dtype,
-                                    device=sp.device)])
+    cnt = torch.ones(sp.shape, dtype=torch.int64, device=sp.device)
+    ext = torch.cat([sp, torch.full((*sp.shape[:-1], cmax - 1), -1,
+                                    dtype=sp.dtype, device=sp.device)], -1)
     for r in range(1, cmax):
-        cnt += sp == ext[r:r + n]
+        cnt += sp == ext[..., r:r + n]
     return head, cnt
 
 
@@ -276,12 +279,19 @@ def planes_saturating_add(planes: torch.Tensor, addend: torch.Tensor
     return torch.stack([x | carry for x in sums])
 
 
-def planes_set_value(planes: torch.Tensor, delta: torch.Tensor, value: int
+def planes_set_value(planes: torch.Tensor, delta: torch.Tensor, value
                      ) -> torch.Tensor:
-    """Set every cell selected by the OR-union word ``delta`` to the static
-    int ``value``: plane p gets ``A | delta`` where value's bit p is 1 and
-    ``A & ~delta`` where it is 0."""
-    value = int(value)
-    return torch.stack([(planes[q] | delta) if (value >> q) & 1
-                        else (planes[q] & ~delta)
+    """Set every cell selected by the OR-union word ``delta`` to ``value``:
+    plane p gets ``A | delta`` where value's bit p is 1 and ``A & ~delta``
+    where it is 0. ``value`` is an int, or a 0-dim integer tensor (a
+    tenant's Max, DESIGN §4.6) read on the device: plane p then gets
+    ``(A & ~delta) | (delta & mask_p)``, ``mask_p`` all ones iff bit p is
+    set — the same words."""
+    if not isinstance(value, torch.Tensor):
+        value = int(value)
+        return torch.stack([(planes[q] | delta) if (value >> q) & 1
+                            else (planes[q] & ~delta)
+                            for q in range(planes.shape[0])])
+    v = value.to(torch.int32)
+    return torch.stack([(planes[q] & ~delta) | (delta & -((v >> q) & 1))
                         for q in range(planes.shape[0])])

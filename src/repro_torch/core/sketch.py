@@ -32,7 +32,9 @@ class SketchSpec:
       bitset family: decide(vals, valid, seen, i_t, load, rnd)
                        -> (dup, insert, del_mask)     [``make_decision_fn``]
       counter family: decide(vals, valid, seen) -> dup — ``vals`` (B, k)
-        bool for probe="nonzero", int32 cell values for probe="value".
+        bool for probe="nonzero", int32 cell values for probe="value"; a
+        thresholded sketch's decide also takes ``t=``, the count threshold
+        (default ``cfg.count_threshold``; a fleet passes a tenant's).
     draw(cfg, rng, b, partitionable) -> (rng, rnd), or None when the sketch
       is deterministic (the rng then threads through untouched).
     make_events(cfg) -> events(state, pos, valid, rnd, build_planes=True)
@@ -48,7 +50,7 @@ class SketchSpec:
     make_decide: Callable[[DedupConfig], Callable]
     draw: Optional[Callable]
     make_events: Optional[Callable[[DedupConfig], Callable]] = None
-    thresholded: bool = False    # decide compares the count to a threshold
+    thresholded: bool = False    # decide takes a ``t=`` count threshold
 
 
 # ---------------- counter-family decision fns ---------------------------- //
@@ -56,32 +58,33 @@ class SketchSpec:
 
 def _decide_sbf(cfg: DedupConfig):
     def decide(vals, valid, seen):
-        return (vals != 0).all(dim=1) & valid
+        return (vals != 0).all(dim=-1) & valid
     return decide
 
 
 def _decide_swbf(cfg: DedupConfig):
     def decide(vals, valid, seen):
-        return ((vals != 0).all(dim=1) | seen) & valid
+        return ((vals != 0).all(dim=-1) | seen) & valid
     return decide
 
 
 def _decide_cms(cfg: DedupConfig):
-    t = cfg.count_threshold
+    t0 = cfg.count_threshold
 
-    def decide(vals, valid, seen):
+    def decide(vals, valid, seen, t=t0):
         # count-min estimate >= threshold; at t == 1 this is counting-Bloom
-        # membership (all k cells nonzero)
-        return ((vals.min(dim=1).values >= t) | seen) & valid
+        # membership (all k cells nonzero). ``t`` may be a 0-dim tensor (a
+        # tenant's threshold)
+        return ((vals.min(dim=-1).values >= t) | seen) & valid
     return decide
 
 
 def _decide_hh(cfg: DedupConfig):
-    t = cfg.count_threshold
+    t0 = cfg.count_threshold
 
-    def decide(vals, valid, seen):
+    def decide(vals, valid, seen, t=t0):
         # heavy-hitter flag: long-run frequency only, so no ``seen`` join
-        return (vals.min(dim=1).values >= t) & valid
+        return (vals.min(dim=-1).values >= t) & valid
     return decide
 
 
@@ -118,7 +121,7 @@ def _events_count(cfg: DedupConfig):
     def events(state, pos, valid, rnd,
                build_planes=True) -> CounterStepDeltas:
         # no decay, no window: arrivals only increment (clamped at the cap)
-        ev = count_event_deltas(cfg, pos, valid, pos.shape[0] * cfg.k,
+        ev = count_event_deltas(cfg, pos, valid, pos.shape[-2] * cfg.k,
                                 build_planes)
         return CounterStepDeltas(
             sub_planes=None, sub_events=None, sub_heads=None,

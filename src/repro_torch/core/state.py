@@ -21,6 +21,11 @@ window (DESIGN §3.7): the last ``window`` batches' sorted insert-event
 lists and the slot the next batch expires; ``None`` for every other
 variant. All of it lives on the engine's device, so a stream of steps never
 waits on the host.
+
+A tenant fleet (DESIGN §4.6, ``core.fleet``) stacks T such states on a
+leading axis in one ``FilterState``: ``bits`` (T, ...), ``position`` (T,),
+``load`` (T, k) or (T, 1), ``rng`` (T, 2), and the ring's ``events`` (T,
+window, E) and ``slot`` (T,).
 """
 
 from __future__ import annotations

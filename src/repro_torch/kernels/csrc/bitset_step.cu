@@ -28,6 +28,14 @@
 // delta. Each block reduces its count (__syncthreads_count) and adds it
 // with one integer atomic: order-independent, so bit-exact.
 //
+// Tenant axis (DESIGN §4.6). A fleet of T filters is one launch of each
+// phase: words (T, k, W), per-element operands (T, C) and (T, C, k), load
+// (T, k); the grid's y axis (z for (B) and (C)) is the tenant, so a block
+// works inside one tenant's rows and its load reduce goes to that tenant.
+// The reference vmaps its kernel over T; tenants' rows are disjoint, so the
+// three phases keep snapshot order for all tenants at once. One filter is
+// T = 1.
+//
 // Decisions divide in float32 with __fdiv_rn/__int2float_rn (IEEE
 // round-to-nearest, as the reference's f32 division); do not build with
 // fast-math. Lanes that are invalid or not inserted touch no word.
@@ -42,36 +50,41 @@ constexpr int kThreads = 256;
 enum Variant { RSBF = 0, BSBF = 1, BSBFSD = 2, RLBSBF = 3 };
 
 struct StepArgs {
-  uint32_t* words;        // (k, W) filter, updated in place
+  uint32_t* words;        // (T, k, W) filters, updated in place
   long long w;            // words per row
-  int k, b;
-  const int32_t* pos;     // (B, k) insert / probe positions
-  const int32_t* del_pos; // (B, k) candidate delete positions
-  const uint8_t* valid;   // (B,) bool
-  const uint8_t* seen;    // (B,) bool — an equal key earlier in the batch
-  const int32_t* i_t;     // (B,) 1-indexed stream positions
-  const float* u_bern;    // (B,) rsbf phase-2 uniforms
-  const float* u_aux;     // (B, k) rlbsbf per-row uniforms
-  const int32_t* which;   // (B,) bsbfsd row
-  const int32_t* load_in; // (k,) batch-entry load
-  int32_t* load_out;      // (k,) = load_in on entry; atomics add the delta
-  uint8_t* dup;           // (B,) bool
-  uint8_t* ins;           // (B,) bool
-  uint32_t* del_rows;     // (B,) bit f set: delete row f
+  int k, t, b;            // b: elements per tenant (the slot width C)
+  const int32_t* pos;     // (T, B, k) insert / probe positions
+  const int32_t* del_pos; // (T, B, k) candidate delete positions
+  const uint8_t* valid;   // (T, B) bool
+  const uint8_t* seen;    // (T, B) bool — an equal key earlier in the row
+  const int32_t* i_t;     // (T, B) 1-indexed stream positions
+  const float* u_bern;    // (T, B) rsbf phase-2 uniforms
+  const float* u_aux;     // (T, B, k) rlbsbf per-row uniforms
+  const int32_t* which;   // (T, B) bsbfsd row
+  const int32_t* load_in; // (T, k) batch-entry load
+  int32_t* load_out;      // (T, k) = load_in on entry; atomics add deltas
+  uint8_t* dup;           // (T, B) bool
+  uint8_t* ins;           // (T, B) bool
+  uint32_t* del_rows;     // (T, B) bit f set: delete row f
   int variant;
   int s;                  // bits per row
   float s_f;              // float32(s)
   float p_star;           // float32(p*)
 };
 
+// grid (ceil(B / kThreads), T): blockIdx.y is the tenant
 __global__ void probe_decide(StepArgs a) {
-  int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= a.b) return;
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= a.b) return;
   const int k = a.k;
+  const int t = blockIdx.y;
+  const long long e = static_cast<long long>(t) * a.b + i;  // (T, B) index
+  const uint32_t* words = a.words + static_cast<long long>(t) * k * a.w;
+  const int32_t* load_in = a.load_in + t * k;
   uint32_t zero_rows = 0;  // rows whose probed bit is clear
   for (int f = 0; f < k; ++f) {
     uint32_t p = static_cast<uint32_t>(a.pos[e * k + f]);
-    uint32_t word = a.words[f * a.w + (p >> 5)];
+    uint32_t word = words[f * a.w + (p >> 5)];
     if (((word >> (p & 31u)) & 1u) == 0u) zero_rows |= 1u << f;
   }
   const uint32_t all_rows = (k == 32) ? 0xFFFFFFFFu : ((1u << k) - 1u);
@@ -106,7 +119,7 @@ __global__ void probe_decide(StepArgs a) {
     case RLBSBF:
       if (insert) {
         for (int f = 0; f < k; ++f) {
-          float p_del = __fdiv_rn(__int2float_rn(a.load_in[f]), a.s_f);
+          float p_del = __fdiv_rn(__int2float_rn(load_in[f]), a.s_f);
           if (a.u_aux[e * k + f] < p_del) del |= 1u << f;
         }
       }
@@ -117,41 +130,49 @@ __global__ void probe_decide(StepArgs a) {
   a.del_rows[e] = del;
 }
 
-// grid (ceil(B / kThreads), k): blockIdx.y is the row
+// grid (ceil(B / kThreads), k, T): blockIdx.y is the row, blockIdx.z the
+// tenant
 __global__ void apply_deletes(StepArgs a) {
-  int e = blockIdx.x * blockDim.x + threadIdx.x;
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
   int f = blockIdx.y;
+  int t = blockIdx.z;
+  long long e = static_cast<long long>(t) * a.b + i;
+  long long row = static_cast<long long>(t) * a.k + f;
   int cleared = 0;
-  if (e < a.b && ((a.del_rows[e] >> f) & 1u)) {
+  if (i < a.b && ((a.del_rows[e] >> f) & 1u)) {
     uint32_t p = static_cast<uint32_t>(a.del_pos[e * a.k + f]);
     uint32_t m = 1u << (p & 31u);
-    uint32_t old = atomicAnd(&a.words[f * a.w + (p >> 5)], ~m);
+    uint32_t old = atomicAnd(&a.words[row * a.w + (p >> 5)], ~m);
     cleared = (old & m) != 0u;
   }
   int n = __syncthreads_count(cleared);
-  if (threadIdx.x == 0 && n) atomicSub(&a.load_out[f], n);
+  if (threadIdx.x == 0 && n) atomicSub(&a.load_out[row], n);
 }
 
 __global__ void apply_inserts(StepArgs a) {
-  int e = blockIdx.x * blockDim.x + threadIdx.x;
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
   int f = blockIdx.y;
+  int t = blockIdx.z;
+  long long e = static_cast<long long>(t) * a.b + i;
+  long long row = static_cast<long long>(t) * a.k + f;
   int gained = 0;
-  if (e < a.b && a.ins[e]) {
+  if (i < a.b && a.ins[e]) {
     uint32_t p = static_cast<uint32_t>(a.pos[e * a.k + f]);
     uint32_t m = 1u << (p & 31u);
-    uint32_t old = atomicOr(&a.words[f * a.w + (p >> 5)], m);
+    uint32_t old = atomicOr(&a.words[row * a.w + (p >> 5)], m);
     gained = (old & m) == 0u;
   }
   int n = __syncthreads_count(gained);
-  if (threadIdx.x == 0 && n) atomicAdd(&a.load_out[f], n);
+  if (threadIdx.x == 0 && n) atomicAdd(&a.load_out[row], n);
 }
 
 }  // namespace
 
-// One step: launches (A), (B), (C) on `stream` in that order. load_out must
-// hold load_in on entry. Returns the first non-zero cudaGetLastError().
+// One step of T filters: launches (A), (B), (C) on `stream` in that
+// order. b is the elements per tenant. load_out must hold load_in on entry.
+// Returns the first non-zero cudaGetLastError().
 extern "C" int bitset_step_launch(
-    void* words, long long w, int k, int b, const void* pos,
+    void* words, long long w, int k, int t, int b, const void* pos,
     const void* del_pos, const void* valid, const void* seen, const void* i_t,
     const void* u_bern, const void* u_aux, const void* which,
     const void* load_in, void* load_out, void* dup, void* ins, void* del_rows,
@@ -160,6 +181,7 @@ extern "C" int bitset_step_launch(
   a.words = static_cast<uint32_t*>(words);
   a.w = w;
   a.k = k;
+  a.t = t;
   a.b = b;
   a.pos = static_cast<const int32_t*>(pos);
   a.del_pos = static_cast<const int32_t*>(del_pos);
@@ -178,10 +200,10 @@ extern "C" int bitset_step_launch(
   a.s = s;
   a.s_f = s_f;
   a.p_star = p_star;
-  if (b <= 0) return static_cast<int>(cudaGetLastError());
+  if (b <= 0 || t <= 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  dim3 grid1((b + kThreads - 1) / kThreads);
-  dim3 grid2((b + kThreads - 1) / kThreads, k);
+  dim3 grid1((b + kThreads - 1) / kThreads, t);
+  dim3 grid2((b + kThreads - 1) / kThreads, k, t);
   probe_decide<<<grid1, kThreads, 0, st>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -23,6 +23,13 @@ bit:
   and per-event operands — changes nothing here: on CUDA both values
   launch this one per-event kernel.
 
+Both take a leading tenant axis (DESIGN §4.6): a fleet's T filters step
+in one launch of each kernel, whose grid carries the tenant axis where the
+reference vmaps its kernel over it, and one filter is a fleet of one. The
+counter step is also the reference kernel's ``params_aware=True`` form:
+each tenant's threshold and set-to-Max value are (T,) device rows that the
+kernel reads itself.
+
 Every step updates its filter tensor in place; the caller computes hashes,
 the intra-batch join, the randomness and the sorted event lists first, as
 the reference does outside its ``pallas_call``.
@@ -47,6 +54,7 @@ VARIANT_CODES = {"rsbf": 0, "bsbf": 1, "bsbfsd": 2, "rlbsbf": 3}
 # intra-batch join where the spec uses it
 COUNTER_SKETCHES = ("sbf", "swbf", "cms", "hh")
 MAX_PLANES = 16                   # csrc/counter_step.cu::kMaxPlanes
+MAX_TENANTS = 65535               # the grids' tenant axis (gridDim.y / .z)
 
 
 def _check_tensors(kernel: str, want: dict, device) -> None:
@@ -65,8 +73,20 @@ def _check_tensors(kernel: str, want: dict, device) -> None:
 
 # ---------------- bitset family ------------------------------------------ //
 
+def _slice_rnd(rnd, t):
+    return _batched.BatchRandomness(*(x[t] for x in rnd))
+
+
 def bitset_step_plain(cfg, words, pos, rnd, valid, seen, i_t, load):
-    """-> (new words (k, W), dup (B,), inserted (B,), load (k,))."""
+    """-> (new words, dup, inserted, load). One filter: words (k, W), pos
+    (B, k), load (k,). A fleet: words (T, k, W) and every other operand
+    with a leading T axis, each tenant stepped on its own (this is the
+    check on the kernel, not the path)."""
+    if words.dim() == 3:
+        outs = [bitset_step_plain(cfg, words[t], pos[t], _slice_rnd(rnd, t),
+                                  valid[t], seen[t], i_t[t], load[t])
+                for t in range(words.shape[0])]
+        return tuple(torch.stack(x) for x in zip(*outs))
     b, k = pos.shape
     w = words.shape[1]
     decide = _batched.make_decision_fn(cfg)
@@ -89,35 +109,38 @@ def bitset_step_plain(cfg, words, pos, rnd, valid, seen, i_t, load):
 
 def _check(cfg, words, pos, rnd, valid, seen, i_t, load):
     k, w = cfg.k, cfg.s_words
-    b = pos.shape[0] if pos.dim() == 2 else -1
+    t = words.shape[0] if words.dim() == 3 else -1
+    b = pos.shape[1] if pos.dim() == 3 else -1
     _check_tensors("bitset_step", {
-        "words": (words, torch.int32, (k, w)),
-        "pos": (pos, torch.int32, (b, k)),
-        "del_pos": (rnd.del_pos, torch.int32, (b, k)),
-        "u_bern": (rnd.u_bern, torch.float32, (b,)),
-        "u_aux": (rnd.u_aux, torch.float32, (b, k)),
-        "which": (rnd.which, torch.int32, (b,)),
-        "valid": (valid, torch.bool, (b,)),
-        "seen": (seen, torch.bool, (b,)),
-        "i_t": (i_t, torch.int32, (b,)),
-        "load": (load, torch.int32, (k,)),
+        "words": (words, torch.int32, (t, k, w)),
+        "pos": (pos, torch.int32, (t, b, k)),
+        "del_pos": (rnd.del_pos, torch.int32, (t, b, k)),
+        "u_bern": (rnd.u_bern, torch.float32, (t, b)),
+        "u_aux": (rnd.u_aux, torch.float32, (t, b, k)),
+        "which": (rnd.which, torch.int32, (t, b)),
+        "valid": (valid, torch.bool, (t, b)),
+        "seen": (seen, torch.bool, (t, b)),
+        "i_t": (i_t, torch.int32, (t, b)),
+        "load": (load, torch.int32, (t, k)),
     }, words.device)
     if cfg.variant not in VARIANT_CODES:
         raise ValueError(f"bitset_step runs {tuple(VARIANT_CODES)}, "
                          f"not {cfg.variant!r}")
     if not 1 <= k <= 32:
         raise ValueError(f"bitset_step takes 1 <= k <= 32, got {k}")
+    if t > MAX_TENANTS:
+        raise ValueError(f"bitset_step takes at most {MAX_TENANTS} "
+                         f"tenants, got {t}")
 
 
 @functools.lru_cache(maxsize=None)
 def _entry():
     """The C entry point, built at first use, its signature set once."""
     fn = build.load("bitset_step").bitset_step_launch
-    p = ctypes.c_void_p
-    fn.argtypes = [p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p, ctypes.c_longlong, i, i, i,
                    p, p, p, p, p, p, p, p, p, p, p, p, p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                   ctypes.c_float, p]
+                   i, i, ctypes.c_float, ctypes.c_float, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -125,26 +148,36 @@ def _entry():
 def _launch(cfg, words, pos, rnd, valid, seen, i_t, load, dup, ins,
             del_rows, load_out):
     stream = torch.cuda.current_stream(words.device).cuda_stream
-    err = _entry()(words.data_ptr(), words.shape[1], cfg.k, pos.shape[0],
-             pos.data_ptr(), rnd.del_pos.data_ptr(), valid.data_ptr(),
-             seen.data_ptr(), i_t.data_ptr(), rnd.u_bern.data_ptr(),
-             rnd.u_aux.data_ptr(), rnd.which.data_ptr(), load.data_ptr(),
-             load_out.data_ptr(), dup.data_ptr(), ins.data_ptr(),
-             del_rows.data_ptr(), VARIANT_CODES[cfg.variant], cfg.s,
-             float(np.float32(cfg.s)), float(np.float32(cfg.p_star)),
-             stream)
+    t, k, w = words.shape
+    err = _entry()(words.data_ptr(), w, k, t, pos.shape[1],
+                   pos.data_ptr(), rnd.del_pos.data_ptr(), valid.data_ptr(),
+                   seen.data_ptr(), i_t.data_ptr(), rnd.u_bern.data_ptr(),
+                   rnd.u_aux.data_ptr(), rnd.which.data_ptr(),
+                   load.data_ptr(), load_out.data_ptr(), dup.data_ptr(),
+                   ins.data_ptr(), del_rows.data_ptr(),
+                   VARIANT_CODES[cfg.variant], cfg.s,
+                   float(np.float32(cfg.s)), float(np.float32(cfg.p_star)),
+                   stream)
     if err != 0:
         raise RuntimeError(f"bitset_step kernel launch failed: CUDA error "
                            f"{err}")
 
 
 def bitset_step(cfg, words, pos, rnd, valid, seen, i_t, load):
-    """One bitset-family step on the (k, W) int32 ``words``, updated in
-    place. pos (B, k) int32 positions; ``rnd`` the step's
-    ``BatchRandomness``; valid/seen (B,) bool; i_t (B,) int32 stream
-    positions; load (k,) int32 batch-entry load. Returns (dup (B,) bool,
-    inserted (B,) bool, load (k,) int32). ``bitset_step.launches`` counts
-    kernel launches: one per step, three grid launches each."""
+    """One bitset-family step on the int32 ``words``, updated in place.
+    One filter: words (k, W), pos (B, k) int32 positions, ``rnd`` the
+    step's ``BatchRandomness``, valid/seen (B,) bool, i_t (B,) int32
+    stream positions, load (k,) int32 batch-entry load. A fleet of T
+    tenants: words (T, k, W) and every operand with a leading T axis; the
+    kernel's grid carries the tenant axis, so T filters are one launch.
+    Returns (dup bool, inserted bool, load int32). ``bitset_step.launches``
+    counts kernel launches: one per step, three grid launches each."""
+    if words.dim() == 2:
+        dup, ins, new_load = bitset_step(
+            cfg, words[None], pos[None],
+            _batched.BatchRandomness(*(x[None] for x in rnd)), valid[None],
+            seen[None], i_t[None], load[None])
+        return dup[0], ins[0], new_load[0]
     _check(cfg, words, pos, rnd, valid, seen, i_t, load)
     if words.device.type == "cpu":
         new, dup, ins, new_load = bitset_step_plain(
@@ -154,10 +187,10 @@ def bitset_step(cfg, words, pos, rnd, valid, seen, i_t, load):
     if words.device.type != "cuda":
         raise ValueError(f"bitset_step runs on cpu or cuda, not "
                          f"{words.device}")
-    b = pos.shape[0]
-    dup = torch.empty((b,), dtype=torch.bool, device=words.device)
-    ins = torch.empty((b,), dtype=torch.bool, device=words.device)
-    del_rows = torch.empty((b,), dtype=torch.int32, device=words.device)
+    dup = torch.empty(valid.shape, dtype=torch.bool, device=words.device)
+    ins = torch.empty(valid.shape, dtype=torch.bool, device=words.device)
+    del_rows = torch.empty(valid.shape, dtype=torch.int32,
+                           device=words.device)
     load_out = load.clone()
     _launch(cfg, words, pos, rnd, valid, seen, i_t, load, dup, ins,
             del_rows, load_out)
@@ -170,13 +203,35 @@ bitset_step.launches = 0
 
 # ---------------- counter family ----------------------------------------- //
 
-def counter_step_plain(cfg, spec, planes, pos, valid, seen, load, ev):
-    """-> (new planes (d, W), dup (B,) bool, load (1,) int32), as the
-    reference's jnp counter step computes them: probe, decide, subtract the
-    ``ev.sub_planes``, set ``ev.set_delta`` to ``cfg.sbf_max`` or add
+def _tenant_events(ev, t):
+    """Tenant t's rows of a fleet step's ``CounterStepDeltas`` (the ring
+    payload, which the step itself does not read, left out)."""
+    return ev._replace(ring_payload=None, **{
+        f: getattr(ev, f)[t] for f in ev._fields
+        if f != "ring_payload" and getattr(ev, f) is not None})
+
+
+def counter_step_plain(cfg, spec, planes, pos, valid, seen, load, ev,
+                       threshold=None, max_value=None):
+    """-> (new planes, dup bool, load int32), as the reference's jnp
+    counter step computes them: probe, decide, subtract the
+    ``ev.sub_planes``, set ``ev.set_delta`` to Max or add
     ``ev.add_planes``, and the exact nonzero-cell load from the sorted
     event lists. ``ev`` must carry its delta planes (events built with
-    ``build_planes=True``)."""
+    ``build_planes=True``). One filter: planes (d, W), pos (B, k), load
+    (1,); ``threshold`` and ``max_value`` default to ``cfg.count_threshold``
+    and ``cfg.sbf_max``. A fleet: planes (T, d, W), every operand with a
+    leading T axis and the two knobs (T,) rows, each tenant stepped on its
+    own (this is the check on the kernel, not the path)."""
+    if planes.dim() == 3:
+        outs = [counter_step_plain(
+            cfg, spec, planes[t], pos[t], valid[t],
+            None if seen is None else seen[t], load[t],
+            _tenant_events(ev, t),
+            None if threshold is None else threshold[t],
+            None if max_value is None else max_value[t])
+            for t in range(planes.shape[0])]
+        return tuple(torch.stack(x) for x in zip(*outs))
     w = planes.shape[1]
     nzw = _packed.planes_nonzero(planes)
     if spec.probe == "value":
@@ -184,16 +239,21 @@ def counter_step_plain(cfg, spec, planes, pos, valid, seen, load, ev):
     else:
         p = pos.to(torch.int64)
         vals = ((u32.to_u64(nzw[p >> 5]) >> (p & 31)) & 1) != 0
-    dup = spec.make_decide(cfg)(vals, valid, seen)
+    decide = spec.make_decide(cfg)
+    if spec.thresholded and threshold is not None:
+        dup = decide(vals, valid, seen, t=threshold)
+    else:
+        dup = decide(vals, valid, seen)
     new = planes
     if spec.has_sub:
         new = _packed.planes_saturating_sub(new, _need(ev.sub_planes,
                                                        "sub_planes"))
     if spec.combine == "set":
-        # set-to-Max writes the counter ceiling sbf_max, which may sit
-        # below the plane capacity 2^d - 1
-        new = _packed.planes_set_value(new, _need(ev.set_delta, "set_delta"),
-                                       cfg.sbf_max)
+        # set-to-Max writes the counter ceiling, which may sit below the
+        # plane capacity 2^d - 1
+        new = _packed.planes_set_value(
+            new, _need(ev.set_delta, "set_delta"),
+            cfg.sbf_max if max_value is None else max_value)
     else:
         new = _packed.planes_saturating_add(new, _need(ev.add_planes,
                                                        "add_planes"))
@@ -226,9 +286,11 @@ def _need(t, name):
     return t
 
 
-def _check_counter(cfg, spec, planes, pos, valid, seen, load, ev):
+def _check_counter(cfg, spec, planes, pos, valid, seen, load, ev,
+                   threshold, max_value):
     d, w, k = cfg.n_planes, cfg.s_words, cfg.k
-    b = pos.shape[0] if pos.dim() == 2 else -1
+    t = planes.shape[0] if planes.dim() == 3 else -1
+    b = pos.shape[1] if pos.dim() == 3 else -1
     if spec.family != "counter" or spec.name not in COUNTER_SKETCHES:
         raise ValueError(f"counter_step runs {COUNTER_SKETCHES}, not "
                          f"{spec.name!r}")
@@ -238,40 +300,50 @@ def _check_counter(cfg, spec, planes, pos, valid, seen, load, ev):
     if 32 * w >= 1 << 31:
         raise ValueError(f"counter_step needs cells below 2^31; the "
                          f"sentinel 32·W = {32 * w} is not")
-    want = {"planes": (planes, torch.int32, (d, w)),
-            "pos": (pos, torch.int32, (b, k)),
-            "valid": (valid, torch.bool, (b,)),
-            "load": (load, torch.int32, (1,))}
+    if t > MAX_TENANTS:
+        raise ValueError(f"counter_step takes at most {MAX_TENANTS} "
+                         f"tenants, got {t}")
+    want = {"planes": (planes, torch.int32, (t, d, w)),
+            "pos": (pos, torch.int32, (t, b, k)),
+            "valid": (valid, torch.bool, (t, b)),
+            "load": (load, torch.int32, (t, 1)),
+            "threshold": (threshold, torch.int32, (t,)),
+            "max_value": (max_value, torch.int32, (t,))}
     if spec.uses_seen:
-        want["seen"] = (seen, torch.bool, (b,))
+        want["seen"] = (seen, torch.bool, (t, b))
     lists = [("ins", ev.ins_events, ev.ins_heads)]
     if spec.has_sub:
         lists.append(("sub", ev.sub_events, ev.sub_heads))
     for name, events, heads in lists:
-        n = events.shape[0] if events is not None and events.dim() == 1 \
+        n = events.shape[1] if events is not None and events.dim() == 2 \
             else -1
-        want[f"{name}_events"] = (events, torch.int64, (n,))
-        want[f"{name}_heads"] = (heads, torch.bool, (n,))
+        want[f"{name}_events"] = (events, torch.int64, (t, n))
+        want[f"{name}_heads"] = (heads, torch.bool, (t, n))
     _check_tensors("counter_step", want, planes.device)
 
 
 def _head_operands(events, heads, cmax: int, sentinel: int):
-    """A sorted event list -> the kernel's operands: the run heads' cells,
-    moved to the front in order with the rest filled by the sentinel, and
-    each head's run length clamped to ``cmax`` (None for cmax == 0, the
-    set-to-Max form, which has no count). Static shapes: no host sync."""
-    n = events.shape[0]
+    """Sorted event lists (..., n) -> the kernel's operands: each row's run
+    heads' cells, moved to the front of the row in order with the rest
+    filled by the sentinel, and each head's run length clamped to ``cmax``
+    (None for cmax == 0, the set-to-Max form, which has no count). Static
+    shapes: no host sync. Rows stay rows, so a cell is never offset by its
+    tenant and stays below 2^31; each output is contiguous, rows n apart,
+    as the kernel reads them."""
+    n = events.shape[-1]
+    lead = events.shape[:-1]
     keep = heads & (events < sentinel)
-    slot = torch.where(keep, torch.cumsum(keep, 0) - 1, n)
-    cells = torch.full((n + 1,), sentinel, dtype=torch.int32,
+    slot = torch.where(keep, torch.cumsum(keep, -1) - 1, n)
+    cells = torch.full((*lead, n + 1), sentinel, dtype=torch.int32,
                        device=events.device)
-    cells.scatter_(0, slot, events.to(torch.int32))
+    cells.scatter_(-1, slot, events.to(torch.int32))
     if cmax == 0:
-        return cells[:n], None
+        return cells[..., :n].contiguous(), None
     _, cnt = _packed.clamped_run_counts(events, cmax)
-    counts = torch.zeros((n + 1,), dtype=torch.int32, device=events.device)
-    counts.scatter_(0, slot, cnt.to(torch.int32))
-    return cells[:n], counts[:n]
+    counts = torch.zeros((*lead, n + 1), dtype=torch.int32,
+                         device=events.device)
+    counts.scatter_(-1, slot, cnt.to(torch.int32))
+    return cells[..., :n].contiguous(), counts[..., :n].contiguous()
 
 
 @functools.lru_cache(maxsize=None)
@@ -279,56 +351,85 @@ def _counter_entry():
     """The C entry point, built at first use, its signature set once."""
     fn = build.load("counter_step").counter_step_launch
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, ctypes.c_longlong, i, i, i, p, p, p, i, i, p, p, p,
-                   p, p, i, p, p, i, i, i, p]
+    fn.argtypes = [p, ctypes.c_longlong, i, i, i, i, p, p, p, i, p, p, p,
+                   p, p, i, p, p, i, i, p, p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def counter_step(cfg, spec, planes, pos, valid, seen, load, ev):
-    """One counter-family step on the (d, W) int32 ``planes``, updated in
-    place. pos (B, k) int32 cells; valid (B,) bool; seen (B,) bool where
-    the spec joins the batch, else None; load (1,) int32 batch-entry
-    nonzero-cell count; ``ev`` the step's ``CounterStepDeltas`` (int64
-    sorted event lists and their run heads). Returns (dup (B,) bool, load
-    (1,) int32). On CUDA the kernel reads only the event lists, whatever
+def _knob(v, default: int, t: int, device):
+    return (torch.full((t,), default, dtype=torch.int32, device=device)
+            if v is None else v)
+
+
+def counter_step(cfg, spec, planes, pos, valid, seen, load, ev,
+                 threshold=None, max_value=None):
+    """One counter-family step on the int32 ``planes``, updated in place.
+    One filter: planes (d, W), pos (B, k) int32 cells, valid (B,) bool,
+    seen (B,) bool where the spec joins the batch (else None), load (1,)
+    int32 batch-entry nonzero-cell count, ``ev`` the step's
+    ``CounterStepDeltas`` (int64 sorted event lists and their run heads).
+    A fleet of T tenants: planes (T, d, W) and every operand with a leading
+    T axis, the event lists sorted per row; the kernel's grid carries the
+    tenant axis, so T filters are one launch. ``threshold`` and
+    ``max_value`` are (T,) int32 rows on the planes' device (default: the
+    config's values), read by the kernel itself. Returns (dup bool, load
+    int32). On CUDA the kernel reads only the event lists, whatever
     ``cfg.kernel_accumulate`` says; ``counter_step.launches`` counts its
     launches: one per step, two grid launches each."""
-    _check_counter(cfg, spec, planes, pos, valid, seen, load, ev)
-    if planes.device.type == "cpu":
-        new, dup, new_load = counter_step_plain(cfg, spec, planes, pos,
-                                                valid, seen, load, ev)
+    if planes.dim() == 2:
+        lists = ("sub_events", "sub_heads", "ins_events", "ins_heads",
+                 "sub_planes", "add_planes", "set_delta")
+        ev1 = ev._replace(ring_payload=None, **{
+            f: getattr(ev, f)[None] for f in lists
+            if getattr(ev, f) is not None})
+        dup, new_load = counter_step(
+            cfg, spec, planes[None], pos[None], valid[None],
+            None if seen is None else seen[None], load[None], ev1,
+            None if threshold is None else threshold.reshape(1),
+            None if max_value is None else max_value.reshape(1))
+        return dup[0], new_load[0]
+    t, device = planes.shape[0], planes.device
+    threshold = _knob(threshold, cfg.count_threshold, t, device)
+    max_value = _knob(max_value, cfg.sbf_max, t, device)
+    _check_counter(cfg, spec, planes, pos, valid, seen, load, ev, threshold,
+                   max_value)
+    if device.type == "cpu":
+        new, dup, new_load = counter_step_plain(
+            cfg, spec, planes, pos, valid, seen, load, ev, threshold,
+            max_value)
         planes.copy_(new)
         return dup, new_load
-    if planes.device.type != "cuda":
-        raise ValueError(f"counter_step runs on cpu or cuda, not "
-                         f"{planes.device}")
-    d, w = planes.shape
+    if device.type != "cuda":
+        raise ValueError(f"counter_step runs on cpu or cuda, not {device}")
+    d, w = planes.shape[1:]
     sentinel = 32 * w
     set_mode = spec.combine == "set"
     sub_cells = sub_counts = None
     if spec.has_sub:
+        # the fleet-wide Max clamps the decrements, as the reference's
+        # events do; a tenant's lower Max saturates the same cells to 0
         sub_cells, sub_counts = _head_operands(
             ev.sub_events, ev.sub_heads,
             cfg.sbf_max if set_mode else (1 << d) - 1, sentinel)
     ins_cells, ins_counts = _head_operands(
         ev.ins_events, ev.ins_heads, 0 if set_mode else (1 << d) - 1,
         sentinel)
-    b = pos.shape[0]
-    dup = torch.empty((b,), dtype=torch.bool, device=planes.device)
+    dup = torch.empty(valid.shape, dtype=torch.bool, device=device)
     load_out = load.clone()
 
-    def ptr(t):
-        return None if t is None else t.data_ptr()
+    def ptr(x):
+        return None if x is None else x.data_ptr()
 
     err = _counter_entry()(
-        planes.data_ptr(), w, d, b, cfg.k, pos.data_ptr(), valid.data_ptr(),
-        ptr(seen if spec.uses_seen else None), int(spec.probe == "value"),
-        cfg.count_threshold if spec.thresholded else 1, load.data_ptr(),
-        load_out.data_ptr(), dup.data_ptr(), ptr(sub_cells), ptr(sub_counts),
-        0 if sub_cells is None else sub_cells.shape[0], ins_cells.data_ptr(),
-        ptr(ins_counts), ins_cells.shape[0], int(set_mode), cfg.sbf_max,
-        torch.cuda.current_stream(planes.device).cuda_stream)
+        planes.data_ptr(), w, d, t, pos.shape[1], cfg.k, pos.data_ptr(),
+        valid.data_ptr(), ptr(seen if spec.uses_seen else None),
+        int(spec.probe == "value"),
+        ptr(threshold if spec.thresholded else None), load_out.data_ptr(),
+        dup.data_ptr(), ptr(sub_cells), ptr(sub_counts),
+        0 if sub_cells is None else sub_cells.shape[1], ins_cells.data_ptr(),
+        ptr(ins_counts), ins_cells.shape[1], int(set_mode),
+        ptr(max_value), torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"counter_step kernel launch failed: CUDA error "
                            f"{err}")

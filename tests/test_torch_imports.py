@@ -29,8 +29,8 @@ def test_port_files_found():
     names = {p.name for p in FILES}
     assert {"engine.py", "hashmix.py", "fused_template.py", "sketch.py",
             "state.py", "packed.py", "convert.py", "metrics.py",
-            "bloom_probe.py", "scatter_delta.py", "ops.py",
-            "chip_smoke.py"} <= names
+            "bloom_probe.py", "scatter_delta.py", "ops.py", "fleet.py",
+            "batched.py", "prng.py", "chip_smoke.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))

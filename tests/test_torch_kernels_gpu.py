@@ -235,3 +235,228 @@ def test_counter_engine_on_card_matches_engine_on_cpu(cuda, name):
                        on_cpu.estimate(sc, keys[:64]))
     for x, y in zip(on_card.top_cells(sg, 8), on_cpu.top_cells(sc, 8)):
         assert torch.equal(x.cpu(), y)
+
+
+# ------------------------------------------------ the tenant axis (fleets) //
+TENANTS = (1, 4, 32)
+
+
+def fleet_cfg(variant, t, **kw):
+    """A fleet config of ``t`` tenants on the plane layout."""
+    kw.setdefault("memory_bits", 1 << 20)
+    if variant == "sbf":
+        kw["layout"] = "planes"
+    elif variant in BITSET:
+        kw["packed"] = True
+    return dataclasses.replace(DedupConfig.for_variant(variant, **kw),
+                               n_tenants=t).validate()
+
+
+def fleet_lanes(cfg, t, c, r, device, hi=200):
+    """(T, C) slot keys from a small key space (repeats across and inside
+    rows, many CTAs per row), about a third of them invalid, and the last
+    tenant's row empty (all invalid) when T > 1."""
+    keys = u32.from_numpy_u32(r.integers(0, hi, (t, c), dtype=np.uint64),
+                              device)
+    valid = torch.from_numpy(r.random((t, c)) < 0.66).to(device)
+    if t > 1:
+        valid[-1] = False
+    return keys, valid
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t", TENANTS)
+@pytest.mark.parametrize("variant", BITSET)
+def test_tenant_axis_bitset_kernel_matches_plain_on_card(cuda, variant, t):
+    """The bitset step over a leading tenant axis (one launch for all T
+    filters) equals its plain version, tenant by tenant, on half-full
+    filters over three batches; the empty row's filter and load stay."""
+    from repro_torch.core import hashing, prng
+    cfg = fleet_cfg(variant, t)
+    k, w, c = cfg.k, cfg.s_words, 2048
+    gen = torch.Generator(device=cuda).manual_seed(t)
+    words = torch.randint(-2 ** 31, 2 ** 31, (t, k, w), dtype=torch.int32,
+                          device=cuda, generator=gen)
+    load = packed.popcount(words)
+    rng = prng.fold_in(prng.PRNGKey(3, cuda),
+                       torch.arange(t, device=cuda))
+    seeds = u32.from_numpy_u32(hashing.derive_seeds(cfg.seed, k), cuda)
+    r = np.random.default_rng(t)
+    position = torch.full((t,), cfg.s - 3000, dtype=torch.int32,
+                          device=cuda)
+    for hi in (200, 2 ** 32, 2 ** 32):
+        keys, v = fleet_lanes(cfg, t, c, r, cuda, hi)
+        pos = hashing.hash_positions(keys, seeds, cfg.s)
+        seen = tb.intra_batch_seen(keys, v)
+        i_t = position[:, None] + torch.arange(c, dtype=torch.int32,
+                                               device=cuda)
+        rng, rnd = tb.draw_randomness(cfg, rng, c)
+        got = words.clone()
+        before = bitset_step.launches
+        dup, ins, new_load = bitset_step(cfg, got, pos, rnd, v, seen, i_t,
+                                         load)
+        new, dup_p, ins_p, load_p = bitset_step_plain(cfg, words, pos, rnd,
+                                                      v, seen, i_t, load)
+        torch.cuda.synchronize()
+        assert bitset_step.launches == before + 1
+        assert torch.equal(got, new) and torch.equal(new_load, load_p)
+        assert torch.equal(dup, dup_p) and torch.equal(ins, ins_p)
+        assert torch.equal(new_load, packed.popcount(got))
+        if t > 1:
+            assert torch.equal(got[-1], words[-1])
+        words, load = got, new_load
+        position = position + v.sum(dim=1, dtype=torch.int32)
+
+
+def random_fleet_counter_state(cfg, device, r):
+    """A stacked counter state: per tenant random cells in [0, 2^d - 1]
+    (half of them zero) with their exact load, and for swbf random sorted
+    ring slots and per-tenant slot positions."""
+    from repro_torch.core.fleet import init_fleet_state
+    from repro_torch.core.state import FilterState, WindowRing
+    t, d, w = cfg.n_tenants, cfg.n_planes, cfg.s_words
+    cells = r.integers(0, 1 << d, (t, 32 * w))
+    cells[r.random((t, 32 * w)) < 0.5] = 0
+    cells[:, cfg.s:] = 0
+    planes = torch.stack([packed.pack_cells(
+        torch.from_numpy(x).to(device), d) for x in cells])     # (T, d, W)
+    load = torch.stack([packed.popcount(packed.planes_nonzero(p)[None])
+                        for p in planes])
+    st = init_fleet_state(cfg, event_capacity=2048, device=device)
+    bits = planes[:, :, None, :].contiguous() if d > 1 else planes
+    ring = None
+    if st.ring is not None:
+        e = st.ring.events.shape[-1]
+        ev = r.integers(0, cfg.s, (t, cfg.window, e))
+        ev[r.random(ev.shape) < 0.3] = 32 * w
+        ring = WindowRing(
+            torch.from_numpy(np.sort(ev, axis=-1).astype(np.int32)).to(
+                device),
+            torch.from_numpy((np.arange(t) % cfg.window).astype(np.int32))
+            .to(device))
+    return FilterState(bits, st.position, load, st.rng, ring)
+
+
+def hetero_knobs(cfg, t, device):
+    """Per-tenant rows: sbf Max alternating 3 and 2, cms/hh thresholds
+    1, 2, 3, 2, ..., swbf windows cycling through 1..window."""
+    tt = np.arange(t)
+    rows = {"max_value": np.where(tt % 2 == 0, cfg.sbf_max,
+                                  max(1 << (cfg.sbf_max.bit_length() - 1),
+                                      cfg.sbf_max - 1)),
+            "threshold": np.array([1, 2, 3, 2])[tt % 4],
+            "window": 1 + tt % max(cfg.window, 1)}
+    return {n: torch.from_numpy(v.astype(np.int32)).to(device)
+            for n, v in rows.items()}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t", TENANTS)
+@pytest.mark.parametrize("variant", ("sbf", "swbf", "cms", "hh"))
+def test_params_aware_counter_kernel_matches_plain_on_card(cuda, variant, t):
+    """The counter step over a leading tenant axis with per-tenant
+    threshold and set-to-Max rows read on the device (the params-aware
+    form) equals its plain version tenant by tenant — planes, dup and load,
+    the load equal to each tenant's nonzero-cell popcount — over three
+    batches of colliding keys; the empty row's tenant changes only by its
+    expiring ring slot."""
+    from repro_torch.core import hashing
+    from repro_torch.core.sketch import get_spec
+    cfg = fleet_cfg(variant, t, **({"window": 4} if variant == "swbf"
+                                   else {}))
+    spec = get_spec(cfg.variant)
+    events = spec.make_events(cfg)
+    r = np.random.default_rng(11 + t)
+    st = random_fleet_counter_state(cfg, cuda, r)
+    knobs = hetero_knobs(cfg, t, cuda)
+    seeds = u32.from_numpy_u32(hashing.derive_seeds(cfg.seed, cfg.k), cuda)
+    c = 2048
+    for hi in (200, 2 ** 32, 2 ** 32):
+        keys, v = fleet_lanes(cfg, t, c, r, cuda, hi)
+        pos = hashing.hash_positions(keys, seeds, cfg.s)
+        seen = tb.intra_batch_seen(keys, v) if spec.uses_seen else None
+        rng, rnd = (spec.draw(cfg, st.rng, c) if spec.draw
+                    else (st.rng, None))
+        ev = events(st, pos, v, rnd)
+        planes = tb.fleet_planes(st.bits)
+        got = planes.clone()
+        before = counter_step.launches
+        dup, load = counter_step(cfg, spec, got, pos, v, seen, st.load, ev,
+                                 threshold=knobs["threshold"],
+                                 max_value=knobs["max_value"])
+        new, dup_p, load_p = counter_step_plain(
+            cfg, spec, planes, pos, v, seen, st.load, ev,
+            knobs["threshold"], knobs["max_value"])
+        torch.cuda.synchronize()
+        assert counter_step.launches == before + 1
+        assert torch.equal(got, new) and torch.equal(dup, dup_p)
+        assert torch.equal(load, load_p)
+        for i in range(t):
+            assert torch.equal(load[i], packed.popcount(
+                packed.planes_nonzero(got[i])[None]))
+        if t > 1 and variant != "swbf":
+            assert torch.equal(got[-1], planes[-1])
+        bits = got[:, :, None, :].contiguous() if got.shape[1] > 1 else got
+        ring = (tb.ring_push(st.ring, ev.ring_payload, knobs["window"])
+                if ev.ring_payload is not None else st.ring)
+        st = st._replace(bits=bits, load=load, rng=rng, ring=ring)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", ("rlbsbf", "bsbfsd", "sbf", "swbf",
+                                     "cms"))
+def test_fleet_on_card_matches_fleet_on_cpu(cuda, variant):
+    """The whole fleet through the kernels equals it through the plain
+    versions, with one hashmix and one step launch per fleet step."""
+    from repro_torch.convert import state_to_numpy
+    from repro_torch.core.fleet import FleetDedup, default_tenant_params
+    from repro_torch.kernels.hashmix import hashmix
+    cfg = fleet_cfg(variant, 8, memory_bits=1 << 16, batch_size=1024,
+                    **({"window": 4} if variant == "swbf" else {}))
+    r = np.random.default_rng(3)
+    keys = r.integers(0, 3000, 10_000).astype(np.uint32)
+    tens = r.integers(0, 8, 10_000).astype(np.int32)
+    fleets = []
+    for dev in (cuda, "cpu"):
+        p = default_tenant_params(cfg, 256, dev)
+        knobs = hetero_knobs(cfg, 8, dev)
+        if variant in ("sbf", "cms", "swbf"):
+            field = {"sbf": "max_value", "cms": "threshold",
+                     "swbf": "window"}[variant]
+            p = p._replace(**{field: knobs[field]})
+        fleets.append(FleetDedup(cfg, capacity=256, params=p, device=dev))
+    launches = (hashmix.launches, bitset_step.launches,
+                counter_step.launches)
+    sg, dg, og = fleets[0].run_stream(fleets[0].init(), keys, tens)
+    sc, dc, oc = fleets[1].run_stream(fleets[1].init(), keys, tens)
+    step = bitset_step if variant in BITSET else counter_step
+    assert hashmix.launches - launches[0] == 10
+    assert step.launches - launches[1 if step is bitset_step else 2] == 10
+    assert torch.equal(dg.cpu(), dc) and torch.equal(og.cpu(), oc)
+    a, b = state_to_numpy(sg), state_to_numpy(sc)
+    assert a.keys() == b.keys()
+    for key in a:
+        assert np.array_equal(a[key], b[key]), key
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("block_bits", (5, 9))
+def test_blocked_layout_on_card_matches_plain(cuda, block_bits):
+    """The blocked layout on the card (two hashmix launches) equals its
+    plain form, at a power-of-two s and at one that is not."""
+    from repro_torch.core import hashing
+    from repro_torch.kernels.hashmix import hashmix, hashmix_plain
+    keys = u32.from_numpy_u32(np.random.default_rng(block_bits).integers(
+        0, 2 ** 32, 8192, dtype=np.uint64), cuda)
+    seeds = u32.from_numpy_u32(hashing.derive_seeds(9, 3, 0), cuda)
+    bseeds = u32.from_numpy_u32(hashing.derive_seeds(9, 3, 1), cuda)
+    for s in (1 << 20, 3_000_000):
+        before = hashmix.launches
+        got = hashing.hash_positions(keys, seeds, s, block_bits, bseeds)
+        assert hashmix.launches == before + 2
+        bsize = 1 << block_bits
+        want = (hashmix_plain(keys.cpu(), bseeds.cpu(), max(1, s // bsize))
+                .long() * bsize + hashmix_plain(keys.cpu(), seeds.cpu(),
+                                                bsize))
+        assert torch.equal(got.cpu(), want.to(torch.int32))
+        assert int(got.max()) < s
