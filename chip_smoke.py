@@ -41,10 +41,21 @@ profiles a step of each engine and fleet path. Every phase fails the run; the la
 is ``{"ok": true, "device": {...}}`` only when all of them passed. Without
 a CUDA device, or without the ``src/repro_torch`` package beside this
 file, it exits non-zero and prints no result.
+
+    python3 chip_smoke.py --parent DIR
+
+also builds an earlier design of the two step kernels from ``DIR``'s
+``bitset_step.cu`` and ``counter_step.cu`` (the bitset step with today's C
+interface; the counter step over compacted run-head operands, its
+wrapper's glue rebuilt here) and times it against the current one on the
+same inputs, in turns (earlier, current, current, earlier), each kernel's
+device time split by launch and its wrapper's back-to-back time.
 """
 
 from __future__ import annotations
 
+import argparse
+import ctypes
 import dataclasses
 import hashlib
 import json
@@ -81,6 +92,11 @@ PINNED_DIGESTS = {               # tests/test_sketch_template.py (reference)
 }
 BITSET = ("rsbf", "bsbf", "bsbfsd", "rlbsbf")
 COUNTER = ("sbf", "sbf_d1", "swbf", "cms", "hh")
+# each step kernel's device kernels, as the profiler names them
+BITSET_KERNELS = ("probe_decide", "apply_deletes", "apply_inserts")
+COUNTER_KERNELS = ("counter_probe_partition", "counter_merge_apply")
+PARENT_KERNELS = {"bitset_step": BITSET_KERNELS,
+                  "counter_step": ("counter_probe_decide", "counter_apply")}
 
 
 T0 = time.perf_counter()
@@ -929,21 +945,198 @@ def bound(nbytes: float, ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def device_ms(fn, n: int, names=None):
-    """Device time per call of ``fn(i)`` for i < n, from torch.profiler:
-    the kernels whose names hold one of ``names``, or every device kernel
-    when ``names`` is None. None when the profiler recorded none."""
+def build_parent(parent_dir: str) -> dict:
+    """The earlier design's two step kernels, built from ``parent_dir``'s
+    ``bitset_step.cu`` and ``counter_step.cu`` with the port's nvcc flags
+    (both compiles at once) into ``build/parent_kernels/``; -> {name: C
+    entry point with its signature set}."""
+    from repro_torch.kernels import build
+    out = os.path.join(ROOT, "build", "parent_kernels")
+    os.makedirs(out, exist_ok=True)
+    jobs = {}
+    for name in ("bitset_step", "counter_step"):
+        so = os.path.join(out, f"{name}.so")
+        jobs[name] = so, subprocess.Popen(
+            [build._nvcc(), *build.NVCC_FLAGS, "-o", so,
+             os.path.join(parent_dir, f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    argtypes = {
+        "bitset_step": [p, ctypes.c_longlong, i, i, i] + [p] * 13
+                       + [i, i, ctypes.c_float, ctypes.c_float, p],
+        "counter_step": [p, ctypes.c_longlong, i, i, i, i, p, p, p, i, p, p,
+                         p, p, p, i, p, p, i, i, p, p]}
+    entries = {}
+    for name, (so, proc) in jobs.items():
+        text, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for the earlier {name}.cu:\n"
+                               f"{text}")
+        fn = getattr(ctypes.CDLL(so), f"{name}_launch")
+        fn.argtypes, fn.restype = argtypes[name], ctypes.c_int
+        entries[name] = fn
+    log(f"[parent] built the earlier bitset_step.cu and counter_step.cu "
+        f"from {parent_dir}")
+    return entries
+
+
+def parent_bitset_step(entry, cfg, words, pos, rnd, valid, seen, i_t, load):
+    """The earlier bitset wrapper's CUDA branch over ``entry``: the same C
+    interface as today's."""
+    import torch
+    from repro_torch.core import batched
+    from repro_torch.kernels.fused_template import VARIANT_CODES
+    if words.dim() == 2:
+        return tuple(x[0] for x in parent_bitset_step(
+            entry, cfg, words[None], pos[None],
+            batched.BatchRandomness(*(x[None] for x in rnd)), valid[None],
+            seen[None], i_t[None], load[None]))
+    t, k, w = words.shape
+    dup = torch.empty(valid.shape, dtype=torch.bool, device=words.device)
+    ins = torch.empty(valid.shape, dtype=torch.bool, device=words.device)
+    del_rows = torch.empty(valid.shape, dtype=torch.int32,
+                           device=words.device)
+    load_out = load.clone()
+    err = entry(words.data_ptr(), w, k, t, pos.shape[1], pos.data_ptr(),
+                rnd.del_pos.data_ptr(), valid.data_ptr(), seen.data_ptr(),
+                i_t.data_ptr(), rnd.u_bern.data_ptr(), rnd.u_aux.data_ptr(),
+                rnd.which.data_ptr(), load.data_ptr(), load_out.data_ptr(),
+                dup.data_ptr(), ins.data_ptr(), del_rows.data_ptr(),
+                VARIANT_CODES[cfg.variant], cfg.s, float(np.float32(cfg.s)),
+                float(np.float32(cfg.p_star)),
+                torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"earlier bitset_step failed: CUDA error {err}")
+    return dup, ins, load_out
+
+
+def parent_head_operands(events, heads, cmax: int, sentinel: int):
+    """The earlier counter wrapper's operand glue: each row's run heads'
+    cells moved to the front (the rest the sentinel) and each head's run
+    length clamped to ``cmax`` (None for set mode's 0)."""
+    import torch
+    from repro_torch.core import packed
+    n = events.shape[-1]
+    lead = events.shape[:-1]
+    keep = heads & (events < sentinel)
+    slot = torch.where(keep, torch.cumsum(keep, -1) - 1, n)
+    cells = torch.full((*lead, n + 1), sentinel, dtype=torch.int32,
+                       device=events.device)
+    cells.scatter_(-1, slot, events.to(torch.int32))
+    if cmax == 0:
+        return cells[..., :n].contiguous(), None
+    _, cnt = packed.clamped_run_counts(events, cmax)
+    counts = torch.zeros((*lead, n + 1), dtype=torch.int32,
+                         device=events.device)
+    counts.scatter_(-1, slot, cnt.to(torch.int32))
+    return cells[..., :n].contiguous(), counts[..., :n].contiguous()
+
+
+def parent_counter_step(entry, cfg, spec, planes, pos, valid, seen, load,
+                        ev, threshold=None, max_value=None):
+    """The earlier counter wrapper's CUDA branch over ``entry``: run-head
+    operands built by eager ops, then two launches."""
+    import torch
+    if planes.dim() == 2:
+        ev1 = ev._replace(ring_payload=None, **{
+            f: getattr(ev, f)[None] for f in ("sub_events", "sub_heads",
+                                              "ins_events", "ins_heads")
+            if getattr(ev, f) is not None})
+        dup, new_load = parent_counter_step(
+            entry, cfg, spec, planes[None], pos[None], valid[None],
+            None if seen is None else seen[None], load[None], ev1,
+            None if threshold is None else threshold.reshape(1),
+            None if max_value is None else max_value.reshape(1))
+        return dup[0], new_load[0]
+    t, d, w = planes.shape
+    dev = planes.device
+    if threshold is None:
+        threshold = torch.full((t,), cfg.count_threshold, dtype=torch.int32,
+                               device=dev)
+    if max_value is None:
+        max_value = torch.full((t,), cfg.sbf_max, dtype=torch.int32,
+                               device=dev)
+    sentinel = 32 * w
+    set_mode = spec.combine == "set"
+    sub_cells = sub_counts = None
+    if spec.has_sub:
+        sub_cells, sub_counts = parent_head_operands(
+            ev.sub_events, ev.sub_heads,
+            cfg.sbf_max if set_mode else (1 << d) - 1, sentinel)
+    ins_cells, ins_counts = parent_head_operands(
+        ev.ins_events, ev.ins_heads, 0 if set_mode else (1 << d) - 1,
+        sentinel)
+    dup = torch.empty(valid.shape, dtype=torch.bool, device=dev)
+    load_out = load.clone()
+
+    def ptr(x):
+        return None if x is None else x.data_ptr()
+
+    err = entry(planes.data_ptr(), w, d, t, pos.shape[1], cfg.k,
+                pos.data_ptr(), valid.data_ptr(),
+                ptr(seen if spec.uses_seen else None),
+                int(spec.probe == "value"),
+                ptr(threshold if spec.thresholded else None),
+                load_out.data_ptr(), dup.data_ptr(), ptr(sub_cells),
+                ptr(sub_counts),
+                0 if sub_cells is None else sub_cells.shape[1],
+                ins_cells.data_ptr(), ptr(ins_counts), ins_cells.shape[1],
+                int(set_mode), ptr(max_value),
+                torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"earlier counter_step failed: CUDA error {err}")
+    return dup, load_out
+
+
+_FLUSH = []
+
+
+def flush_l2() -> None:
+    """Evict the card's 50 MB L2 by writing a 128 MiB buffer, so a timed
+    run finds the filter words cold, as a stream's fresh batches do (the
+    timing batches are replayed once per timed run)."""
+    import torch
+    if not _FLUSH:
+        _FLUSH.append(torch.empty(128 << 20, dtype=torch.uint8,
+                                  device="cuda"))
+    _FLUSH[0].zero_()
+    torch.cuda.synchronize()
+
+
+def device_split(fn, n: int, names=None) -> dict:
+    """Device ms per call of ``fn(i)`` for i < n, from torch.profiler, by
+    kernel name: each of ``names`` (the kernels whose names hold it), or
+    every device kernel under "all" when ``names`` is None. Empty when the
+    profiler recorded none of them."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    flush_l2()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for i in range(n):
             fn(i)
         torch.cuda.synchronize()
-    total = sum(r.self_device_time_total for r in prof.key_averages()
-                if str(getattr(r, "device_type", "")).endswith("CUDA")
-                and (names is None or any(x in r.key for x in names)))
-    return total / 1e3 / n if total > 0 else None
+    rows = [r for r in prof.key_averages()
+            if str(getattr(r, "device_type", "")).endswith("CUDA")
+            and r.self_device_time_total > 0]
+    if names is None:
+        split = {"all": sum(r.self_device_time_total for r in rows)}
+    else:
+        split = {}
+        for r in rows:
+            for x in names:
+                if x in r.key:
+                    split[x] = split.get(x, 0) + r.self_device_time_total
+                    break
+    return {x: us / 1e3 / n for x, us in split.items() if us > 0}
+
+
+def device_ms(fn, n: int, names=None):
+    """Device time per call of ``fn(i)`` for i < n, from torch.profiler:
+    the kernels whose names hold one of ``names``, or every device kernel
+    when ``names`` is None. None when the profiler recorded none."""
+    split = device_split(fn, n, names)
+    return sum(split.values()) if split else None
 
 
 def wall_ms(fn, n: int) -> float:
@@ -951,7 +1144,7 @@ def wall_ms(fn, n: int) -> float:
     the device time where the device is the bottleneck, the host's issue
     time (the Python wrapper included) where it is not."""
     import torch
-    torch.cuda.synchronize()
+    flush_l2()
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     start.record()
     for i in range(n):
@@ -965,7 +1158,11 @@ def timed(make_run, n: int, names=None):
     """(ms per call, how it was measured): the profiler's device time, or,
     where the profiler saw no such kernel, CUDA events around calls issued
     back to back."""
+    # the profiler now and then returns without a short kernel's rows:
+    # one more try before the fallback
     ms = device_ms(make_run(), n, names)
+    if ms is None:
+        ms = device_ms(make_run(), n, names)
     if ms is not None:
         return ms, "device time, torch.profiler"
     return (wall_ms(make_run(), n), "CUDA events, host issue included: "
@@ -1020,7 +1217,8 @@ def fleet_batches(fleet, state, more, tenants):
     return inputs, nbytes, nops
 
 
-def phase_timings(cfg, state, sbf_cfg, sbf_state, card, fleets):
+def phase_timings(cfg, state, sbf_cfg, sbf_state, card, fleets,
+                  parent=None):
     """Per-kernel device times on 16 fresh batches past the main stream,
     each step launch on the filter the one before it left, as the stream
     runs: the kernels' own rows of a torch.profiler trace, the plain
@@ -1029,7 +1227,9 @@ def phase_timings(cfg, state, sbf_cfg, sbf_state, card, fleets):
     scatter_delta run at the rlbsbf table's shapes (k = 2, W = 2^25), the
     counter step at sbf's; the fleet forms at the fleet paths' 32 x 8 MB,
     each batch routed by the fleet (``fleets``: the two paths' fleets and
-    final states)."""
+    final states). With ``parent`` (``build_parent``'s entries) the two
+    step kernels in both forms are also timed against the earlier design,
+    in turns. Each part's seconds are logged as it ends."""
     import torch
     from repro_torch.core import batched, hashing, packed, u32
     from repro_torch.core.sketch import get_spec
@@ -1041,6 +1241,12 @@ def phase_timings(cfg, state, sbf_cfg, sbf_state, card, fleets):
     from repro_torch.kernels.hashmix import hashmix, hashmix_plain
     from repro_torch.kernels.scatter_delta import (scatter_delta,
                                                    scatter_delta_plain)
+    laps = [time.perf_counter()]
+
+    def lap(label):
+        laps.append(time.perf_counter())
+        log(f"[time] part {label}: {laps[-1] - laps[-2]:.1f} s")
+
     n_b, k, w = 16, cfg.k, cfg.s_words
     more, _ = controlled_distinct_stream(n_b * BATCH, DISTINCT_FRAC,
                                          seed=SEED + 1)
@@ -1057,6 +1263,7 @@ def phase_timings(cfg, state, sbf_cfg, sbf_state, card, fleets):
         _, _, load = bitset_step(cfg, st.bits, *args, st.load)
         st = st._replace(position=st.position + BATCH, rng=rng, load=load)
     del st
+    lap("bitset inputs and bytes")
     spec = get_spec("sbf")
     c_inputs, c_bytes, c_ops = [], 0, 0
     st = sbf_state._replace(bits=sbf_state.bits.clone())
@@ -1068,6 +1275,7 @@ def phase_timings(cfg, state, sbf_cfg, sbf_state, card, fleets):
         _, load = counter_step(sbf_cfg, spec, st.bits[:, 0, :], *args)
         st = st._replace(position=st.position + BATCH, rng=rng, load=load)
     del st
+    lap("counter inputs and bytes")
     # the ops functions on the rlbsbf filter: probe every key, scatter the
     # keys the probe did not find
     pos = [hashmix_plain(x, seeds, cfg.s) for x in keys]
@@ -1101,8 +1309,11 @@ def phase_timings(cfg, state, sbf_cfg, sbf_state, card, fleets):
     (fb, fb_state), (fc, fc_state) = fleets
     f_ten = np.random.default_rng(SEED + 4).integers(
         0, FLEET_T, n_b * BATCH).astype(np.int32)
+    lap("ops inputs")
     fb_in, fb_bytes, fb_ops = fleet_batches(fb, fb_state, more, f_ten)
+    lap("fleet bitset inputs and bytes")
     fc_in, fc_bytes, fc_ops = fleet_batches(fc, fc_state, more, f_ten)
+    lap("fleet counter inputs and bytes")
     fcp = fc.params
 
     def fleet_bitset(words, i, load):
@@ -1136,13 +1347,13 @@ def phase_timings(cfg, state, sbf_cfg, sbf_state, card, fleets):
         "bitset_step": (
             lambda: chained(bitset, state.bits.clone(), state.load),
             lambda: chained(bitset_plain, state.bits, state.load),
-            ("probe_decide", "apply_deletes", "apply_inserts"),
+            BITSET_KERNELS,
             # ~4 operations per probe, ~10 for the decision, ~4 per update
             (nbytes / n_b, BATCH * (8 * k + 10))),
         "counter_step": (
             lambda: chained(counter, sbf_planes.clone(), sbf_state.load),
             lambda: chained(counter_plain, sbf_planes, sbf_state.load),
-            ("counter_probe_decide", "counter_apply"),
+            COUNTER_KERNELS,
             (c_bytes / n_b, c_ops / n_b)),
         "bloom_probe": (
             lambda: lambda i: bloom_probe(state.bits, *idx[i]),
@@ -1162,19 +1373,25 @@ def phase_timings(cfg, state, sbf_cfg, sbf_state, card, fleets):
             lambda: chained(fleet_bitset, fb_state.bits.clone(),
                             fb_state.load),
             lambda: chained(fleet_bitset_plain, fb_state.bits, fb_state.load),
-            ("probe_decide", "apply_deletes", "apply_inserts"),
+            BITSET_KERNELS,
             (fb_bytes / n_b, fb_ops / n_b)),
         "counter_step_params_aware": (
             lambda: chained(fleet_counter, fc_planes.clone(), fc_state.load),
             lambda: chained(fleet_counter_plain, fc_planes, fc_state.load),
-            ("counter_probe_decide", "counter_apply"),
+            COUNTER_KERNELS,
             (fc_bytes / n_b, fc_ops / n_b)),
     }
     out = {}
     for name, (run, plain_run, kernels, work) in runs.items():
         run()(0)                                       # warm
         ms, how = timed(run, n_b, kernels)
-        plain_ms, plain_how = timed(plain_run, n_b)
+        lap(f"{name} kernel")
+        # a plain fleet step is ~1300 eager ops (a loop over the tenants):
+        # under the profiler each call costs seconds, so two calls time it
+        plain_ms, plain_how = timed(
+            plain_run, 2 if name.endswith(("_fleet", "_params_aware"))
+            else n_b)
+        lap(f"{name} plain version")
         through_wrapper = wall_ms(run(), n_b)
         bound_ms, bound_by = bound(*work)
         out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
@@ -1184,6 +1401,67 @@ def phase_timings(cfg, state, sbf_cfg, sbf_state, card, fleets):
             f"{bound_ms:.7f} ms by {bound_by} ({work[0]:.0f} bytes, "
             f"{work[1]:.0f} operations); through its wrapper, calls back to "
             f"back: {through_wrapper:.6f} ms per call (CUDA events; {card})")
+    if parent is None:
+        return out
+
+    def parent_bitset(words, i, load):
+        return words, parent_bitset_step(parent["bitset_step"], cfg, words,
+                                         *inputs[i], load)[2]
+
+    def parent_counter(planes, i, load):
+        pos_, v_, seen_, ev_ = c_inputs[i]
+        return planes, parent_counter_step(parent["counter_step"], sbf_cfg,
+                                           spec, planes, pos_, v_, seen_,
+                                           load, ev_)[1]
+
+    def parent_fleet_bitset(words, i, load):
+        return words, parent_bitset_step(parent["bitset_step"], fb.cfg,
+                                         words, *fb_in[i], load)[2]
+
+    def parent_fleet_counter(planes, i, load):
+        pos_, v_, seen_, ev_ = fc_in[i]
+        return planes, parent_counter_step(
+            parent["counter_step"], fc.cfg, spec, planes, pos_, v_, seen_,
+            load, ev_, fcp.threshold, fcp.max_value)[1]
+
+    pb, pc = PARENT_KERNELS["bitset_step"], PARENT_KERNELS["counter_step"]
+    start = {"bitset_step": (state.bits, state.load),
+             "bitset_step_fleet": (fb_state.bits, fb_state.load),
+             "counter_step": (sbf_planes, sbf_state.load),
+             "counter_step_params_aware": (fc_planes, fc_state.load)}
+    versions = {
+        "bitset_step": [("earlier", parent_bitset, pb),
+                        ("current", bitset, BITSET_KERNELS)],
+        "bitset_step_fleet": [("earlier", parent_fleet_bitset, pb),
+                              ("current", fleet_bitset, BITSET_KERNELS)],
+        "counter_step": [("earlier", parent_counter, pc),
+                         ("current", counter, COUNTER_KERNELS)],
+        "counter_step_params_aware": [
+            ("earlier", parent_fleet_counter, pc),
+            ("current", fleet_counter, COUNTER_KERNELS)],
+    }
+    for name, vs in versions.items():
+        x0, load0 = start[name]
+        got = {label: [] for label, _, _ in vs}
+        for label, step, names in vs:
+            chained(step, x0.clone(), load0)(0)          # warm
+        for label, step, names in vs + vs[::-1]:         # in turns
+            split = device_split(chained(step, x0.clone(), load0), n_b,
+                                 names)
+            wrap = wall_ms(chained(step, x0.clone(), load0), n_b)
+            got[label].append((split, wrap))
+        for label, turns in got.items():
+            names = sorted({x for split, _ in turns for x in split})
+            per = {x: sum(split.get(x, 0.0) for split, _ in turns)
+                   / len(turns) for x in names}
+            log(f"[compare] {name} {label}: device "
+                f"{sum(per.values()):.6f} ms per step ("
+                + ", ".join(f"{x} {v:.6f}" for x, v in per.items())
+                + f"; turns {[round(sum(sp.values()), 6) for sp, _ in turns]})"
+                f"; through its wrapper, calls back to back "
+                f"{sum(wr for _, wr in turns) / len(turns):.6f} ms "
+                f"(turns {[round(wr, 6) for _, wr in turns]}; {card})")
+        lap(f"{name} against the earlier design")
     return out
 
 
@@ -1201,23 +1479,15 @@ def bitset_pieces(cfg, st, kw, v):
 def sbf_pieces(cfg, st, kw, v):
     """The plain-PyTorch pieces of an sbf step, for the host clock."""
     from repro_torch.core import batched, hashing, u32
-    from repro_torch.kernels import fused_template as ft
     seeds = u32.from_numpy_u32(hashing.derive_seeds(cfg.seed, cfg.k), "cuda")
     pos = hashing.hash_positions(kw, seeds, cfg.s)
     _, start = batched.draw_sbf_randomness(cfg, st.rng, BATCH)
-    ev = batched.sbf_event_deltas(cfg, pos, start, v, build_planes=False)
-    sentinel = 32 * cfg.s_words
     return {
         "draw_sbf_randomness (threefry)":
             lambda: batched.draw_sbf_randomness(cfg, st.rng, BATCH),
         "sbf_event_deltas (the two event sorts, no planes)":
             lambda: batched.sbf_event_deltas(cfg, pos, start, v,
                                              build_planes=False),
-        "kernel operands (_head_operands of both lists)":
-            lambda: (ft._head_operands(ev.dec_sorted, ev.dec_head,
-                                       cfg.sbf_max, sentinel),
-                     ft._head_operands(ev.set_sorted, ev.set_head, 0,
-                                       sentinel)),
     }
 
 
@@ -1327,6 +1597,11 @@ def phase_profile(cfg, state, card, make_pieces, kernels, fleet=None,
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", metavar="DIR",
+                    help="a directory holding an earlier bitset_step.cu and "
+                         "counter_step.cu to time against the current ones")
+    args = ap.parse_args()
     try:
         import torch
     except ImportError:
@@ -1355,6 +1630,7 @@ def main() -> int:
     for name, text in logs.items():
         for line in text.strip().splitlines():
             log(f"[build] {name}: {line}")
+    parent = build_parent(args.parent) if args.parent else None
     rng = np.random.default_rng(SEED)
     err = {"hashmix": phase_hashmix(rng), "bitset_step": phase_bitset(rng),
            "counter_step": phase_counter(rng)}
@@ -1378,16 +1654,14 @@ def main() -> int:
     del f_keys, f_tenants, f_truth
     stamp("fleet paths")
     times = phase_timings(cfg, state, sbf_cfg, sbf_state, card,
-                          ((fb, fb_state), (fc, fc_state)))
+                          ((fb, fb_state), (fc, fc_state)), parent)
     stamp("time")
-    bitset_kernels = ("probe_decide", "apply_deletes", "apply_inserts")
-    counter_kernels = ("counter_probe_decide", "counter_apply")
-    phase_profile(cfg, state, card, bitset_pieces, bitset_kernels)
-    phase_profile(sbf_cfg, sbf_state, card, sbf_pieces, counter_kernels)
+    phase_profile(cfg, state, card, bitset_pieces, BITSET_KERNELS)
+    phase_profile(sbf_cfg, sbf_state, card, sbf_pieces, COUNTER_KERNELS)
     p_tenants = np.random.default_rng(SEED + 5).integers(
         0, FLEET_T, 16 * BATCH).astype(np.int32)
-    for fleet, st, kern in ((fb, fb_state, bitset_kernels),
-                            (fc, fc_state, counter_kernels)):
+    for fleet, st, kern in ((fb, fb_state, BITSET_KERNELS),
+                            (fc, fc_state, COUNTER_KERNELS)):
         phase_profile(fleet.cfg, st, card, fleet_pieces(fleet, p_tenants),
                       kern, fleet=fleet, tenants=p_tenants)
     stamp("profile")

@@ -252,18 +252,19 @@ def make_bitset_step(cfg: DedupConfig, spec, device=None,
 
 class SbfBatchDeltas(NamedTuple):
     """One SBF batch's events (DESIGN §3.6): the sorted decrement and
-    set-to-Max cells with their run heads, and — when built — the word
+    set-to-Max cells, and — when built — their run heads and the word
     deltas the plain step applies. The CUDA step reads only the sorted
-    lists; ``count_planes`` and ``set_delta`` are then None. A fleet's
-    events carry a leading tenant axis, each row sorted on its own."""
+    lists (its kernel finds the runs itself); the heads, ``count_planes``
+    and ``set_delta`` are then None. A fleet's events carry a leading
+    tenant axis, each row sorted on its own."""
     count_planes: Optional[torch.Tensor]  # (d, W) int32 — decrement counts
                                           #   per cell, clamped to Max
     set_delta: Optional[torch.Tensor]     # (W,) int32 — set-to-Max cells
     dec_sorted: torch.Tensor   # (B·P,) int64 sorted decrement cells
                                #   (sentinel 32·W for invalid lanes)
-    dec_head: torch.Tensor     # (B·P,) bool — first event of each cell
+    dec_head: Optional[torch.Tensor]  # (B·P,) bool — first event per cell
     set_sorted: torch.Tensor   # (B·k,) int64 sorted set-to-Max cells
-    set_head: torch.Tensor     # (B·k,) bool — first event of each cell
+    set_head: Optional[torch.Tensor]  # (B·k,) bool — first event per cell
 
 
 def _per_row(fn, *xs):
@@ -288,12 +289,12 @@ def draw_sbf_randomness(cfg: DedupConfig, rng: torch.Tensor, b: int,
 def sbf_event_deltas(cfg: DedupConfig, pos: torch.Tensor,
                      start: torch.Tensor, valid: torch.Tensor,
                      build_planes: bool = True) -> SbfBatchDeltas:
-    """Batch events -> sorted event lists (and, with ``build_planes``,
-    word deltas). Each valid element decrements the P contiguous cells from
-    its random start, wrapping at s, and sets its k cells to Max: a cell's
-    decrement is the number of runs covering it, read off the sorted list
-    clamped to the fleet-wide ``cfg.sbf_max`` (lossless, since value <=
-    Max). pos (..., B, k), start and valid (..., B)."""
+    """Batch events -> sorted event lists (and, with ``build_planes``, run
+    heads and word deltas). Each valid element decrements the P contiguous
+    cells from its random start, wrapping at s, and sets its k cells to
+    Max: a cell's decrement is the number of runs covering it, read off the
+    sorted list clamped to the fleet-wide ``cfg.sbf_max`` (lossless, since
+    value <= Max). pos (..., B, k), start and valid (..., B)."""
     w = cfg.s_words
     sentinel = 32 * w
     lead = pos.shape[:-2]
@@ -305,10 +306,9 @@ def sbf_event_deltas(cfg: DedupConfig, pos: torch.Tensor,
     sps = torch.sort(torch.where(valid[..., None], pos.to(torch.int64),
                                  sentinel).reshape(*lead, -1),
                      dim=-1).values
-    set_head = run_heads_1d(sps)
     if not build_planes:
-        return SbfBatchDeltas(None, None, spd, run_heads_1d(spd), sps,
-                              set_head)
+        return SbfBatchDeltas(None, None, spd, None, sps, None)
+    set_head = run_heads_1d(sps)
     dec_head, cnt = clamped_run_counts(spd, cfg.sbf_max)
     count_planes = _per_row(
         lambda sp, h, c: count_planes_from_sorted(sp, h, c, cfg.n_planes, w),
@@ -340,12 +340,12 @@ def fleet_planes(bits: torch.Tensor) -> torch.Tensor:
 
 class CountBatchDeltas(NamedTuple):
     """One batch's insert/increment events (DESIGN §3.7/§3.8): the sorted
-    list padded to the event width, its run heads, and — when built — the
+    list padded to the event width and — when built — its run heads and the
     per-cell multiplicities clamped to 2^d - 1 as bit-planes."""
     count_planes: Optional[torch.Tensor]  # (d, W) int32
     ins_sorted: torch.Tensor   # (E,) int64 sorted insert cells, sentinel
                                #   32·W padded to the event width
-    ins_head: torch.Tensor     # (E,) bool — first event of each cell
+    ins_head: Optional[torch.Tensor]  # (E,) bool — first event per cell
 
 
 def count_event_deltas(cfg: DedupConfig, pos: torch.Tensor,
@@ -353,8 +353,9 @@ def count_event_deltas(cfg: DedupConfig, pos: torch.Tensor,
                        build_planes: bool = True) -> CountBatchDeltas:
     """A batch's B·k insert positions -> the sorted event list padded with
     sentinels to ``width`` (B·k for cms/hh, the ring's event capacity for
-    swbf) and, with ``build_planes``, its clamped count planes. pos
-    (..., B, k) and valid (..., B) give one list per leading row."""
+    swbf) and, with ``build_planes``, its run heads and clamped count
+    planes. pos (..., B, k) and valid (..., B) give one list per leading
+    row."""
     w, d = cfg.s_words, cfg.n_planes
     sentinel = 32 * w
     flat = torch.where(valid[..., None], pos.to(torch.int64),
@@ -369,7 +370,7 @@ def count_event_deltas(cfg: DedupConfig, pos: torch.Tensor,
                                        value=sentinel)
     sp = torch.sort(flat, dim=-1).values
     if not build_planes:
-        return CountBatchDeltas(None, sp, run_heads_1d(sp))
+        return CountBatchDeltas(None, sp, None)
     head, cnt = clamped_run_counts(sp, (1 << d) - 1)
     return CountBatchDeltas(
         _per_row(lambda x, h, c: count_planes_from_sorted(x, h, c, d, w),
@@ -387,13 +388,14 @@ def _slot_index(ring: WindowRing) -> torch.Tensor:
 def ring_expire_planes(cfg: DedupConfig, ring: WindowRing,
                        build_planes: bool = True):
     """The expiring slot's sorted event list -> (events int64, heads, count
-    planes or None): exactly what the arriving batch added, re-expanded
-    (the list is already sorted, so no sort). A stacked ring (T, window,
-    E) with slots (T,) gives each row's own expiring slot."""
+    planes), the last two None without ``build_planes``: exactly what the
+    arriving batch added, re-expanded (the list is already sorted, so no
+    sort). A stacked ring (T, window, E) with slots (T,) gives each row's
+    own expiring slot."""
     ev = ring.events.gather(-2, _slot_index(ring)).squeeze(-2)
     ev = ev.to(torch.int64)
     if not build_planes:
-        return ev, run_heads_1d(ev), None
+        return ev, None, None
     d, w = cfg.n_planes, cfg.s_words
     head, cnt = clamped_run_counts(ev, (1 << d) - 1)
     return ev, head, _per_row(
@@ -416,18 +418,19 @@ def ring_push(ring: WindowRing, ev: CountBatchDeltas, window
 class CounterStepDeltas(NamedTuple):
     """A counter-family batch reduced to the step's operands (DESIGN §3.8),
     built per spec (``core.sketch``). The sorted event lists are what the
-    CUDA kernel reads and what the exact load accounting reads; the plane
-    deltas, built only for the plain step, are what the reference's jnp
-    step applies. ``None`` marks an op the sketch lacks (or planes not
-    built). Order: subtract, then set/add (insertions win). A fleet's
-    operands carry a leading tenant axis."""
+    CUDA kernel reads; the run heads (the plain step's exact load
+    accounting) and the plane deltas (what the reference's jnp step
+    applies) are built only for the plain step. ``None`` marks an op the
+    sketch lacks (or heads and planes not built). Order: subtract, then
+    set/add (insertions win). A fleet's operands carry a leading tenant
+    axis."""
     sub_planes: Optional[torch.Tensor]   # (d, W) int32 decrement planes
     sub_events: Optional[torch.Tensor]   # (E,) int64 sorted decrement cells
     sub_heads: Optional[torch.Tensor]    # (E,) bool first event per cell
     add_planes: Optional[torch.Tensor]   # (d, W) int32 increment planes
     set_delta: Optional[torch.Tensor]    # (W,) int32 set-to-Max OR mask
     ins_events: torch.Tensor             # (E',) int64 sorted insert cells
-    ins_heads: torch.Tensor              # (E',) bool first event per cell
+    ins_heads: Optional[torch.Tensor]    # (E',) bool first event per cell
     ring_payload: Optional[CountBatchDeltas]  # swbf: this batch's ring slot
 
 

@@ -17,11 +17,13 @@ bit:
   ``counter_step_plain``, which applies the reference jnp step's (d, W)
   delta planes with the borrow / set / carry chains of ``core.packed`` and
   takes the load from the sorted event lists. The kernel instead works per
-  event: it never builds a (d, W) delta plane, and one thread owns each
-  touched word (its source note says why and what bounds it). So
-  ``cfg.kernel_accumulate`` — the reference's switch between delta-plane
-  and per-event operands — changes nothing here: on CUDA both values
-  launch this one per-event kernel.
+  event, on the sorted int64 event lists as the step builds them: it never
+  builds a (d, W) delta plane, derives the run heads and clamped run
+  lengths itself, and one thread owns each touched word, found by a merge
+  path over the two lists (its source note says why and what bounds it).
+  So ``cfg.kernel_accumulate`` — the reference's switch between
+  delta-plane and per-event operands — changes nothing here: on CUDA both
+  values launch this one per-event kernel.
 
 Both take a leading tenant axis (DESIGN §4.6): a fleet's T filters step
 in one launch of each kernel, whose grid carries the tenant axis where the
@@ -54,7 +56,8 @@ VARIANT_CODES = {"rsbf": 0, "bsbf": 1, "bsbfsd": 2, "rlbsbf": 3}
 # intra-batch join where the spec uses it
 COUNTER_SKETCHES = ("sbf", "swbf", "cms", "hh")
 MAX_PLANES = 16                   # csrc/counter_step.cu::kMaxPlanes
-MAX_TENANTS = 65535               # the grids' tenant axis (gridDim.y / .z)
+COUNTER_TILE = 128                # csrc/counter_step.cu::kTile
+MAX_TENANTS = 65535               # bitset_step.cu's tenant axis (gridDim.y/z)
 
 
 def _check_tensors(kernel: str, want: dict, device) -> None:
@@ -300,9 +303,6 @@ def _check_counter(cfg, spec, planes, pos, valid, seen, load, ev,
     if 32 * w >= 1 << 31:
         raise ValueError(f"counter_step needs cells below 2^31; the "
                          f"sentinel 32·W = {32 * w} is not")
-    if t > MAX_TENANTS:
-        raise ValueError(f"counter_step takes at most {MAX_TENANTS} "
-                         f"tenants, got {t}")
     want = {"planes": (planes, torch.int32, (t, d, w)),
             "pos": (pos, torch.int32, (t, b, k)),
             "valid": (valid, torch.bool, (t, b)),
@@ -314,36 +314,34 @@ def _check_counter(cfg, spec, planes, pos, valid, seen, load, ev,
     lists = [("ins", ev.ins_events, ev.ins_heads)]
     if spec.has_sub:
         lists.append(("sub", ev.sub_events, ev.sub_heads))
+    n_events = 0
     for name, events, heads in lists:
         n = events.shape[1] if events is not None and events.dim() == 2 \
             else -1
+        n_events += n
+        # the kernel reads the sorted int64 lists themselves; the run heads
+        # are the plain step's (built with the delta planes)
         want[f"{name}_events"] = (events, torch.int64, (t, n))
-        want[f"{name}_heads"] = (heads, torch.bool, (t, n))
+        if heads is not None:
+            want[f"{name}_heads"] = (heads, torch.bool, (t, n))
     _check_tensors("counter_step", want, planes.device)
+    if n_events >= 1 << 31:
+        raise ValueError(f"counter_step takes fewer than 2^31 events per "
+                         f"tenant row, got {n_events}")
 
 
-def _head_operands(events, heads, cmax: int, sentinel: int):
-    """Sorted event lists (..., n) -> the kernel's operands: each row's run
-    heads' cells, moved to the front of the row in order with the rest
-    filled by the sentinel, and each head's run length clamped to ``cmax``
-    (None for cmax == 0, the set-to-Max form, which has no count). Static
-    shapes: no host sync. Rows stay rows, so a cell is never offset by its
-    tenant and stays below 2^31; each output is contiguous, rows n apart,
-    as the kernel reads them."""
-    n = events.shape[-1]
-    lead = events.shape[:-1]
-    keep = heads & (events < sentinel)
-    slot = torch.where(keep, torch.cumsum(keep, -1) - 1, n)
-    cells = torch.full((*lead, n + 1), sentinel, dtype=torch.int32,
-                       device=events.device)
-    cells.scatter_(-1, slot, events.to(torch.int32))
-    if cmax == 0:
-        return cells[..., :n].contiguous(), None
-    _, cnt = _packed.clamped_run_counts(events, cmax)
-    counts = torch.zeros((*lead, n + 1), dtype=torch.int32,
-                         device=events.device)
-    counts.scatter_(-1, slot, cnt.to(torch.int32))
-    return cells[..., :n].contiguous(), counts[..., :n].contiguous()
+def counter_caps(cfg, spec) -> tuple:
+    """(subtract cap, add cap): where the counter kernel clamps the run
+    length of equal cells in each sorted event list, as the reference
+    clamps its events before it builds count planes. sbf's decrements clamp
+    at the fleet-wide ``cfg.sbf_max`` (a tenant's lower Max saturates the
+    same cells to 0), swbf's expiring counts and every add at the plane
+    capacity 2^d - 1; 0 where the list is absent or, in set-to-Max mode,
+    where only each cell's bit is read."""
+    full = (1 << cfg.n_planes) - 1
+    set_mode = spec.combine == "set"
+    sub_cap = (cfg.sbf_max if set_mode else full) if spec.has_sub else 0
+    return sub_cap, 0 if set_mode else full
 
 
 @functools.lru_cache(maxsize=None)
@@ -352,7 +350,7 @@ def _counter_entry():
     fn = build.load("counter_step").counter_step_launch
     p, i = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [p, ctypes.c_longlong, i, i, i, i, p, p, p, i, p, p, p,
-                   p, p, i, p, p, i, i, p, p]
+                   p, i, i, p, i, i, i, p, p, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -368,15 +366,18 @@ def counter_step(cfg, spec, planes, pos, valid, seen, load, ev,
     One filter: planes (d, W), pos (B, k) int32 cells, valid (B,) bool,
     seen (B,) bool where the spec joins the batch (else None), load (1,)
     int32 batch-entry nonzero-cell count, ``ev`` the step's
-    ``CounterStepDeltas`` (int64 sorted event lists and their run heads).
-    A fleet of T tenants: planes (T, d, W) and every operand with a leading
-    T axis, the event lists sorted per row; the kernel's grid carries the
-    tenant axis, so T filters are one launch. ``threshold`` and
-    ``max_value`` are (T,) int32 rows on the planes' device (default: the
-    config's values), read by the kernel itself. Returns (dup bool, load
-    int32). On CUDA the kernel reads only the event lists, whatever
-    ``cfg.kernel_accumulate`` says; ``counter_step.launches`` counts its
-    launches: one per step, two grid launches each."""
+    ``CounterStepDeltas`` (int64 sorted event lists; their run heads and
+    delta planes only where the plain step needs them). A fleet of T
+    tenants: planes (T, d, W) and every operand with a leading T axis, the
+    event lists sorted per row; the kernel's grids carry the tenant axis,
+    so T filters are one call. ``threshold`` and ``max_value`` are (T,)
+    int32 rows on the planes' device (default: the config's values), read
+    by the kernel itself. Returns (dup bool, load int32). On CUDA the
+    kernel reads only the sorted event lists, whatever
+    ``cfg.kernel_accumulate`` says, and clamps their run lengths at
+    ``counter_caps``; ``counter_step.launches`` counts its launches: one
+    per step, two grid launches each (probe + decide beside the merge-path
+    partition, then the apply)."""
     if planes.dim() == 2:
         lists = ("sub_events", "sub_heads", "ins_events", "ins_heads",
                  "sub_planes", "add_planes", "set_delta")
@@ -403,20 +404,14 @@ def counter_step(cfg, spec, planes, pos, valid, seen, load, ev,
     if device.type != "cuda":
         raise ValueError(f"counter_step runs on cpu or cuda, not {device}")
     d, w = planes.shape[1:]
-    sentinel = 32 * w
-    set_mode = spec.combine == "set"
-    sub_cells = sub_counts = None
-    if spec.has_sub:
-        # the fleet-wide Max clamps the decrements, as the reference's
-        # events do; a tenant's lower Max saturates the same cells to 0
-        sub_cells, sub_counts = _head_operands(
-            ev.sub_events, ev.sub_heads,
-            cfg.sbf_max if set_mode else (1 << d) - 1, sentinel)
-    ins_cells, ins_counts = _head_operands(
-        ev.ins_events, ev.ins_heads, 0 if set_mode else (1 << d) - 1,
-        sentinel)
+    sub_cap, ins_cap = counter_caps(cfg, spec)
+    sub = ev.sub_events if spec.has_sub else None
+    n_events = ev.ins_events.shape[1] + (0 if sub is None else sub.shape[1])
     dup = torch.empty(valid.shape, dtype=torch.bool, device=device)
     load_out = load.clone()
+    # the merge-path partition's scratch: where each tile starts
+    splits = torch.empty((t * -(-n_events // COUNTER_TILE),),
+                         dtype=torch.int32, device=device)
 
     def ptr(x):
         return None if x is None else x.data_ptr()
@@ -426,10 +421,10 @@ def counter_step(cfg, spec, planes, pos, valid, seen, load, ev,
         valid.data_ptr(), ptr(seen if spec.uses_seen else None),
         int(spec.probe == "value"),
         ptr(threshold if spec.thresholded else None), load_out.data_ptr(),
-        dup.data_ptr(), ptr(sub_cells), ptr(sub_counts),
-        0 if sub_cells is None else sub_cells.shape[1], ins_cells.data_ptr(),
-        ptr(ins_counts), ins_cells.shape[1], int(set_mode),
-        ptr(max_value), torch.cuda.current_stream(device).cuda_stream)
+        dup.data_ptr(), ptr(sub), 0 if sub is None else sub.shape[1],
+        sub_cap, ev.ins_events.data_ptr(), ev.ins_events.shape[1], ins_cap,
+        int(spec.combine == "set"), ptr(max_value), splits.data_ptr(),
+        torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"counter_step kernel launch failed: CUDA error "
                            f"{err}")

@@ -2,7 +2,8 @@
 port's step (``counter_step_plain`` on the CPU) against JAX's jnp step and
 its Pallas kernel (interpret mode here) with ``kernel_accumulate`` off and
 on, for sbf, sbf at Max 1 and at Max 2, swbf, cms and hh, exactly — and
-the CUDA kernel's operands against the reference's accumulate-mode
+what the CUDA kernel derives from the sorted event lists under the count
+caps its wrapper passes against the reference's accumulate-mode
 operands."""
 
 import dataclasses
@@ -164,41 +165,115 @@ def test_plain_counter_step_on_a_random_state(name):
         assert np.array_equal(load.numpy(), np.asarray(sj.load)), name
 
 
-@pytest.mark.parametrize("mode", ("sub", "add", "set"))
-def test_kernel_operands_carry_the_reference_event_operands(mode):
-    """The CUDA kernel's operands (run heads moved to the front, each with
-    its clamped count) hold what the reference's accumulate-mode
-    ``_event_operands`` hand its kernel: per plane, the OR of the head
-    masks over each word is the same."""
-    d, w = (2, 64) if mode != "add" else (4, 64)
-    cmax = {"sub": 3, "add": 15, "set": 0}[mode]
-    r = np.random.default_rng(len(mode))
-    sentinel = 32 * w
-    ev = r.integers(0, 300, 900)
-    ev[r.random(900) < 0.2] = sentinel
-    sp = np.sort(ev)
-    heads = np.array(jp.run_heads_1d(jnp.asarray(sp)))
-    rows = 1 if cmax == 0 else d
-    widx, masks = _event_operands(jnp.asarray(sp, jnp.int32),
-                                  jnp.asarray(heads), cmax, rows, w, 8)
-    want = np.zeros((rows, w + 1), np.uint32)
-    for q in range(rows):
-        np.bitwise_or.at(want[q], np.minimum(np.asarray(widx), w),
-                         np.asarray(masks[q]))
-    cells, counts = ft._head_operands(torch.from_numpy(sp),
-                                      torch.from_numpy(heads), cmax,
-                                      sentinel)
-    cells = cells.numpy()
-    n = int(((heads) & (sp < sentinel)).sum())
-    assert np.array_equal(cells[:n], sp[heads & (sp < sentinel)])
-    assert (cells[n:] == sentinel).all()
-    got = np.zeros((rows, w + 1), np.uint32)
-    cnt = np.ones(len(cells), np.int64) if counts is None else counts.numpy()
-    for q in range(rows):
-        bit = ((cnt[:n] >> q) & 1).astype(np.uint32)
-        np.bitwise_or.at(got[q], cells[:n] >> 5,
-                         bit << (cells[:n] & 31).astype(np.uint32))
-    assert np.array_equal(got[:, :w], want[:, :w])
+def kernel_walk(events, cap, d, w):
+    """What the CUDA counter kernel derives from one sorted event row, as
+    its owners walk it: each distinct cell's run length clamped at ``cap``
+    (each cell once in set mode, cap 0), written bit by bit into (d, W)
+    per-plane word masks; sentinel cells (>= 32·W) dropped. -> (masks
+    (d, W) uint32, {cell: clamped count})."""
+    masks = np.zeros((d, w), np.uint32)
+    counts = {}
+    cells, runs = np.unique(np.asarray(events), return_counts=True)
+    for cell, run in zip(cells.tolist(), runs.tolist()):
+        if cell >= 32 * w:
+            continue
+        cnt = 1 if cap == 0 else min(run, cap)
+        counts[cell] = cnt
+        for q in range(d):
+            if (cnt >> q) & 1:
+                masks[q, cell >> 5] |= np.uint32(1 << (cell & 31))
+    return masks, counts
+
+
+@pytest.mark.parametrize("name", ("sbf", "swbf", "cms", "hh"))
+def test_kernel_caps_rebuild_the_reference_event_operands(name):
+    """The count caps the wrapper hands the CUDA kernel, applied to the
+    sorted event lists as the kernel walks them, rebuild what the reference
+    hands its kernel: per plane, the OR of the accumulate-mode
+    ``_event_operands`` masks over each word, and the port's delta planes;
+    the clamped counts are ``clamped_run_counts`` at the run heads."""
+    jc, tc = configs(name, batch_size=512)
+    spec = get_spec(tc.variant)
+    d, w = tc.n_planes, tc.s_words
+    st = Dedup(tc, "cpu").init()
+    r = np.random.default_rng(len(name))
+    # a crowded batch: runs of equal cells longer than any cap
+    hi = min(600, tc.s)
+    cells = r.integers(0, hi, (512, tc.k))
+    cells[r.random((512, tc.k)) < 0.3] = 77
+    pos = torch.from_numpy(cells.astype(np.int32))
+    v = torch.from_numpy(r.random(512) < 0.8)
+    rnd = (torch.from_numpy(np.where(r.random(512) < 0.5, 70,
+                                     r.integers(0, tc.s, 512))
+                            .astype(np.int32)) if name == "sbf" else None)
+    if st.ring is not None:
+        ring = np.sort(np.where(r.random(st.ring.events.shape) < 0.4, 77,
+                                r.integers(0, hi, st.ring.events.shape)),
+                       axis=-1)
+        st = st._replace(ring=st.ring._replace(
+            events=torch.from_numpy(ring.astype(np.int32))))
+    ev = spec.make_events(tc)(st, pos, v, rnd)
+    sub_cap, ins_cap = ft.counter_caps(tc, spec)
+    set_mode = spec.combine == "set"
+    lists = [(ev.ins_events, ev.ins_heads, ins_cap,
+              ev.set_delta[None] if set_mode else ev.add_planes)]
+    if spec.has_sub:
+        lists.append((ev.sub_events, ev.sub_heads, sub_cap, ev.sub_planes))
+    else:
+        assert sub_cap == 0
+    for events, heads, cap, planes in lists:
+        sp = events.numpy()
+        masks, counts = kernel_walk(sp, cap, 1 if cap == 0 else d, w)
+        assert np.array_equal(masks, u32.to_numpy_u32(planes))
+        rows = 1 if cap == 0 else d
+        widx, jm = _event_operands(jnp.asarray(sp, jnp.int32),
+                                   jnp.asarray(heads.numpy()), cap, rows, w,
+                                   8)
+        want = np.zeros((rows, w + 1), np.uint32)
+        for q in range(rows):
+            np.bitwise_or.at(want[q], np.minimum(np.asarray(widx), w),
+                             np.asarray(jm[q]))
+        assert np.array_equal(masks, want[:, :w])
+        if cap > 0:
+            _, cnt = packed.clamped_run_counts(events, cap)
+            keep = (heads & (events < 32 * w)).numpy()
+            assert counts == dict(zip(sp[keep].tolist(),
+                                      cnt.numpy()[keep].tolist()))
+            assert max(counts.values()) == cap     # some run hit the cap
+
+
+@pytest.mark.parametrize("fault", ("dtype", "length", "strided", "cells"))
+def test_wrapper_refuses_event_lists_the_kernel_cannot_read(fault):
+    """The CUDA kernel reads each tenant's sorted int64 event row in place,
+    rows n apart, cells below 2^31: the wrapper refuses an int32 list, a
+    list whose rows disagree with its heads' length, a strided list and a
+    planes row of 2^31 cells or more, before either form runs."""
+    name = "cms" if fault == "cells" else "swbf"
+    _, tc = configs(name)
+    spec = get_spec(tc.variant)
+    st = Dedup(tc, "cpu").init()
+    keys = u32.from_numpy_u32(np.arange(64, dtype=np.uint32), "cpu")
+    pos = hashing.hash_positions(
+        keys, u32.from_numpy_u32(hashing.derive_seeds(tc.seed, tc.k), "cpu"),
+        tc.s)
+    v = torch.ones(64, dtype=torch.bool)
+    seen = tb.intra_batch_seen(keys, v)
+    ev = spec.make_events(tc)(st, pos, v, None)
+    planes = tb.sbf_planes_3d(st.bits)[:, 0, :].clone()
+    if fault == "dtype":
+        ev, match = ev._replace(sub_events=ev.sub_events.int()), "sub_events"
+    elif fault == "length":
+        ev, match = ev._replace(sub_heads=ev.sub_heads[:-1]), "sub_heads"
+    elif fault == "strided":
+        wide = torch.stack([ev.ins_events, ev.ins_events], -1)
+        ev, match = ev._replace(ins_events=wide[..., 0]), "contiguous"
+    else:
+        big = dataclasses.replace(tc, memory_bits=1 << 34)
+        with pytest.raises(ValueError, match="below 2\\^31"):
+            ft.counter_step(big, spec, planes, pos, v, seen, st.load, ev)
+        return
+    with pytest.raises(ValueError, match=match):
+        ft.counter_step(tc, spec, planes, pos, v, seen, st.load, ev)
 
 
 def test_wrapper_on_cpu_updates_in_place_without_launch():

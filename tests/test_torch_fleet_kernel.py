@@ -6,7 +6,7 @@ rows — the params-aware kernel's check), and must equal
 ``repro.core.fleet.FleetDedup(backend="pallas")``, whose kernels run in
 interpret mode here, exactly: on ``tests/test_tenants.py``'s heterogeneous
 grid (sbf Max, cms thresholds, swbf windows) and its bitset Pallas rows.
-Also: the kernel operands per tenant row, the wrappers' checks, and a
+Also: the kernel's event rows per tenant, the wrappers' checks, and a
 fleet's state carried across by ``convert.py`` both ways."""
 
 import jax
@@ -23,6 +23,7 @@ from repro_torch.core import batched as tbat
 from repro_torch.core import fleet as tfleet
 from repro_torch.core.sketch import get_spec
 from repro_torch.kernels import fused_template as ft
+from test_torch_counter_step import kernel_walk
 
 SEED = 11
 
@@ -147,8 +148,9 @@ def _fleet_inputs(tc, st, keys, valid):
 def test_counter_step_over_tenants_equals_each_tenant(variant):
     """The tenant-axis counter step with hetero knobs equals the one-filter
     step on each tenant's rows with that tenant's knobs; a tenant whose
-    slot row is empty keeps its planes and load. Its kernel operands,
-    built per row, equal each row's own."""
+    slot row is empty keeps its planes and load. Each tenant's row of the
+    sorted event lists, walked under the kernel's count caps, rebuilds that
+    tenant's delta planes."""
     kw = {"sbf_p": 7} if variant == "sbf" else {}
     _, tc = configs(variant, **kw)
     tf = tfleet.FleetDedup(tc, capacity=16, device="cpu")
@@ -177,18 +179,22 @@ def test_counter_step_over_tenants_equals_each_tenant(variant):
         assert torch.equal(load[t], load_t)
     assert torch.equal(got[2], planes[2]) and torch.equal(load[2],
                                                           st.load[2])
-    sentinel = 32 * tc.s_words
-    for events, heads in ((ev.ins_events, ev.ins_heads),
-                          (ev.sub_events, ev.sub_heads)):
-        if events is None:
-            continue
-        cells, counts = ft._head_operands(events, heads, 3, sentinel)
+    # what the kernel reads: each row's sorted int64 list in place, rows n
+    # apart; walked under the wrapper's caps, each row rebuilds that
+    # tenant's delta planes
+    sub_cap, ins_cap = ft.counter_caps(tc, spec)
+    lists = [(ev.ins_events, ins_cap, ev.set_delta[:, None]
+              if spec.combine == "set" else ev.add_planes)]
+    if spec.has_sub:
+        lists.append((ev.sub_events, sub_cap, ev.sub_planes))
+    for events, cap, planes_t in lists:
+        assert events.dtype == torch.int64 and events.is_contiguous()
         for t in range(4):
-            c1, n1 = ft._head_operands(events[t], heads[t], 3, sentinel)
-            assert torch.equal(cells[t], c1) and torch.equal(counts[t], n1)
-            assert (cells[t] <= sentinel).all()
-        # the kernel reads each row n apart
-        assert cells.is_contiguous() and counts.is_contiguous()
+            row = events[t].numpy()
+            assert (np.diff(row) >= 0).all()
+            masks, _ = kernel_walk(row, cap, planes_t.shape[1],
+                                   tc.s_words)
+            assert np.array_equal(masks, u32.to_numpy_u32(planes_t[t]))
 
 
 def test_tenant_axis_wrappers_check_their_operands():

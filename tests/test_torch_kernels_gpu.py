@@ -460,3 +460,120 @@ def test_blocked_layout_on_card_matches_plain(cuda, block_bits):
                                                 bsize))
         assert torch.equal(got.cpu(), want.to(torch.int32))
         assert int(got.max()) < s
+
+
+# ---------------------------------- the designs' edges (merge path, grid) //
+
+def dense_counter_inputs(cfg, t, c, r, device):
+    """(T, C) lanes whose cells crowd a few words: per tenant, 60% of the
+    cells fall in 64 neighbouring words (more than 32 events on a word),
+    30% on one hot cell (runs far past any count cap), the rest anywhere;
+    sbf's decrement runs start in the same words (words both lists touch)
+    and often at one cell; swbf's expiring slot repeats cells the same way.
+    Each row's merged events span many 128-event tiles, so words straddle
+    tile edges. About a third of the lanes are invalid and the last
+    tenant's row is sentinel-only when T > 1. -> (state, pos, valid, seen,
+    events)."""
+    from repro_torch.core.state import WindowRing
+    from repro_torch.core.sketch import get_spec
+    spec = get_spec(cfg.variant)
+    st = random_fleet_counter_state(cfg, device, r)
+    k, s = cfg.k, cfg.s
+    base = r.integers(0, s - 64 * 32, (t, 1, 1))
+    crowd = base + r.integers(0, 64 * 32, (t, c, k))
+    hot = base + r.integers(0, 64 * 32, (t, 1, 1))
+    pick = r.random((t, c, k))
+    cells = np.where(pick < 0.6, crowd,
+                     np.where(pick < 0.9, hot, r.integers(0, s, (t, c, k))))
+    pos = torch.from_numpy(cells.astype(np.int32)).to(device)
+    keys, valid = fleet_lanes(cfg, t, c, r, device)
+    seen = tb.intra_batch_seen(keys, valid) if spec.uses_seen else None
+    rnd = None
+    if cfg.variant == "sbf":
+        start = np.where(r.random((t, c)) < 0.5, hot[:, :, 0],
+                         crowd[:, :, 0])
+        rnd = torch.from_numpy(start.astype(np.int32)).to(device)
+    if st.ring is not None:
+        e = st.ring.events.shape[-1]
+        ring = np.where(r.random((t, cfg.window, e)) < 0.5, hot,
+                        base + r.integers(0, 64 * 32, (t, cfg.window, e)))
+        ring[r.random(ring.shape) < 0.2] = 32 * cfg.s_words
+        st = st._replace(ring=WindowRing(
+            torch.from_numpy(np.sort(ring, axis=-1).astype(np.int32)).to(
+                device), st.ring.slot))
+    return st, pos, valid, seen, spec.make_events(cfg)(st, pos, valid, rnd)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c", (1000, 0))
+@pytest.mark.parametrize("t", TENANTS)
+@pytest.mark.parametrize("variant", ("sbf", "swbf", "cms", "hh"))
+def test_counter_kernel_merge_path_edges_on_card(cuda, variant, t, c):
+    """The merge-path counter kernel equals its plain version where its
+    design has edges: words both lists touch, more than 32 events on one
+    word, runs longer than the count cap, words whose events straddle a
+    tile edge, a sentinel-only tenant row, a batch of C = 1000 lanes (not
+    a multiple of the block) and an empty one (C = 0), at T = 1, 4, 32."""
+    from repro_torch.core.sketch import get_spec
+    cfg = fleet_cfg(variant, t, **({"window": 4} if variant == "swbf"
+                                   else {}))
+    spec = get_spec(cfg.variant)
+    r = np.random.default_rng(17 + t + c)
+    st, pos, v, seen, ev = dense_counter_inputs(cfg, t, c, r, cuda)
+    knobs = hetero_knobs(cfg, t, cuda)
+    planes = tb.fleet_planes(st.bits)
+    got = planes.clone()
+    before = counter_step.launches
+    dup, load = counter_step(cfg, spec, got, pos, v, seen, st.load, ev,
+                             threshold=knobs["threshold"],
+                             max_value=knobs["max_value"])
+    new, dup_p, load_p = counter_step_plain(
+        cfg, spec, planes, pos, v, seen, st.load, ev, knobs["threshold"],
+        knobs["max_value"])
+    torch.cuda.synchronize()
+    assert counter_step.launches == before + 1
+    assert torch.equal(got, new) and torch.equal(dup, dup_p)
+    assert torch.equal(load, load_p)
+    if c > 0:
+        assert not torch.equal(got, planes)      # the batch changed cells
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t, c", ((32, 16384), (4, 1000), (1, 8191)))
+@pytest.mark.parametrize("variant", ("rsbf", "rlbsbf"))
+def test_bitset_kernel_large_and_ragged_grids_on_card(cuda, variant, t, c):
+    """The bitset step equals its plain version on more lanes than the card
+    holds resident at once (T = 32 x 16384: 2^19 lanes) and on lanes that
+    are not a multiple of the block."""
+    from repro_torch.core import hashing, prng
+    cfg = fleet_cfg(variant, t, memory_bits=1 << 18)
+    k = cfg.k
+    gen = torch.Generator(device=cuda).manual_seed(t)
+    words = torch.randint(-2 ** 31, 2 ** 31, (t, k, cfg.s_words),
+                          dtype=torch.int32, device=cuda, generator=gen)
+    load = packed.popcount(words)
+    rng = prng.fold_in(prng.PRNGKey(5, cuda), torch.arange(t, device=cuda))
+    seeds = u32.from_numpy_u32(hashing.derive_seeds(cfg.seed, k), cuda)
+    r = np.random.default_rng(c)
+    position = torch.full((t,), cfg.s - 3000, dtype=torch.int32,
+                          device=cuda)
+    for hi in (500, 2 ** 32):
+        keys, v = fleet_lanes(cfg, t, c, r, cuda, hi)
+        pos = hashing.hash_positions(keys, seeds, cfg.s)
+        seen = tb.intra_batch_seen(keys, v)
+        i_t = position[:, None] + torch.arange(c, dtype=torch.int32,
+                                               device=cuda)
+        rng, rnd = tb.draw_randomness(cfg, rng, c)
+        got = words.clone()
+        before = bitset_step.launches
+        dup, ins, new_load = bitset_step(cfg, got, pos, rnd, v, seen, i_t,
+                                         load)
+        new, dup_p, ins_p, load_p = bitset_step_plain(cfg, words, pos, rnd,
+                                                      v, seen, i_t, load)
+        torch.cuda.synchronize()
+        assert bitset_step.launches == before + 1
+        assert torch.equal(got, new) and torch.equal(new_load, load_p)
+        assert torch.equal(dup, dup_p) and torch.equal(ins, ins_p)
+        assert torch.equal(new_load, packed.popcount(got))
+        words, load = got, new_load
+        position = position + v.sum(dim=1, dtype=torch.int32)
