@@ -6,23 +6,24 @@
 Builds the port's CUDA kernels from the sources in this checkout (one
 ``nvcc`` per source, all at once), holds each against its plain PyTorch
 version on the card at the paper's 256 MB table — the bitset step for
-rsbf, bsbf, bsbfsd and rlbsbf, the counter step for sbf, sbf at Max 1,
-swbf, cms and hh (sbf at Max 1 at 128 MB: its one plane of 2^31 cells
-would overflow the int32 sentinel), hashmix, bloom_probe and
+rsbf, bsbf, bsbfsd and rlbsbf (hashing its keys in the kernel), the
+counter step for sbf, sbf at Max 1, swbf, cms and
+hh (sbf at Max 1 at 128 MB: its one plane of 2^31 cells would overflow
+the int32 sentinel), hashmix (both layouts), bloom_probe, fused_probe and
 scatter_delta — and reproduces the reference's seven pinned digests on
-CUDA. Then it drives three paths
-over one 2^24-record stream at the paper's 60% distinct fraction, batch
-8192, each with the launch counts set to 0 just before and read just
-after:
+CUDA. Then it drives three paths over one 2^24-record stream at the
+paper's 60% distinct fraction, batch 8192, each with the launch counts set
+to 0 just before and read just after:
 
-* rlbsbf on the 256 MB table (k = 2, s = 2^30 bits per row): hashmix and
-  the bitset step;
+* rlbsbf on the 256 MB table (k = 2, s = 2^30 bits per row): the bitset
+  step, which hashes its keys itself (no hashmix launch);
 * sbf, the paper's baseline, on the 256 MB table (k = 3, Max 3, 2^30
   two-bit cells): hashmix and the counter step, then one ``estimate`` and
   one ``top_cells``;
 * a classic Bloom filter through ``kernels/ops.py`` on the rlbsbf table's
-  shape, over the stream's first 2^21 records: hashmix, bloom_probe and
-  scatter_delta.
+  shape, over the stream's first 2^21 records: fused_probe (one launch per
+  batch) and scatter_delta, then a pass that checks every key is held
+  with ``hash_positions`` (hashmix) and ``probe`` (bloom_probe).
 
 Then the tenant fleets (DESIGN §4.6): 32 tenants of 8 MB each (the paper's
 smallest table per tenant, 256 MiB stacked). Its "fleet" phase holds both
@@ -33,23 +34,29 @@ per-tenant thresholds, and hh), and two paths run ``FleetDedup.run_stream``
 over the stream's first 2^23 records with tenant ids drawn uniformly from a
 seeded generator (capacity 512 per tenant and step):
 
-* fleet-rlbsbf-32x8MB: rlbsbf, k = 2, s = 2^25 per row;
+* fleet-rlbsbf-32x8MB: rlbsbf, k = 2, s = 2^25 per row (no hashmix);
 * fleet-sbf-32x8MB-hetero: sbf on planes, d = 2, per-tenant Max 3 and 2.
 
-Last it times each kernel beside its bound, and the fleet forms, and
-profiles a step of each engine and fleet path. Every phase fails the run; the last line of standard output
-is ``{"ok": true, "device": {...}}`` only when all of them passed. Without
-a CUDA device, or without the ``src/repro_torch`` package beside this
-file, it exits non-zero and prints no result.
+Last it times each kernel beside its bound and the card's latency floor
+(an empty launch, and 1 - 3 dependent scattered loads per thread), and
+profiles a step of each engine and fleet path. Every phase fails the run;
+the last line of standard output is ``{"ok": true, "device": {...}}``
+only when all of them passed. Without a CUDA device, or without the
+``src/repro_torch`` package beside this file, it exits non-zero and
+prints no result.
 
     python3 chip_smoke.py --parent DIR
 
-also builds an earlier design of the two step kernels from ``DIR``'s
-``bitset_step.cu`` and ``counter_step.cu`` (the bitset step with today's C
-interface; the counter step over compacted run-head operands, its
-wrapper's glue rebuilt here) and times it against the current one on the
-same inputs, in turns (earlier, current, current, earlier), each kernel's
-device time split by launch and its wrapper's back-to-back time.
+also builds an earlier design of hashmix, bloom_probe and the bitset step
+from ``DIR``'s ``hashmix.cu``, ``bloom_probe.cu`` and ``bitset_step.cu``
+(with ``DIR``'s own headers, if it has any; the C interfaces of the
+commit before the hash moved into the kernels) and times it against the
+current one on the same inputs, in turns (earlier, current, current,
+earlier), the L2 flushed before each: the earlier hashmix plus bitset
+step against the step that hashes its keys, for one filter and for the
+fleet; the earlier
+``fused_probe`` chain (hashmix, split, bloom_probe, AND) against the one
+launch; the standalone hashmix and bloom_probe, old against new.
 """
 
 from __future__ import annotations
@@ -57,6 +64,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import dataclasses
+import functools
 import hashlib
 import json
 import os
@@ -95,8 +103,7 @@ COUNTER = ("sbf", "sbf_d1", "swbf", "cms", "hh")
 # each step kernel's device kernels, as the profiler names them
 BITSET_KERNELS = ("probe_decide", "apply_deletes", "apply_inserts")
 COUNTER_KERNELS = ("counter_probe_partition", "counter_merge_apply")
-PARENT_KERNELS = {"bitset_step": BITSET_KERNELS,
-                  "counter_step": ("counter_probe_decide", "counter_apply")}
+PARENT_SOURCES = ("hashmix", "bloom_probe", "bitset_step")
 
 
 T0 = time.perf_counter()
@@ -132,8 +139,9 @@ def abs_err(a, b) -> int:
 
 
 def step_inputs(cfg, state, keys, valid, partitionable=True):
-    """What the engine's step hands the bitset kernel for one batch, and
-    the key the step leaves behind."""
+    """The bitset step's operands for one batch as its plain version takes
+    them (pos, rnd, valid, seen, i_t), the key the step leaves behind, and
+    the keys, which the kernel takes in place of ``pos``."""
     import torch
     from repro_torch.core import batched, hashing, u32
     from repro_torch.kernels.hashmix import hashmix_plain
@@ -147,7 +155,24 @@ def step_inputs(cfg, state, keys, valid, partitionable=True):
                                         device=dev)
     rng, rnd = batched.draw_randomness(cfg, state.rng, len(keys),
                                        partitionable)
-    return rng, (pos, rnd, valid, seen, i_t)
+    return rng, (pos, rnd, valid, seen, i_t), kw
+
+
+@functools.lru_cache(maxsize=None)
+def host_seeds(cfg):
+    """A config's probe and block seeds, as its steps hold them (on the
+    host), made once."""
+    from repro_torch.core import batched
+    return batched._seeds(cfg)
+
+
+def hashed(step_cfg, words, kw, args, load):
+    """The bitset step on ``step_inputs``' operands, as the engine runs it:
+    the kernel hashes ``kw`` itself (``args`` lose their positions)."""
+    from repro_torch.kernels.fused_template import bitset_step
+    seeds, bseeds = host_seeds(step_cfg)
+    return bitset_step(step_cfg, words, kw, *args[1:], load, seeds=seeds,
+                       block_seeds=bseeds)
 
 
 def random_state(cfg, rng, position: int):
@@ -204,7 +229,7 @@ def counter_inputs(cfg, spec, state, keys, valid):
     import torch
     from repro_torch.core import batched, hashing, u32
     dev = state.bits.device
-    seeds = u32.from_numpy_u32(hashing.derive_seeds(cfg.seed, cfg.k), dev)
+    seeds, _ = host_seeds(cfg)
     kw = u32.from_numpy_u32(keys, dev)
     v = torch.as_tensor(valid, device=dev)
     pos = hashing.hash_positions(kw, seeds, cfg.s)
@@ -283,13 +308,16 @@ def phase_counter(rng):
 
 
 def phase_ops(rng):
-    """bloom_probe and scatter_delta (OR and AND-NOT; disabled lanes as -1
-    and as >= W) against their plain versions at k = 2, W = 2^25,
-    B = 8192; -> the largest differences (probe, scatter)."""
+    """bloom_probe, scatter_delta (OR and AND-NOT; disabled lanes as -1
+    and as >= W) and fused_probe against their plain versions at k = 2,
+    W = 2^25, B = 8192; -> the largest differences (probe, scatter,
+    fused_probe)."""
     import torch
-    from repro_torch.core import u32
+    from repro_torch.core import hashing, packed, u32
     from repro_torch.kernels import ops
-    from repro_torch.kernels.bloom_probe import bloom_probe_plain
+    from repro_torch.kernels.bloom_probe import (bloom_probe_plain,
+                                                 fused_probe_plain)
+    from repro_torch.kernels.hashmix import hashmix_plain
     from repro_torch.kernels.scatter_delta import scatter_delta_plain
     k, w = 2, 1 << 25
     words = u32.from_numpy_u32(rng.integers(0, 2 ** 32, (k, w),
@@ -306,6 +334,24 @@ def phase_ops(rng):
         raise AssertionError("bloom_probe != plain")
     log(f"[ops] bloom_probe k={k} W={w} B={BATCH}: hits={int(hits.sum())}, "
         f"exactly equal to the plain version")
+    # fused_probe on the same filter, its keys half of them planted: a
+    # probed key's bits set in both rows
+    seeds = u32.from_numpy_u32(hashing.derive_seeds(SEED, k), "cpu")
+    s = 32 * w
+    keys = u32.from_numpy_u32(rng.integers(0, 2 ** 32, BATCH,
+                                           dtype=np.uint64), "cuda")
+    pw, pm = packed.split_pos(hashmix_plain(keys[:BATCH // 2],
+                                            seeds.cuda(), s))
+    fwords = ops.scatter_or(words, pw, pm)
+    got = ops.fused_probe(keys, fwords, seeds, s)
+    want = fused_probe_plain(keys, fwords, seeds.cuda(), s)
+    torch.cuda.synchronize()
+    fused_err = max(abs_err(x, y) for x, y in zip(got, want))
+    if not all(torch.equal(x, y) for x, y in zip(got, want)):
+        raise AssertionError("fused_probe != plain chain")
+    log(f"[ops] fused_probe k={k} s={s} B={BATCH}: dup={int(got[0].sum())} "
+        f"(the first {BATCH // 2} keys planted), exactly equal to the "
+        f"plain chain (hashmix, split, bloom_probe, AND)")
     off = torch.from_numpy(rng.random((BATCH, k)) < 0.2).cuda()
     for disabled in (-1, w, w + 12345):
         di = torch.where(off, disabled, idx).to(torch.int32).contiguous()
@@ -324,39 +370,65 @@ def phase_ops(rng):
             f"{int((got_or != words).sum())} / "
             f"{int((got_andnot != words).sum())} words changed, exactly "
             f"equal to the plain version")
-    return probe_err, scatter_err
+    return probe_err, scatter_err, fused_err
 
 
 def phase_hashmix(rng):
+    """hashmix against its plain version at B = 8192: the sbf path's k and
+    s at 256 MB (the shape that path feeds it), rlbsbf's and rsbf's (mask
+    and mod), k = 4 and 8, and the blocked layout in one launch against the
+    formula of two plain calls."""
     import torch
     from repro_torch.core import DedupConfig, hashing, u32
-    from repro_torch.kernels.hashmix import hashmix, hashmix_plain
+    from repro_torch.kernels.hashmix import (hashmix, hashmix_plain,
+                                             positions_plain)
     worst = 0
+    keys = u32.from_numpy_u32(
+        rng.integers(0, 2 ** 32, BATCH, dtype=np.uint64), "cuda")
+    sbf_cfg = config("sbf", memory_bits=MEMORY_BITS)
+    cases = [(sbf_cfg.k, sbf_cfg.s, sbf_cfg.block_bits)]
     for variant in ("rlbsbf", "rsbf"):
         cfg = DedupConfig.for_variant(variant, memory_bits=MEMORY_BITS,
                                       packed=True)
-        keys = u32.from_numpy_u32(
-            rng.integers(0, 2 ** 32, BATCH, dtype=np.uint64), "cuda")
-        seeds = u32.from_numpy_u32(hashing.derive_seeds(cfg.seed, cfg.k),
-                                   "cuda")
-        got = hashmix(keys, seeds, s=cfg.s)
-        want = hashmix_plain(keys, seeds, cfg.s)
+        cases.append((cfg.k, cfg.s, 0))
+    cases += [(4, 1 << 30, 0), (8, 715827882, 0), (3, 1 << 30, 9),
+              (2, 715827882, 5)]
+    for k, s, block_bits in cases:
+        seeds = u32.from_numpy_u32(hashing.derive_seeds(SEED, k, 0), "cpu")
+        bseeds = u32.from_numpy_u32(hashing.derive_seeds(SEED, k, 1), "cpu")
+        before = hashmix.launches
+        got = hashmix(keys, seeds, s=s, block_bits=block_bits,
+                      block_seeds=bseeds)
+        if hashmix.launches != before + 1:
+            raise AssertionError("hashmix: expected one launch per call")
+        if block_bits:
+            bsize = 1 << block_bits
+            want = u32.to_i32(
+                hashmix_plain(keys, bseeds.cuda(), max(1, s // bsize)).long()
+                * bsize + hashmix_plain(keys, seeds.cuda(), bsize))
+        else:
+            want = hashmix_plain(keys, seeds.cuda(), s)
         torch.cuda.synchronize()
-        err = int((got.long() - want.long()).abs().max())
-        worst = max(worst, err)
-        if not torch.equal(got, want):
-            raise AssertionError(f"hashmix != plain for k={cfg.k} s={cfg.s}")
-        log(f"[hashmix] k={cfg.k} s={cfg.s} "
-            f"({'mask' if cfg.s & (cfg.s - 1) == 0 else 'mod'}) B={BATCH}: "
+        worst = max(worst, abs_err(got, want))
+        if not (torch.equal(got, want) and torch.equal(
+                want, positions_plain(keys, seeds.cuda(), s, block_bits,
+                                      bseeds.cuda()))):
+            raise AssertionError(f"hashmix != plain for k={k} s={s} "
+                                 f"block_bits={block_bits}")
+        layout = (f"blocked, 2^{block_bits}-bit blocks" if block_bits else
+                  "mask" if s & (s - 1) == 0 else "mod")
+        log(f"[hashmix] k={k} s={s} ({layout}) B={BATCH}: one launch, "
             f"exactly equal to the plain version")
     return worst
 
 
 def phase_bitset(rng):
+    """The bitset step, hashing its keys in the kernel, against the plain
+    hashmix feeding its plain version, for the four variants at 256 MB
+    over a repeated-key, a ragged and a fresh batch each."""
     import torch
     from repro_torch.core import packed
-    from repro_torch.kernels.fused_template import (bitset_step,
-                                                    bitset_step_plain)
+    from repro_torch.kernels.fused_template import bitset_step_plain
     worst = 0
     for variant in BITSET:
         cfg = config(variant, memory_bits=MEMORY_BITS)
@@ -372,11 +444,10 @@ def phase_bitset(rng):
         ]
         for label, keys, valid in batches:
             keys = keys.astype(np.uint32)
-            rng_next, args = step_inputs(cfg, state, keys, valid)
+            rng_next, args, kw = step_inputs(cfg, state, keys, valid)
             pos, rnd, v, seen, i_t = args
             words = state.bits.clone()
-            dup, ins, load = bitset_step(cfg, words, pos, rnd, v, seen, i_t,
-                                         state.load)
+            dup, ins, load = hashed(cfg, words, kw, args, state.load)
             new, dup_p, ins_p, load_p = bitset_step_plain(
                 cfg, state.bits, pos, rnd, v, seen, i_t, state.load)
             torch.cuda.synchronize()
@@ -389,8 +460,8 @@ def phase_bitset(rng):
             n_ins = int(ins.sum())
             log(f"[bitset] {variant} k={cfg.k} s={cfg.s} {label}: "
                 f"dup={int(dup.sum())} inserted={n_ins} "
-                f"load={load.tolist()} words differing={diff} -> "
-                f"{'exactly equal' if ok else 'MISMATCH'}")
+                f"load={load.tolist()} words differing={diff}; hashed in "
+                f"the kernel -> {'exactly equal' if ok else 'MISMATCH'}")
             if not ok:
                 raise AssertionError(f"bitset step != plain: {variant} "
                                      f"{label}")
@@ -479,8 +550,12 @@ def phase_main_path(keys, truth):
             and int(state.position) == STREAM_N + 1
             and 0.0 <= fpr < 0.05 and 0.0 <= fnr < 0.5):
         raise AssertionError("main path result out of bounds")
-    if min(launches.values()) < 1:
-        raise AssertionError(f"a kernel of the main path never ran: "
+    # the bitset kernel hashes its keys itself: one launch per step, and
+    # no hashmix
+    n_steps = -(-STREAM_N // BATCH)
+    if launches != {"hashmix": 0, "bitset_step": n_steps}:
+        raise AssertionError(f"main path: expected no hashmix and one "
+                             f"bitset_step per step ({n_steps}), got "
                              f"{launches}")
     return cfg, state, launches, secs
 
@@ -525,8 +600,10 @@ def phase_sbf_path(keys, truth):
             and int(state.position) == STREAM_N + 1
             and 0.0 <= fpr < 0.05 and 0.0 <= fnr < 0.5):
         raise AssertionError("sbf path result out of bounds")
-    if min(launches.values()) < 1:
-        raise AssertionError(f"a kernel of the sbf path never ran: "
+    n_steps = -(-STREAM_N // BATCH)
+    if launches != {"hashmix": n_steps, "counter_step": n_steps}:
+        raise AssertionError(f"sbf path: expected one hashmix and one "
+                             f"counter_step per step ({n_steps}), got "
                              f"{launches}")
     est = eng.estimate(state, keys[-BATCH:])
     cells, counts = eng.top_cells(state, 16)
@@ -547,25 +624,28 @@ def phase_sbf_path(keys, truth):
 def phase_ops_path(keys, truth):
     """A classic Bloom filter through ``kernels/ops.py``, as a user of
     those entry points builds one: k = 2 rows of 2^30 bits (the rlbsbf
-    table's shape), each batch probed with ``fused_probe`` and its
-    unreported keys set with ``scatter_or`` (-1 disables a lane). Afterwards
-    every key of the prefix must probe present: a Bloom filter has no false
-    negatives for what it holds."""
+    table's shape), each batch probed with ``fused_probe`` (one launch)
+    and its unreported keys set with ``scatter_or`` (-1 disables a lane).
+    Afterwards every key of the prefix must probe present, checked with
+    ``hash_positions`` and ``probe`` (hashmix and bloom_probe): a Bloom
+    filter has no false negatives for what it holds."""
     import torch
     from repro_torch.core import hashing, packed, u32
     from repro_torch.dedup.metrics import fpr_fnr, truth_from_stream
     from repro_torch.kernels import ops
-    from repro_torch.kernels.bloom_probe import bloom_probe
+    from repro_torch.kernels.bloom_probe import bloom_probe, fused_probe
     from repro_torch.kernels.hashmix import hashmix
     from repro_torch.kernels.scatter_delta import scatter_delta
     cfg = config("rlbsbf", memory_bits=MEMORY_BITS)
-    seeds = u32.from_numpy_u32(hashing.derive_seeds(cfg.seed, cfg.k), "cuda")
+    seeds = u32.from_numpy_u32(hashing.derive_seeds(cfg.seed, cfg.k), "cpu")
     kw = u32.from_numpy_u32(keys[:OPS_N], "cuda")
     words = torch.zeros((cfg.k, cfg.s_words), dtype=torch.int32,
                         device="cuda")
     dups = torch.empty((OPS_N,), dtype=torch.bool, device="cuda")
+    counters = (fused_probe, scatter_delta, hashmix, bloom_probe)
     torch.cuda.synchronize()
-    hashmix.launches = bloom_probe.launches = scatter_delta.launches = 0
+    for c in counters:
+        c.launches = 0
     t0 = time.perf_counter()
     for i in range(0, OPS_N, BATCH):
         dup, _, pos = ops.fused_probe(kw[i:i + BATCH], words, seeds, cfg.s)
@@ -575,13 +655,14 @@ def phase_ops_path(keys, truth):
         dups[i:i + BATCH] = dup
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    launches = {"hashmix": hashmix.launches,
-                "bloom_probe": bloom_probe.launches,
-                "scatter_delta": scatter_delta.launches}
+    held = torch.ones((), dtype=torch.bool, device="cuda")
+    for i in range(0, OPS_N, BATCH):
+        w_idx, mask = packed.split_pos(ops.hash_positions(
+            kw[i:i + BATCH], seeds, cfg.s))
+        held &= (ops.probe(words, w_idx, mask) == 1).all()
+    held = bool(held)
+    launches = {c.__name__: c.launches for c in counters}
     fpr, fnr = fpr_fnr(dups, truth_from_stream(keys[:OPS_N]))
-    held = all(bool(ops.fused_probe(kw[i:i + BATCH], words, seeds,
-                                    cfg.s)[0].all())
-               for i in range(0, OPS_N, BATCH))
     log(f"[ops path] Bloom filter k={cfg.k} s={cfg.s} batch={BATCH} over "
         f"{OPS_N} records: {OPS_N / secs:.1f} elements/s (host clock); "
         f"FPR={fpr:.6g} FNR={fnr:.6g} (a key repeated inside its own batch "
@@ -590,9 +671,10 @@ def phase_ops_path(keys, truth):
         f"{held}; kernel launches: {launches}")
     if not (held and 0.0 <= fpr < 0.05):
         raise AssertionError("ops path result out of bounds")
-    if min(launches.values()) < 1:
-        raise AssertionError(f"a kernel of the ops path never ran: "
-                             f"{launches}")
+    n_batches = OPS_N // BATCH
+    if launches != dict.fromkeys(launches, n_batches):
+        raise AssertionError(f"ops path: expected one launch of each kernel "
+                             f"per batch ({n_batches}), got {launches}")
     return launches
 
 
@@ -626,27 +708,32 @@ def fleet_slots(rng, hi, frac):
 
 
 def fleet_kernel_inputs(cfg, spec, state, slot_keys, slot_valid):
-    """What the fleet step hands its kernel for one (T, C) slot grid, and
-    the keys the step leaves behind: the bitset step's or the counter
-    step's operands, built by the port's own functions."""
+    """What the fleet step hands its kernel for one (T, C) slot grid, the
+    keys the step leaves behind, and the slot keys: the bitset step's
+    operands as its plain version takes them (positions from the plain
+    hashmix; the kernel takes the keys instead) or the counter step's
+    operands, built by the port's own functions."""
     import torch
     from repro_torch.core import batched, hashing, u32
-    seeds = u32.from_numpy_u32(hashing.derive_seeds(cfg.seed, cfg.k), "cuda")
+    from repro_torch.kernels.hashmix import hashmix_plain
+    seeds, _ = batched._seeds(cfg)
     kw = u32.as_words(slot_keys, "cuda")
     v = torch.as_tensor(slot_valid, device="cuda")
     c = v.shape[1]
-    pos = hashing.hash_positions(kw, seeds, cfg.s)
     if spec.family == "bitset":
+        pos = hashmix_plain(kw.reshape(-1), seeds.cuda(), cfg.s).view(
+            *kw.shape, cfg.k)
         seen = batched.intra_batch_seen(kw, v)
         i_t = state.position[:, None] + torch.arange(c, dtype=torch.int32,
                                                      device="cuda")
         rng, rnd = batched.draw_randomness(cfg, state.rng, c)
-        return rng, (pos, rnd, v, seen, i_t)
+        return rng, (pos, rnd, v, seen, i_t), kw
+    pos = hashing.hash_positions(kw, seeds, cfg.s)
     seen = batched.intra_batch_seen(kw, v) if spec.uses_seen else None
     rng, rnd = (spec.draw(cfg, state.rng, c) if spec.draw
                 else (state.rng, None))
     return rng, (pos, v, seen, state.load,
-                 spec.make_events(cfg)(state, pos, v, rnd))
+                 spec.make_events(cfg)(state, pos, v, rnd)), kw
 
 
 def random_fleet_state(cfg, rng, position: int):
@@ -701,7 +788,7 @@ def phase_fleet(rng):
     from repro_torch.core import batched, packed
     from repro_torch.core.sketch import get_spec
     from repro_torch.kernels.fused_template import (
-        bitset_step, bitset_step_plain, counter_step, counter_step_plain)
+        bitset_step_plain, counter_step, counter_step_plain)
     grids = [("repeated keys", 300, 0.9), ("ragged valid", 2 ** 32, 0.6),
              ("fresh keys", 2 ** 32, 1.0)]
     worst_b = worst_c = 0
@@ -710,10 +797,10 @@ def phase_fleet(rng):
         spec = get_spec(variant)
         state = random_fleet_state(cfg, rng, cfg.s - 4000)
         for label, hi, frac in grids:
-            rng_next, args = fleet_kernel_inputs(cfg, spec, state,
-                                                 *fleet_slots(rng, hi, frac))
+            rng_next, args, kw = fleet_kernel_inputs(
+                cfg, spec, state, *fleet_slots(rng, hi, frac))
             words = state.bits.clone()
-            dup, ins, load = bitset_step(cfg, words, *args, state.load)
+            dup, ins, load = hashed(cfg, words, kw, args, state.load)
             new, dup_p, ins_p, load_p = bitset_step_plain(
                 cfg, state.bits, *args, state.load)
             torch.cuda.synchronize()
@@ -742,8 +829,8 @@ def phase_fleet(rng):
         knobs = fleet_knobs(cfg)
         state = random_fleet_state(cfg, rng, 5000)
         for label, hi, frac in grids:
-            rng_next, args = fleet_kernel_inputs(cfg, spec, state,
-                                                 *fleet_slots(rng, hi, frac))
+            rng_next, args, _ = fleet_kernel_inputs(
+                cfg, spec, state, *fleet_slots(rng, hi, frac))
             pos, v, seen, load_in, ev = args
             planes = batched.fleet_planes(state.bits)
             got = planes.clone()
@@ -796,8 +883,9 @@ def fleet_stream(keys):
 
 def phase_fleet_path(name, keys, tenants, truth):
     """A 32 x 8 MB fleet over the mixed stream through
-    ``FleetDedup.run_stream``: one hashmix and one step launch per fleet
-    step, overflow 0, FPR and FNR per (tenant, key), each tenant's load
+    ``FleetDedup.run_stream``: one step launch per fleet step (and one
+    hashmix on the counter path; the bitset kernel hashes itself),
+    overflow 0, FPR and FNR per (tenant, key), each tenant's load
     equal to its popcount and its position to its lane count."""
     import torch
     from repro_torch.core import batched, packed
@@ -854,9 +942,10 @@ def phase_fleet_path(name, keys, tenants, truth):
     if not (dup.shape == (FLEET_N,) and exact and placed and overflow == 0
             and 0.0 <= fpr < 0.05 and 0.0 <= fnr < 0.5):
         raise AssertionError(f"{tag} result out of bounds")
-    if launches != {"hashmix": n_steps, step_name: n_steps}:
-        raise AssertionError(f"{tag}: expected one launch of each kernel "
-                             f"per fleet step ({n_steps}), got {launches}")
+    want = {"hashmix": n_steps if cfg.is_counter else 0, step_name: n_steps}
+    if launches != want:
+        raise AssertionError(f"{tag}: expected launches {want} (one step "
+                             f"per fleet step), got {launches}")
     return fleet, state, launches
 
 
@@ -865,9 +954,10 @@ def bitset_step_bytes(cfg, words, pos, rnd, v, seen, i_t, load) -> int:
     needs read once, each output written once, each filter word it must
     probe or update read once and each word it updates written once. What
     it needs depends on the data, so the decisions come from the plain
-    decide: pos only for valid lanes, the variant's draws only where the
-    decide reads them, del_pos only for enabled deletes. A fleet's operands
-    (leading tenant axis) sum over its tenants, whose words are disjoint."""
+    decide at the positions ``pos``: the key only for valid lanes, the
+    variant's draws only where the decide reads them, del_pos only for
+    enabled deletes. A fleet's operands (leading tenant axis) sum over its
+    tenants, whose words are disjoint."""
     import torch
     from repro_torch.core import batched, packed
     if words.dim() == 3:
@@ -891,7 +981,7 @@ def bitset_step_bytes(cfg, words, pos, rnd, v, seen, i_t, load) -> int:
              "bsbf": 0,
              "bsbfsd": 4 * n_ins,           # which
              "rlbsbf": 4 * k * n_ins}[cfg.variant]   # u_aux
-    inputs = 4 * k * n_valid + 2 * b + 4 * k + 4 * int(del_mask.sum())
+    inputs = 4 * n_valid + 2 * b + 4 * k + 4 * int(del_mask.sum())
     outputs = 2 * b + 4 * k                 # dup, inserted, load
     return inputs + draws + outputs + 4 * (n_read + n_written)
 
@@ -945,44 +1035,162 @@ def bound(nbytes: float, ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def build_parent(parent_dir: str) -> dict:
-    """The earlier design's two step kernels, built from ``parent_dir``'s
-    ``bitset_step.cu`` and ``counter_step.cu`` with the port's nvcc flags
-    (both compiles at once) into ``build/parent_kernels/``; -> {name: C
-    entry point with its signature set}."""
+# the card's latency floor: an empty launch, and chains of dependent
+# scattered loads (the next address taken from the loaded value) over a
+# 256 MiB buffer, one thread per element — measurement code, not part of
+# the package
+LATENCY_SRC = r"""
+#include <cstdint>
+#include <cuda_runtime.h>
+
+__global__ void empty_kernel() {}
+
+__global__ void chase_kernel(const uint32_t* __restrict__ buf, uint32_t mask,
+                             uint32_t* __restrict__ out, int n, int depth,
+                             uint32_t salt) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  uint32_t x = (static_cast<uint32_t>(i) ^ salt) * 0x9E3779B1u;
+  for (int d = 0; d < depth; ++d) {
+    x ^= x >> 15;
+    x *= 0x85EBCA6Bu;
+    x ^= x >> 13;
+    x += buf[x & mask];
+  }
+  out[i] = x;
+}
+
+extern "C" int empty_launch(int blocks, int threads, void* stream) {
+  empty_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int chase_launch(const void* buf, uint32_t mask, void* out, int n,
+                            int depth, uint32_t salt, void* stream) {
+  chase_kernel<<<(n + 255) / 256, 256, 0,
+                 static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(buf), mask, static_cast<uint32_t*>(out),
+      n, depth, salt);
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+# (launches, dependent DRAM round trips on the longest chain) per call of
+# each timed kernel, read from its source: hashmix the key load; the
+# probes the operand (or key) load, then the gathers; the bitset step's
+# probe (key, then word), deletes (row mask, position, atomicAnd) and
+# inserts (flag and key together, then atomicOr); the counter step's first launch the partition's three search
+# rounds, its second the tile start, the staged lists and the owners'
+# plane words; scatter_delta the zero fill, then operands and atomicOr
+FLOOR_DEPTH = {"hashmix": (1, 1), "bloom_probe": (1, 2),
+               "fused_probe": (1, 2), "bitset_step": (3, 7),
+               "bitset_step_fleet": (3, 7), "counter_step": (2, 6),
+               "counter_step_params_aware": (2, 6),
+               "scatter_delta": (2, 2)}
+
+
+def start_nvcc(src: str, so: str, include: str):
+    """One ``nvcc`` of ``src`` into ``so`` with the port's flags, started
+    (not waited for)."""
     from repro_torch.kernels import build
-    out = os.path.join(ROOT, "build", "parent_kernels")
+    os.makedirs(os.path.dirname(so), exist_ok=True)
+    return subprocess.Popen(
+        [build._nvcc(), *build.NVCC_FLAGS, "-I", include, "-o", so, src],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def finish_nvcc(proc, so: str, what: str) -> ctypes.CDLL:
+    text, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {what}:\n{text}")
+    return ctypes.CDLL(so)
+
+
+def start_extra_builds(parent_dir):
+    """The latency-floor kernels, and with ``parent_dir`` the earlier
+    hashmix, bloom_probe and bitset step (each with ``parent_dir``'s own
+    headers, if it has any), all compiled at once into ``build/``."""
+    out = os.path.join(ROOT, "build", "chip_smoke")
     os.makedirs(out, exist_ok=True)
-    jobs = {}
-    for name in ("bitset_step", "counter_step"):
-        so = os.path.join(out, f"{name}.so")
-        jobs[name] = so, subprocess.Popen(
-            [build._nvcc(), *build.NVCC_FLAGS, "-o", so,
-             os.path.join(parent_dir, f"{name}.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    src = os.path.join(out, "latency_floor.cu")
+    with open(src, "w") as f:
+        f.write(LATENCY_SRC)
+    jobs = {"latency_floor": (start_nvcc(src, os.path.join(
+        out, "latency_floor.so"), out), os.path.join(out,
+                                                      "latency_floor.so"))}
+    for name in PARENT_SOURCES if parent_dir else ():
+        so = os.path.join(out, f"parent_{name}.so")
+        jobs[name] = start_nvcc(os.path.join(parent_dir, f"{name}.cu"), so,
+                                parent_dir), so
+    return jobs
+
+
+def finish_extra_builds(jobs) -> tuple:
+    """-> (the latency-floor library, {name: the earlier C entry point with
+    its signature set} or None)."""
+    libs = {name: finish_nvcc(proc, so, name)
+            for name, (proc, so) in jobs.items()}
+    floor = libs.pop("latency_floor")
     p, i = ctypes.c_void_p, ctypes.c_int
+    floor.empty_launch.argtypes = [i, i, p]
+    floor.chase_launch.argtypes = [p, ctypes.c_uint32, p, i, i,
+                                   ctypes.c_uint32, p]
+    if not libs:
+        return floor, None
     argtypes = {
+        "hashmix": [p, p, p, i, i, ctypes.c_uint32, p],
+        "bloom_probe": [p, p, p, p, i, i, ctypes.c_longlong, p],
         "bitset_step": [p, ctypes.c_longlong, i, i, i] + [p] * 13
-                       + [i, i, ctypes.c_float, ctypes.c_float, p],
-        "counter_step": [p, ctypes.c_longlong, i, i, i, i, p, p, p, i, p, p,
-                         p, p, p, i, p, p, i, i, p, p]}
+                       + [i, i, ctypes.c_float, ctypes.c_float, p]}
     entries = {}
-    for name, (so, proc) in jobs.items():
-        text, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for the earlier {name}.cu:\n"
-                               f"{text}")
-        fn = getattr(ctypes.CDLL(so), f"{name}_launch")
+    for name, lib in libs.items():
+        fn = getattr(lib, f"{name}_launch")
         fn.argtypes, fn.restype = argtypes[name], ctypes.c_int
         entries[name] = fn
-    log(f"[parent] built the earlier bitset_step.cu and counter_step.cu "
-        f"from {parent_dir}")
-    return entries
+    log(f"[parent] built the earlier {', '.join(PARENT_SOURCES)} from "
+        f"{len(entries)} sources")
+    return floor, entries
+
+
+def parent_hashmix(entry, keys, seeds, s):
+    """The earlier hashmix: keys (B,) and seeds (k,) on the card -> (B, k)
+    int32, one thread per (key, row)."""
+    import torch
+    out = torch.empty((keys.shape[0], seeds.shape[0]), dtype=torch.int32,
+                      device=keys.device)
+    err = entry(keys.data_ptr(), seeds.data_ptr(), out.data_ptr(),
+                keys.shape[0], seeds.shape[0], s,
+                torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"earlier hashmix failed: CUDA error {err}")
+    return out
+
+
+def parent_bloom_probe(entry, words, word_idx, bit_mask):
+    """The earlier bloom_probe: one thread per (element, row)."""
+    import torch
+    b, k = word_idx.shape
+    hits = torch.empty((b, k), dtype=torch.uint8, device=words.device)
+    err = entry(words.data_ptr(), word_idx.data_ptr(), bit_mask.data_ptr(),
+                hits.data_ptr(), b, k, words.shape[1],
+                torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"earlier bloom_probe failed: CUDA error {err}")
+    return hits
+
+
+def parent_fused_probe(parent, keys, words, seeds, s):
+    """The earlier ``ops.fused_probe``: hashmix, the eager split,
+    bloom_probe and the AND over the rows."""
+    from repro_torch.core import packed
+    pos = parent_hashmix(parent["hashmix"], keys, seeds, s)
+    hits = parent_bloom_probe(parent["bloom_probe"], words,
+                              *packed.split_pos(pos))
+    return (hits == 1).all(dim=1), hits, pos
 
 
 def parent_bitset_step(entry, cfg, words, pos, rnd, valid, seen, i_t, load):
-    """The earlier bitset wrapper's CUDA branch over ``entry``: the same C
-    interface as today's."""
+    """The earlier bitset wrapper's CUDA branch over ``entry``: positions
+    read from memory."""
     import torch
     from repro_torch.core import batched
     from repro_torch.kernels.fused_template import VARIANT_CODES
@@ -1010,82 +1218,14 @@ def parent_bitset_step(entry, cfg, words, pos, rnd, valid, seen, i_t, load):
     return dup, ins, load_out
 
 
-def parent_head_operands(events, heads, cmax: int, sentinel: int):
-    """The earlier counter wrapper's operand glue: each row's run heads'
-    cells moved to the front (the rest the sentinel) and each head's run
-    length clamped to ``cmax`` (None for set mode's 0)."""
-    import torch
-    from repro_torch.core import packed
-    n = events.shape[-1]
-    lead = events.shape[:-1]
-    keep = heads & (events < sentinel)
-    slot = torch.where(keep, torch.cumsum(keep, -1) - 1, n)
-    cells = torch.full((*lead, n + 1), sentinel, dtype=torch.int32,
-                       device=events.device)
-    cells.scatter_(-1, slot, events.to(torch.int32))
-    if cmax == 0:
-        return cells[..., :n].contiguous(), None
-    _, cnt = packed.clamped_run_counts(events, cmax)
-    counts = torch.zeros((*lead, n + 1), dtype=torch.int32,
-                         device=events.device)
-    counts.scatter_(-1, slot, cnt.to(torch.int32))
-    return cells[..., :n].contiguous(), counts[..., :n].contiguous()
-
-
-def parent_counter_step(entry, cfg, spec, planes, pos, valid, seen, load,
-                        ev, threshold=None, max_value=None):
-    """The earlier counter wrapper's CUDA branch over ``entry``: run-head
-    operands built by eager ops, then two launches."""
-    import torch
-    if planes.dim() == 2:
-        ev1 = ev._replace(ring_payload=None, **{
-            f: getattr(ev, f)[None] for f in ("sub_events", "sub_heads",
-                                              "ins_events", "ins_heads")
-            if getattr(ev, f) is not None})
-        dup, new_load = parent_counter_step(
-            entry, cfg, spec, planes[None], pos[None], valid[None],
-            None if seen is None else seen[None], load[None], ev1,
-            None if threshold is None else threshold.reshape(1),
-            None if max_value is None else max_value.reshape(1))
-        return dup[0], new_load[0]
-    t, d, w = planes.shape
-    dev = planes.device
-    if threshold is None:
-        threshold = torch.full((t,), cfg.count_threshold, dtype=torch.int32,
-                               device=dev)
-    if max_value is None:
-        max_value = torch.full((t,), cfg.sbf_max, dtype=torch.int32,
-                               device=dev)
-    sentinel = 32 * w
-    set_mode = spec.combine == "set"
-    sub_cells = sub_counts = None
-    if spec.has_sub:
-        sub_cells, sub_counts = parent_head_operands(
-            ev.sub_events, ev.sub_heads,
-            cfg.sbf_max if set_mode else (1 << d) - 1, sentinel)
-    ins_cells, ins_counts = parent_head_operands(
-        ev.ins_events, ev.ins_heads, 0 if set_mode else (1 << d) - 1,
-        sentinel)
-    dup = torch.empty(valid.shape, dtype=torch.bool, device=dev)
-    load_out = load.clone()
-
-    def ptr(x):
-        return None if x is None else x.data_ptr()
-
-    err = entry(planes.data_ptr(), w, d, t, pos.shape[1], cfg.k,
-                pos.data_ptr(), valid.data_ptr(),
-                ptr(seen if spec.uses_seen else None),
-                int(spec.probe == "value"),
-                ptr(threshold if spec.thresholded else None),
-                load_out.data_ptr(), dup.data_ptr(), ptr(sub_cells),
-                ptr(sub_counts),
-                0 if sub_cells is None else sub_cells.shape[1],
-                ins_cells.data_ptr(), ptr(ins_counts), ins_cells.shape[1],
-                int(set_mode), ptr(max_value),
-                torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"earlier counter_step failed: CUDA error {err}")
-    return dup, load_out
+def parent_hashed_bitset_step(parent, cfg, seeds, words, kw, args, load):
+    """The earlier engine's bitset step: a hashmix launch over the keys
+    (``seeds`` on the card), then the step from the positions it
+    stored."""
+    pos = parent_hashmix(parent["hashmix"], kw.reshape(-1), seeds,
+                         cfg.s).view(*kw.shape, cfg.k)
+    return parent_bitset_step(parent["bitset_step"], cfg, words, pos,
+                              *args[1:], load)
 
 
 _FLUSH = []
@@ -1180,12 +1320,13 @@ def chained(step, state_words, load):
 
 
 def fleet_batches(fleet, state, more, tenants):
-    """The 16 timing batches as a fleet's kernel operands, each built on
-    the state the step before it left, with their summed (bytes, ops)."""
+    """The 16 timing batches as a fleet's kernel operands (the bitset
+    step's with their slot keys), each built on the state the step before
+    it left, with their summed (bytes, ops)."""
     import torch
     from repro_torch.core import batched, u32
     from repro_torch.core.sketch import get_spec
-    from repro_torch.kernels.fused_template import bitset_step, counter_step
+    from repro_torch.kernels.fused_template import counter_step
     cfg = fleet.cfg
     spec = get_spec(cfg.variant)
     p = fleet.params
@@ -1197,12 +1338,13 @@ def fleet_batches(fleet, state, more, tenants):
         slot_keys, slot_valid, *_ = fleet.route(
             u32.from_numpy_u32(more[sl], "cuda"),
             torch.from_numpy(tenants[sl]).cuda(), v)
-        rng, args = fleet_kernel_inputs(cfg, spec, st, slot_keys, slot_valid)
+        rng, args, kw = fleet_kernel_inputs(cfg, spec, st, slot_keys,
+                                            slot_valid)
         if spec.family == "bitset":
             nbytes += bitset_step_bytes(cfg, st.bits, *args, st.load)
-            nops += FLEET_T * FLEET_CAPACITY * (8 * cfg.k + 10)
-            _, _, load = bitset_step(cfg, st.bits, *args, st.load)
-            inputs.append(args)
+            nops += FLEET_T * FLEET_CAPACITY * (18 * cfg.k + 10)
+            _, _, load = hashed(cfg, st.bits, kw, args, st.load)
+            inputs.append((args, kw))
         else:
             nb, no = counter_step_bytes(cfg, spec, *args)
             nbytes, nops = nbytes + nb, nops + no
@@ -1217,27 +1359,69 @@ def fleet_batches(fleet, state, more, tenants):
     return inputs, nbytes, nops
 
 
-def phase_timings(cfg, state, sbf_cfg, sbf_state, card, fleets,
+def latency_floor(lib, card, n_b: int) -> dict:
+    """The card's latency floor, by the kernels' own method (torch.profiler
+    device time over ``n_b`` calls, the L2 flushed first): an empty kernel
+    at 64 blocks of 256 threads (the launch floor), and one thread per
+    element (B·k = 16,384) doing 1, 2 and 3 dependent scattered loads over
+    a 256 MiB buffer; a DRAM round trip is the slope over the depth."""
+    import torch
+    words = 1 << 26
+    buf = torch.randint(-2 ** 31, 2 ** 31, (words,), dtype=torch.int32,
+                        device="cuda")
+    n = 2 * BATCH
+    out = torch.empty((n,), dtype=torch.int32, device="cuda")
+
+    def stream():
+        return torch.cuda.current_stream().cuda_stream
+
+    def empty():
+        return lambda i: lib.empty_launch(64, 256, stream())
+
+    def chase(depth):
+        return lambda: lambda i: lib.chase_launch(
+            buf.data_ptr(), words - 1, out.data_ptr(), n, depth,
+            7919 * i + depth, stream())
+
+    launch, how = timed(empty, n_b, ("empty_kernel",))
+    chain = [timed(chase(d), n_b, ("chase_kernel",))[0] for d in (1, 2, 3)]
+    trip = (chain[2] - chain[0]) / 2
+    log(f"[floor] empty kernel (64 x 256 threads): {launch:.6f} ms ({how}); "
+        f"{n} threads, 1 / 2 / 3 dependent scattered loads over 256 MiB: "
+        + " / ".join(f"{x:.6f}" for x in chain)
+        + f" ms; one DRAM round trip {trip:.6f} ms ({card})")
+    del buf, out
+    return {"launch": launch, "trip": trip, "chain": chain}
+
+
+def phase_timings(cfg, state, sbf_cfg, sbf_state, card, fleets, floor_lib,
                   parent=None):
     """Per-kernel device times on 16 fresh batches past the main stream,
     each step launch on the filter the one before it left, as the stream
     runs: the kernels' own rows of a torch.profiler trace, the plain
-    versions' device kernels on the same inputs, and the bound from what
-    these batches need. hashmix, the bitset step, bloom_probe and
-    scatter_delta run at the rlbsbf table's shapes (k = 2, W = 2^25), the
-    counter step at sbf's; the fleet forms at the fleet paths' 32 x 8 MB,
-    each batch routed by the fleet (``fleets``: the two paths' fleets and
-    final states). With ``parent`` (``build_parent``'s entries) the two
-    step kernels in both forms are also timed against the earlier design,
-    in turns. Each part's seconds are logged as it ends."""
+    versions' device kernels on the same inputs, the bound from what these
+    batches need, and the latency floor of each kernel's launches and
+    dependent round trips (``FLOOR_DEPTH``). Each kernel runs at the
+    shapes of the path that carries it: hashmix and the counter step at the
+    sbf table's (k = 3, s = 2^30), the bitset step at the rlbsbf table's
+    and bloom_probe, fused_probe and scatter_delta at the ops path's (both
+    k = 2, W = 2^25); the fleet forms at the fleet paths' 32 x 8 MB, each
+    batch routed by the fleet (``fleets``: the two paths' fleets and final
+    states). With ``parent`` (the earlier entry points) also, in turns: the
+    earlier hashmix plus bitset step against the step that hashes, for one
+    filter and for the fleet, the earlier fused_probe chain against the one launch, and the
+    standalone hashmix and bloom_probe. Each part's seconds are logged as
+    it ends."""
     import torch
-    from repro_torch.core import batched, hashing, packed, u32
+    from repro_torch.core import batched, packed, u32
     from repro_torch.core.sketch import get_spec
     from repro_torch.data.streams import controlled_distinct_stream
-    from repro_torch.kernels.bloom_probe import bloom_probe, \
-        bloom_probe_plain
+    from repro_torch.kernels.bloom_probe import (bloom_probe,
+                                                 bloom_probe_plain,
+                                                 fused_probe,
+                                                 fused_probe_plain)
     from repro_torch.kernels.fused_template import (
-        bitset_step, bitset_step_plain, counter_step, counter_step_plain)
+        bitset_step_plain, counter_step, counter_step_plain)
     from repro_torch.kernels.hashmix import hashmix, hashmix_plain
     from repro_torch.kernels.scatter_delta import (scatter_delta,
                                                    scatter_delta_plain)
@@ -1252,15 +1436,18 @@ def phase_timings(cfg, state, sbf_cfg, sbf_state, card, fleets,
                                          seed=SEED + 1)
     batches = [more[i * BATCH:(i + 1) * BATCH] for i in range(n_b)]
     valid = np.ones(BATCH, bool)
-    seeds = u32.from_numpy_u32(hashing.derive_seeds(cfg.seed, k), "cuda")
+    seeds, _ = batched._seeds(cfg)
+    seeds_dev = seeds.cuda()
+    sbf_seeds, _ = batched._seeds(sbf_cfg)
+    sbf_seeds_dev, sbf_k = sbf_seeds.cuda(), sbf_cfg.k
     keys = [u32.from_numpy_u32(x, "cuda") for x in batches]
     inputs, nbytes = [], 0
     st = state._replace(bits=state.bits.clone())
     for x in batches:
-        rng, args = step_inputs(cfg, st, x, valid)
+        rng, args, kw = step_inputs(cfg, st, x, valid)
         nbytes += bitset_step_bytes(cfg, st.bits, *args, st.load)
         inputs.append(args)
-        _, _, load = bitset_step(cfg, st.bits, *args, st.load)
+        _, _, load = hashed(cfg, st.bits, kw, args, st.load)
         st = st._replace(position=st.position + BATCH, rng=rng, load=load)
     del st
     lap("bitset inputs and bytes")
@@ -1278,7 +1465,7 @@ def phase_timings(cfg, state, sbf_cfg, sbf_state, card, fleets,
     lap("counter inputs and bytes")
     # the ops functions on the rlbsbf filter: probe every key, scatter the
     # keys the probe did not find
-    pos = [hashmix_plain(x, seeds, cfg.s) for x in keys]
+    pos = [hashmix_plain(x, seeds_dev, cfg.s) for x in keys]
     idx = [packed.split_pos(p) for p in pos]
     hits = [bloom_probe_plain(state.bits, i, m) for i, m in idx]
     sc_idx = [torch.where(h.all(dim=1)[:, None] != 0, -1, i).to(torch.int32)
@@ -1288,7 +1475,7 @@ def phase_timings(cfg, state, sbf_cfg, sbf_state, card, fleets,
     n_probed = torch.unique(probed).numel()
 
     def bitset(words, i, load):
-        return words, bitset_step(cfg, words, *inputs[i], load)[2]
+        return words, hashed(cfg, words, keys[i], inputs[i], load)[2]
 
     def bitset_plain(words, i, load):
         new, _, _, load = bitset_step_plain(cfg, words, *inputs[i], load)
@@ -1317,10 +1504,12 @@ def phase_timings(cfg, state, sbf_cfg, sbf_state, card, fleets,
     fcp = fc.params
 
     def fleet_bitset(words, i, load):
-        return words, bitset_step(fb.cfg, words, *fb_in[i], load)[2]
+        args, kw = fb_in[i]
+        return words, hashed(fb.cfg, words, kw, args, load)[2]
 
     def fleet_bitset_plain(words, i, load):
-        new, _, _, load = bitset_step_plain(fb.cfg, words, *fb_in[i], load)
+        new, _, _, load = bitset_step_plain(fb.cfg, words, *fb_in[i][0],
+                                            load)
         return new, load
 
     def fleet_counter(planes, i, load):
@@ -1338,18 +1527,22 @@ def phase_timings(cfg, state, sbf_cfg, sbf_state, card, fleets,
 
     fc_planes = batched.fleet_planes(fc_state.bits)
     runs = {
-        "hashmix": (lambda: lambda i: hashmix(keys[i], seeds, s=cfg.s),
-                    lambda: lambda i: hashmix_plain(keys[i], seeds, cfg.s),
+        # the sbf path's shape: the keys of its batches, its k and s
+        "hashmix": (lambda: lambda i: hashmix(keys[i], sbf_seeds,
+                                              s=sbf_cfg.s),
+                    lambda: lambda i: hashmix_plain(
+                        keys[i], sbf_seeds_dev, sbf_cfg.s),
                     ("hashmix_kernel",),
-                    # 4 B per key in, 4 per seed, 4 per position out; ~10
-                    # integer operations per (key, row)
-                    (4 * BATCH + 4 * k + 4 * BATCH * k, 10 * BATCH * k)),
+                    # 4 B per key in, 4 per position out; ~10 integer
+                    # operations per (key, row)
+                    (4 * BATCH + 4 * BATCH * sbf_k, 10 * BATCH * sbf_k)),
         "bitset_step": (
             lambda: chained(bitset, state.bits.clone(), state.load),
             lambda: chained(bitset_plain, state.bits, state.load),
             BITSET_KERNELS,
-            # ~4 operations per probe, ~10 for the decision, ~4 per update
-            (nbytes / n_b, BATCH * (8 * k + 10))),
+            # ~10 operations per hash, ~4 per probe, ~10 for the decision,
+            # ~4 per update
+            (nbytes / n_b, BATCH * (18 * k + 10))),
         "counter_step": (
             lambda: chained(counter, sbf_planes.clone(), sbf_state.load),
             lambda: chained(counter_plain, sbf_planes, sbf_state.load),
@@ -1361,6 +1554,15 @@ def phase_timings(cfg, state, sbf_cfg, sbf_state, card, fleets,
             ("bloom_probe_kernel",),
             # index and mask in, each distinct word gathered once, hits out
             ((9 * BATCH * k + 4 * n_probed / n_b), 3 * BATCH * k)),
+        "fused_probe": (
+            lambda: lambda i: fused_probe(keys[i], state.bits, seeds, cfg.s),
+            lambda: lambda i: fused_probe_plain(keys[i], state.bits,
+                                                seeds_dev, cfg.s),
+            ("fused_probe_kernel",),
+            # keys in, each distinct word gathered once, hits, positions
+            # and dup out
+            (4 * BATCH + 4 * n_probed / n_b + 5 * BATCH * k + BATCH,
+             13 * BATCH * k)),
         # the wrapper's zero fill is part of the function: its (k, W) delta
         # must be written whole
         "scatter_delta": (
@@ -1381,6 +1583,8 @@ def phase_timings(cfg, state, sbf_cfg, sbf_state, card, fleets,
             COUNTER_KERNELS,
             (fc_bytes / n_b, fc_ops / n_b)),
     }
+    floor = latency_floor(floor_lib, card, n_b)
+    lap("latency floor")
     out = {}
     for name, (run, plain_run, kernels, work) in runs.items():
         run()(0)                                       # warm
@@ -1394,74 +1598,90 @@ def phase_timings(cfg, state, sbf_cfg, sbf_state, card, fleets,
         lap(f"{name} plain version")
         through_wrapper = wall_ms(run(), n_b)
         bound_ms, bound_by = bound(*work)
+        n_launch, depth = FLOOR_DEPTH[name]
+        floor_ms = n_launch * floor["launch"] + depth * floor["trip"]
         out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                          bound_by=bound_by)
         log(f"[time] {name}: kernel {ms:.6f} ms per call ({how}); plain "
             f"version {plain_ms:.6f} ms per call ({plain_how}); bound "
             f"{bound_ms:.7f} ms by {bound_by} ({work[0]:.0f} bytes, "
-            f"{work[1]:.0f} operations); through its wrapper, calls back to "
-            f"back: {through_wrapper:.6f} ms per call (CUDA events; {card})")
+            f"{work[1]:.0f} operations); latency floor {floor_ms:.6f} ms "
+            f"({n_launch} launches + {depth} round trips); through its "
+            f"wrapper, calls back to back: {through_wrapper:.6f} ms per call "
+            f"(CUDA events; {card})")
+
+    def steps(fn, x0, load0):
+        return lambda: chained(fn, x0.clone(), load0)
+
     if parent is None:
         return out
 
     def parent_bitset(words, i, load):
-        return words, parent_bitset_step(parent["bitset_step"], cfg, words,
-                                         *inputs[i], load)[2]
-
-    def parent_counter(planes, i, load):
-        pos_, v_, seen_, ev_ = c_inputs[i]
-        return planes, parent_counter_step(parent["counter_step"], sbf_cfg,
-                                           spec, planes, pos_, v_, seen_,
-                                           load, ev_)[1]
+        return words, parent_hashed_bitset_step(
+            parent, cfg, seeds_dev, words, keys[i], inputs[i], load)[2]
 
     def parent_fleet_bitset(words, i, load):
-        return words, parent_bitset_step(parent["bitset_step"], fb.cfg,
-                                         words, *fb_in[i], load)[2]
+        args, kw = fb_in[i]
+        return words, parent_hashed_bitset_step(
+            parent, fb.cfg, fb_seeds, words, kw, args, load)[2]
 
-    def parent_fleet_counter(planes, i, load):
-        pos_, v_, seen_, ev_ = fc_in[i]
-        return planes, parent_counter_step(
-            parent["counter_step"], fc.cfg, spec, planes, pos_, v_, seen_,
-            load, ev_, fcp.threshold, fcp.max_value)[1]
-
-    pb, pc = PARENT_KERNELS["bitset_step"], PARENT_KERNELS["counter_step"]
-    start = {"bitset_step": (state.bits, state.load),
-             "bitset_step_fleet": (fb_state.bits, fb_state.load),
-             "counter_step": (sbf_planes, sbf_state.load),
-             "counter_step_params_aware": (fc_planes, fc_state.load)}
+    fb_seeds = batched._seeds(fb.cfg)[0].cuda()
+    with_hash = ("hashmix_kernel",) + BITSET_KERNELS
+    # name -> [(label, run factory, kernel names)], timed in turns
     versions = {
-        "bitset_step": [("earlier", parent_bitset, pb),
-                        ("current", bitset, BITSET_KERNELS)],
-        "bitset_step_fleet": [("earlier", parent_fleet_bitset, pb),
-                              ("current", fleet_bitset, BITSET_KERNELS)],
-        "counter_step": [("earlier", parent_counter, pc),
-                         ("current", counter, COUNTER_KERNELS)],
-        "counter_step_params_aware": [
-            ("earlier", parent_fleet_counter, pc),
-            ("current", fleet_counter, COUNTER_KERNELS)],
+        "bitset_step": [
+            ("earlier", steps(parent_bitset, state.bits, state.load),
+             with_hash),
+            ("current", steps(bitset, state.bits, state.load),
+             BITSET_KERNELS)],
+        "bitset_step_fleet": [
+            ("earlier", steps(parent_fleet_bitset, fb_state.bits,
+                              fb_state.load), with_hash),
+            ("current", steps(fleet_bitset, fb_state.bits,
+                              fb_state.load), BITSET_KERNELS)],
+        # every device kernel of the call: the chain's split and AND
+        # are eager elementwise kernels
+        "fused_probe": [
+            ("earlier", lambda: lambda i: parent_fused_probe(
+                parent, keys[i], state.bits, seeds_dev, cfg.s), None),
+            ("current", lambda: lambda i: fused_probe(
+                keys[i], state.bits, seeds, cfg.s), None)],
+        # at the sbf path's shape, as the hashmix row
+        "hashmix": [
+            ("earlier", lambda: lambda i: parent_hashmix(
+                parent["hashmix"], keys[i], sbf_seeds_dev, sbf_cfg.s),
+             ("hashmix_kernel",)),
+            ("current", lambda: lambda i: hashmix(keys[i], sbf_seeds,
+                                                  s=sbf_cfg.s),
+             ("hashmix_kernel",))],
+        "bloom_probe": [
+            ("earlier", lambda: lambda i: parent_bloom_probe(
+                parent["bloom_probe"], state.bits, *idx[i]),
+             ("bloom_probe_kernel",)),
+            ("current", lambda: lambda i: bloom_probe(state.bits,
+                                                      *idx[i]),
+             ("bloom_probe_kernel",))],
     }
     for name, vs in versions.items():
-        x0, load0 = start[name]
         got = {label: [] for label, _, _ in vs}
-        for label, step, names in vs:
-            chained(step, x0.clone(), load0)(0)          # warm
-        for label, step, names in vs + vs[::-1]:         # in turns
-            split = device_split(chained(step, x0.clone(), load0), n_b,
-                                 names)
-            wrap = wall_ms(chained(step, x0.clone(), load0), n_b)
+        for label, make, names in vs:
+            make()(0)                                    # warm
+        for label, make, names in vs + vs[::-1]:         # in turns
+            split = device_split(make(), n_b, names)
+            wrap = wall_ms(make(), n_b)
             got[label].append((split, wrap))
         for label, turns in got.items():
             names = sorted({x for split, _ in turns for x in split})
             per = {x: sum(split.get(x, 0.0) for split, _ in turns)
                    / len(turns) for x in names}
             log(f"[compare] {name} {label}: device "
-                f"{sum(per.values()):.6f} ms per step ("
+                f"{sum(per.values()):.6f} ms per call ("
                 + ", ".join(f"{x} {v:.6f}" for x, v in per.items())
                 + f"; turns {[round(sum(sp.values()), 6) for sp, _ in turns]})"
                 f"; through its wrapper, calls back to back "
                 f"{sum(wr for _, wr in turns) / len(turns):.6f} ms "
                 f"(turns {[round(wr, 6) for _, wr in turns]}; {card})")
-        lap(f"{name} against the earlier design")
+        lap(f"{name} in turns")
     return out
 
 
@@ -1478,8 +1698,8 @@ def bitset_pieces(cfg, st, kw, v):
 
 def sbf_pieces(cfg, st, kw, v):
     """The plain-PyTorch pieces of an sbf step, for the host clock."""
-    from repro_torch.core import batched, hashing, u32
-    seeds = u32.from_numpy_u32(hashing.derive_seeds(cfg.seed, cfg.k), "cuda")
+    from repro_torch.core import batched, hashing
+    seeds, _ = host_seeds(cfg)
     pos = hashing.hash_positions(kw, seeds, cfg.s)
     _, start = batched.draw_sbf_randomness(cfg, st.rng, BATCH)
     return {
@@ -1497,7 +1717,7 @@ def fleet_pieces(fleet, tenants):
     over the (T, C) grid."""
     def make(cfg, st, kw, v):
         import torch
-        from repro_torch.core import batched, hashing, u32
+        from repro_torch.core import batched, hashing
         ten = torch.from_numpy(tenants[:BATCH]).cuda()
         slot_keys, slot_valid, *_ = fleet.route(kw, ten, v)
         c = slot_keys.shape[1]
@@ -1507,8 +1727,7 @@ def fleet_pieces(fleet, tenants):
             pieces["draw_randomness over (32, 2) keys (threefry)"] = \
                 lambda: batched.draw_randomness(cfg, st.rng, c)
             return pieces
-        seeds = u32.from_numpy_u32(hashing.derive_seeds(cfg.seed, cfg.k),
-                                   "cuda")
+        seeds, _ = host_seeds(cfg)
         pos = hashing.hash_positions(slot_keys, seeds, cfg.s)
         _, start = batched.draw_sbf_randomness(cfg, st.rng, c)
         pieces["draw_sbf_randomness over (32, 2) keys (threefry)"] = \
@@ -1599,8 +1818,9 @@ def phase_profile(cfg, state, card, make_pieces, kernels, fleet=None,
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", metavar="DIR",
-                    help="a directory holding an earlier bitset_step.cu and "
-                         "counter_step.cu to time against the current ones")
+                    help="a directory holding an earlier hashmix.cu, "
+                         "bloom_probe.cu and bitset_step.cu to time "
+                         "against the current ones")
     args = ap.parse_args()
     try:
         import torch
@@ -1624,17 +1844,20 @@ def main() -> int:
     log(f"[card] {card} | torch {torch.__version__} CUDA "
         f"{torch.version.cuda} | {kind}")
     t0 = time.perf_counter()
+    extra = start_extra_builds(args.parent)
     logs = build.build_all()
-    log(f"[build] {len(logs)} kernels built in "
+    floor_lib, parent = finish_extra_builds(extra)
+    log(f"[build] {len(logs)} kernels (and the latency-floor kernels"
+        f"{', the earlier sources' if parent else ''}) built in "
         f"{time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():
         for line in text.strip().splitlines():
             log(f"[build] {name}: {line}")
-    parent = build_parent(args.parent) if args.parent else None
     rng = np.random.default_rng(SEED)
     err = {"hashmix": phase_hashmix(rng), "bitset_step": phase_bitset(rng),
            "counter_step": phase_counter(rng)}
-    err["bloom_probe"], err["scatter_delta"] = phase_ops(rng)
+    err["bloom_probe"], err["scatter_delta"], err["fused_probe"] = \
+        phase_ops(rng)
     stamp("kernels against plain")
     err["bitset_step_fleet"], err["counter_step_params_aware"] = \
         phase_fleet(rng)
@@ -1654,7 +1877,8 @@ def main() -> int:
     del f_keys, f_tenants, f_truth
     stamp("fleet paths")
     times = phase_timings(cfg, state, sbf_cfg, sbf_state, card,
-                          ((fb, fb_state), (fc, fc_state)), parent)
+                          ((fb, fb_state), (fc, fc_state)), floor_lib,
+                          parent)
     stamp("time")
     phase_profile(cfg, state, card, bitset_pieces, BITSET_KERNELS)
     phase_profile(sbf_cfg, sbf_state, card, sbf_pieces, COUNTER_KERNELS)
@@ -1665,15 +1889,21 @@ def main() -> int:
         phase_profile(fleet.cfg, st, card, fleet_pieces(fleet, p_tenants),
                       kern, fleet=fleet, tenants=p_tenants)
     stamp("profile")
-    # each kernel's launches are those of the path that carries it
+    # each kernel's launches, like its timed shapes, are those of the path
+    # that carries it: the standalone hashmix is the sbf path's (the rlbsbf
+    # path's bitset step hashes its keys itself), fused_probe and the
+    # standalone bloom_probe the ops path's
     rows = [
-        ("hashmix", "hashmix.cu", "hashmix.py:46", launches, "hashmix"),
+        ("hashmix", "hashmix.cu", "hashmix.py:46", sbf_launches, "hashmix"),
         ("bitset_step", "bitset_step.cu", "fused_template.py:349", launches,
          "bitset_step"),
         ("counter_step", "counter_step.cu", "fused_template.py:131",
          sbf_launches, "counter_step"),
         ("bloom_probe", "bloom_probe.cu", "bloom_probe.py:42", ops_launches,
          "bloom_probe"),
+        # hashmix, the split, bloom_probe and the AND in one launch
+        ("fused_probe", "bloom_probe.cu", "bloom_probe.py:42", ops_launches,
+         "fused_probe"),
         ("scatter_delta", "scatter_delta.cu", "scatter_delta.py:54",
          ops_launches, "scatter_delta"),
         # the tenant-grid forms on the fleet paths; the counter step's is

@@ -2,7 +2,8 @@
 
 Processes B stream elements per step (DESIGN §3.1):
 
-  1. hash all B keys (``hash_positions`` — the hashmix kernel on CUDA),
+  1. hash all B keys (``hash_positions``: the hashmix kernel on CUDA for
+     the counter family; the bitset kernel hashes its keys itself),
   2. exact intra-batch first-occurrence detection by sorting the keys,
   3. draw the step's randomness from the state's threefry key,
   4. probe the batch-entry snapshot, decide per variant and update the
@@ -15,7 +16,7 @@ Processes B stream elements per step (DESIGN §3.1):
        as bit-planes, saturating subtract (sbf decay runs, swbf's expiring
        ring slot) then set-to-Max (sbf) or saturating add.
 
-Steps 1-3, and the counter family's sorted event lists, are plain PyTorch
+Steps 2-3, and the counter family's sorted event lists, are plain PyTorch
 on both devices, as they are XLA outside the Pallas call in the reference.
 ``valid`` masks let ragged stream tails ride through fixed-width steps as
 no-ops. A step updates ``state.bits`` in place and returns the new state
@@ -207,13 +208,14 @@ def load_delta_from_sorted(spi, pre_i, spd, pre_d, post_d, s: int
     return (gained - lost).to(torch.int32)
 
 
-def _seeds(cfg: DedupConfig, device):
-    """The probe seeds, and the block seeds of the blocked layout, moved
-    to ``device`` once when a step is built."""
+def _seeds(cfg: DedupConfig):
+    """The probe seeds, and the block seeds of the blocked layout, as CPU
+    int32 words, made once when a step is built: the plain versions read
+    them there, and a kernel launch takes them into its argument block."""
     seeds = u32.from_numpy_u32(derive_seeds(cfg.seed, cfg.k, channel=0),
-                               device)
+                               "cpu")
     bseeds = (u32.from_numpy_u32(derive_seeds(cfg.seed, cfg.k, channel=1),
-                                 device) if cfg.block_bits else None)
+                                 "cpu") if cfg.block_bits else None)
     return seeds, bseeds
 
 
@@ -226,19 +228,20 @@ def make_bitset_step(cfg: DedupConfig, spec, device=None,
     accepts the ``TenantStepParams`` and ignores them, as the reference
     does — the bitset decisions have no value-like knob."""
     cfg = cfg.validate()
-    device = resolve_device(device)
-    seeds, bseeds = _seeds(cfg, device)
+    resolve_device(device)
+    seeds, bseeds = _seeds(cfg)
 
     def step(state: FilterState, keys: torch.Tensor, valid: torch.Tensor,
              tp: Optional[TenantStepParams] = None):
         b = keys.shape[-1]
-        pos = hash_positions(keys, seeds, cfg.s, cfg.block_bits, bseeds)
         seen = intra_batch_seen(keys, valid)
         i_t = state.position[:, None] + torch.arange(
             b, dtype=torch.int32, device=keys.device)
         rng, rnd = spec.draw(cfg, state.rng, b, partitionable)
+        # the kernel hashes the keys in its probe and insert launches
         dup, insert, load = _fused.bitset_step(
-            cfg, state.bits, pos, rnd, valid, seen, i_t, state.load)
+            cfg, state.bits, keys, rnd, valid, seen, i_t, state.load,
+            seeds=seeds, block_seeds=bseeds)
         if cfg.debug_exact_load:
             load = popcount(state.bits)
         n_valid = valid.sum(dim=-1, dtype=torch.int32)
@@ -453,7 +456,7 @@ def make_counter_planes_step(cfg: DedupConfig, spec, device=None,
     fleet-wide ``cfg.sbf_max``, as the reference's do."""
     cfg = cfg.validate()
     device = resolve_device(device)
-    seeds, bseeds = _seeds(cfg, device)
+    seeds, bseeds = _seeds(cfg)
     events_fn = spec.make_events(cfg)
     # the one-filter step's knobs, as (1,) rows like a fleet's
     one = TenantStepParams(
@@ -510,8 +513,8 @@ def make_estimate_fn(cfg: DedupConfig, device=None):
     cells. Read-only. Plain PyTorch on both devices (hashing aside): the
     reference has no kernel here."""
     cfg = cfg.validate()
-    device = resolve_device(device)
-    seeds, bseeds = _seeds(cfg, device)
+    resolve_device(device)
+    seeds, bseeds = _seeds(cfg)
 
     def estimate(state: FilterState, keys: torch.Tensor) -> torch.Tensor:
         planes = sbf_planes_3d(state.bits)[:, 0, :]

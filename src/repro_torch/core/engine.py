@@ -9,8 +9,9 @@
 An engine is fully determined by its frozen ``DedupConfig`` and its device.
 It runs on ``cuda`` unless the caller passes ``device="cpu"``; without a
 CUDA device and without that request it raises, and it never falls back.
-On CUDA the step goes through the hand-written kernels (hashmix, and the
-bitset or counter step), on the CPU through their plain PyTorch versions;
+On CUDA the step goes through the hand-written kernels (the bitset step,
+which hashes its keys itself, or hashmix and the counter step), on the
+CPU through their plain PyTorch versions;
 at fixed seed both reproduce the JAX package's reports and state bit for
 bit. The counter family (sbf, swbf, cms, hh) adds two read-outs:
 ``estimate`` (count-min per key) and ``top_cells`` (the highest cells).

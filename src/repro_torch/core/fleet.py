@@ -7,10 +7,11 @@
   every other tenant's traffic.
 * **One launch** — a mixed batch of (key, tenant) lanes is routed to
   per-tenant slot rows of a fixed width C (a sort-based arrival rank,
-  ``tenant_rank``) and the whole (T, C) grid steps at once: hashmix over
-  the T·C slot keys, the threefry draws over the (T, 2) keys in one
-  broadcast evaluation, and the bitset or counter kernel with the tenant
-  as a grid axis (``core.batched.make_templated_step(params_aware=True)``).
+  ``tenant_rank``) and the whole (T, C) grid steps at once: the threefry
+  draws over the (T, 2) keys in one broadcast evaluation, and the bitset
+  kernel (hashing the T·C slot keys itself) or hashmix and the counter
+  kernel, with the tenant as a grid axis
+  (``core.batched.make_templated_step(params_aware=True)``).
 * **Per-tenant knobs** — ``TenantParams`` stacks the value-like config
   (sbf Max, cms/hh threshold, swbf window, admission capacity) as (T,)
   int32 rows on the device; everything that shapes the state stays

@@ -4,9 +4,12 @@ the port of ``repro.core.hashing``.
 murmur3's 32-bit finalizer (fmix32) seeded per hash slot, reduced to a bit
 position by mask (power-of-two ``s``) or modulo. Keys and hashes travel as
 int32 bit patterns; the arithmetic runs on int64 values masked to 32 bits
-(``core.u32``). ``hash_positions`` is the hashmix kernel
-(``kernels/hashmix.py``) on a CUDA tensor and its plain form on the CPU;
-the blocked layout (DESIGN §3.3) is two hashmix calls.
+(``core.u32``). ``hash_positions`` is one call of the hashmix wrapper
+(``kernels/hashmix.py``): its kernel on a CUDA tensor, either layout in
+one launch, and its plain form on the CPU. It is not the only place the
+hash runs on the card: the bitset step and ``ops.fused_probe`` hash their
+keys inside their own kernels (``kernels/csrc/hashmix.cuh``) and never call
+it; the counter family, ``Dedup.estimate`` and ``ops.hash_positions`` do.
 """
 
 from __future__ import annotations
@@ -60,25 +63,17 @@ def hash_positions(keys: torch.Tensor, seeds: torch.Tensor, s: int,
                    block_seeds: torch.Tensor | None = None) -> torch.Tensor:
     """Bit positions in [0, s) for each of the k filters -> (..., k) int32
     for keys (...,): one hashmix call over the flattened keys. ``seeds``
-    (k,) int32 words on the keys' device (``derive_seeds`` moved there once
-    by the caller, so a step copies nothing from the host).
+    (k,) int32 words; a launch reads them on the host and refuses them on
+    the card, so the step builders make them on the CPU (``derive_seeds``
+    converted once), and a step copies nothing to the card for them.
 
     ``block_bits`` > 0 selects the blocked layout (DESIGN §3.3): a hash
     over ``block_seeds`` picks a 2^block_bits-bit block per filter and the
-    bit lands inside it — the reference's ``hb % n_blocks`` and ``h &
-    (bsize - 1)`` are hashmix at ``s = n_blocks`` and at ``s = bsize``, so
-    the layout is two hashmix calls, the product taken in int64."""
+    bit lands inside it — on the card in the same launch."""
     flat = keys.reshape(-1)
     shape = (*keys.shape, seeds.shape[0])
-    if block_bits <= 0:
-        return _hashmix.hashmix(flat, seeds, s=s).view(shape)
-    if block_seeds is None:
-        raise ValueError("blocked layout needs block_seeds")
-    bsize = 1 << block_bits
-    n_blocks = max(1, s // bsize)
-    block = _hashmix.hashmix(flat, block_seeds, s=n_blocks).to(torch.int64)
-    bit = _hashmix.hashmix(flat, seeds, s=bsize)
-    return (block * bsize + bit).to(torch.int32).view(shape)
+    return _hashmix.hashmix(flat, seeds, s=s, block_bits=block_bits,
+                            block_seeds=block_seeds).view(shape)
 
 
 def route_hash(keys: torch.Tensor, n_shards: int, base_seed: int

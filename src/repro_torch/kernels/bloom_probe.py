@@ -1,14 +1,18 @@
-"""bloom_probe: packed Bloom-filter probe — gather + bit test.
+"""bloom_probe: packed Bloom-filter probe — gather + bit test; and
+fused_probe, the whole probe of a batch of keys in one launch.
 
-The port of ``repro/kernels/bloom_probe.py::bloom_probe``: words (k, W),
-word_idx (B, k) int32 and bit_mask (B, k) -> hits (B, k) uint8. On a CUDA
-tensor the wrapper launches the hand-written kernel in
-``csrc/bloom_probe.cu`` (its note says what bounds it) or raises; on a CPU
-tensor it runs ``bloom_probe_plain``. Words and masks are int32 tensors of
-uint32 bit patterns (``core.u32``). An index outside [0, W) reads a
-clamped word, as a JAX gather does. Unlike the reference, no 8 MiB row
-limit applies: that was the TPU's VMEM budget, and this kernel gathers
-from device memory.
+``bloom_probe`` is the port of ``repro/kernels/bloom_probe.py::
+bloom_probe``: words (k, W), word_idx (B, k) int32 and bit_mask (B, k) ->
+hits (B, k) uint8. ``fused_probe`` is ``repro/kernels/ops.py::
+fused_probe`` — hashmix, the split into word index and mask, bloom_probe
+and the AND over the rows — as one kernel: keys (B,) -> (dup (B,) bool,
+hits (B, k) uint8, pos (B, k) int32). On CUDA tensors each wrapper
+launches its hand-written kernel in ``csrc/bloom_probe.cu`` (its note says
+what bounds them) or raises; on CPU tensors they run ``bloom_probe_plain``
+and ``fused_probe_plain``. Words and masks are int32 tensors of uint32 bit
+patterns (``core.u32``). An index outside [0, W) reads a clamped word, as
+a JAX gather does. Unlike the reference, no 8 MiB row limit applies: that
+was the TPU's VMEM budget, and these kernels gather from device memory.
 """
 
 from __future__ import annotations
@@ -18,7 +22,9 @@ import functools
 
 import torch
 
+from ..core import packed
 from . import build
+from . import hashmix as _hashmix
 
 
 def bloom_probe_plain(words: torch.Tensor, word_idx: torch.Tensor,
@@ -30,12 +36,24 @@ def bloom_probe_plain(words: torch.Tensor, word_idx: torch.Tensor,
     return ((words[rows, idx] & bit_mask) != 0).to(torch.uint8)
 
 
+def fused_probe_plain(keys: torch.Tensor, words: torch.Tensor,
+                      seeds: torch.Tensor, s: int):
+    """-> (dup (B,) bool, hits (B, k) uint8, pos (B, k) int32): the chain
+    of plain versions the reference's ``fused_probe`` runs."""
+    pos = _hashmix.hashmix_plain(keys, seeds, s)
+    hits = bloom_probe_plain(words, *packed.split_pos(pos))
+    return (hits == 1).all(dim=1), hits, pos
+
+
 @functools.lru_cache(maxsize=None)
-def _entry():
-    """The C entry point, built at first use, its signature set once."""
-    fn = build.load("bloom_probe").bloom_probe_launch
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, p, p, i, i, ctypes.c_longlong, p]
+def _entry(name: str):
+    """The C entry point ``<name>_launch``, built at first use, its
+    signature set once."""
+    fn = getattr(build.load("bloom_probe"), f"{name}_launch")
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn.argtypes = {"bloom_probe": [p, p, p, p, i, i, ll, p],
+                   "fused_probe": [p, p, p, p, p, i, ll, p, i,
+                                   ctypes.c_uint32, p]}[name]
     fn.restype = ctypes.c_int
     return fn
 
@@ -76,7 +94,7 @@ def bloom_probe(words: torch.Tensor, word_idx: torch.Tensor,
         return bloom_probe_plain(words, word_idx, bit_mask)
     b, k = word_idx.shape
     hits = torch.empty((b, k), dtype=torch.uint8, device=words.device)
-    err = _entry()(words.data_ptr(), word_idx.data_ptr(),
+    err = _entry("bloom_probe")(words.data_ptr(), word_idx.data_ptr(),
                    bit_mask.data_ptr(), hits.data_ptr(), b, k,
                    words.shape[1],
                    torch.cuda.current_stream(words.device).cuda_stream)
@@ -88,3 +106,48 @@ def bloom_probe(words: torch.Tensor, word_idx: torch.Tensor,
 
 
 bloom_probe.launches = 0
+
+
+def fused_probe(keys: torch.Tensor, words: torch.Tensor, seeds: torch.Tensor,
+                s: int):
+    """keys (B,) int32 words against the (k, W) ``words`` -> (dup (B,)
+    bool, hits (B, k) uint8, pos (B, k) int32), ``seeds`` (k,) int32 words
+    (read on the host by a launch: on the CPU). On CUDA one
+    launch: the hash in registers, all k gathers, the bit tests and the
+    AND. ``fused_probe.launches`` counts its kernel launches (bloom_probe's
+    count does not move)."""
+    _hashmix.check_hash_operands("fused_probe", keys, seeds, s, 0, None)
+    if keys.dim() != 1 or not keys.is_contiguous():
+        raise ValueError(f"fused_probe takes contiguous keys (B,); got "
+                         f"{tuple(keys.shape)}")
+    if (words.dtype != torch.int32 or words.dim() != 2
+            or words.shape[0] != seeds.shape[0]
+            or not words.is_contiguous()):
+        raise ValueError(f"fused_probe: words must be contiguous int32 (k, "
+                         f"W) with k = {seeds.shape[0]}, got {words.dtype} "
+                         f"{tuple(words.shape)}")
+    if words.device != keys.device:
+        raise ValueError(f"fused_probe: words are on {words.device}, keys "
+                         f"on {keys.device}")
+    if keys.device.type == "cpu":
+        return fused_probe_plain(keys, words, seeds, s)
+    if keys.device.type != "cuda":
+        raise ValueError(f"fused_probe runs on cpu or cuda, not "
+                         f"{keys.device}")
+    b, (k, w) = keys.shape[0], words.shape
+    hits = torch.empty((b, k), dtype=torch.uint8, device=keys.device)
+    dup = torch.empty((b,), dtype=torch.bool, device=keys.device)
+    pos = torch.empty((b, k), dtype=torch.int32, device=keys.device)
+    hs, _ = _hashmix.host_seeds(seeds, None)
+    err = _entry("fused_probe")(
+        words.data_ptr(), keys.data_ptr(), hits.data_ptr(), dup.data_ptr(),
+        pos.data_ptr(), b, w, hs.data_ptr(), k, s,
+        torch.cuda.current_stream(keys.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fused_probe kernel launch failed: CUDA error "
+                           f"{err}")
+    fused_probe.launches += 1
+    return dup, hits, pos
+
+
+fused_probe.launches = 0

@@ -7,8 +7,9 @@ own by ``nvcc`` for Hopper (``sm_90a``) into a shared library under
 library (``load``), and ``build_all`` starts every compile at once, one
 ``nvcc`` per source, for callers that want the whole set up front.
 
-The library name carries a digest of its source and flags, so an edited
-source is rebuilt and an unchanged one is loaded as it is. Fast-math is
+The library name carries a digest of its source, of every header in
+``csrc/`` (``hashmix.cuh`` is shared) and of the flags, so an edited source
+or header is rebuilt and an unchanged one is loaded as it is. Fast-math is
 left off on purpose: the bitset step's decisions divide in float32 and
 must round exactly as the reference does (DESIGN §3.4).
 """
@@ -48,9 +49,11 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"{name}-{tag}.so"
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:12]}.so"
 
 
 def _start(name: str):
@@ -60,7 +63,8 @@ def _start(name: str):
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+           str(CSRC / f"{name}.cu")]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True), tmp, out
 

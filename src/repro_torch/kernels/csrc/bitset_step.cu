@@ -5,6 +5,13 @@
 // _make_bitset_kernel_step (inner `kernel`). Same outputs, bit for bit:
 // the updated (k, W) words, dup (B,), inserted (B,) and the load (k,).
 //
+// The probe positions are hashed here, from the keys (hashmix.cuh, the
+// port's one definition of the hash): (A) hashes each key in registers
+// and (C) hashes it again rather than reading a stored position, so the
+// step launches no hashmix and its positions never travel through device
+// memory. (C)'s loads of ins[e] and key[e] are independent, so its chain
+// is one load and the atomic.
+//
 // Why not the TPU design. The TPU kernel keeps the filter in VMEM and
 // sweeps all of it every batch, building the update words by
 // compare-broadcast tree-ORs, O(B·W) work: at the paper's 256 MB table that
@@ -54,6 +61,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "hashmix.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -64,7 +73,7 @@ struct StepArgs {
   uint32_t* words;        // (T, k, W) filters, updated in place
   long long w;            // words per row
   int k, t, b;            // b: elements per tenant (the slot width C)
-  const int32_t* pos;     // (T, B, k) insert / probe positions
+  const uint32_t* keys;   // (T, B) keys hashed in (A) and (C)
   const int32_t* del_pos; // (T, B, k) candidate delete positions
   const uint8_t* valid;   // (T, B) bool
   const uint8_t* seen;    // (T, B) bool — an equal key earlier in the row
@@ -81,7 +90,14 @@ struct StepArgs {
   int s;                  // bits per row
   float s_f;              // float32(s)
   float p_star;           // float32(p*)
+  HashSpec h;             // seeds, s and layout of the probe hash
 };
+
+// row f's probe / insert position of a key
+__device__ __forceinline__ uint32_t position(const StepArgs& a, uint32_t key,
+                                             int f) {
+  return static_cast<uint32_t>(hash_position(key, f, a.h));
+}
 
 // grid (ceil(B / kThreads), T): blockIdx.y is the tenant
 __global__ void probe_decide(StepArgs a) {
@@ -92,9 +108,10 @@ __global__ void probe_decide(StepArgs a) {
   const long long e = static_cast<long long>(t) * a.b + i;  // (T, B) index
   const uint32_t* words = a.words + static_cast<long long>(t) * k * a.w;
   const int32_t* load_in = a.load_in + t * k;
+  const uint32_t key = a.keys[e];
   uint32_t zero_rows = 0;  // rows whose probed bit is clear
   for (int f = 0; f < k; ++f) {
-    uint32_t p = static_cast<uint32_t>(a.pos[e * k + f]);
+    uint32_t p = position(a, key, f);
     uint32_t word = words[f * a.w + (p >> 5)];
     if (((word >> (p & 31u)) & 1u) == 0u) zero_rows |= 1u << f;
   }
@@ -167,8 +184,14 @@ __global__ void apply_inserts(StepArgs a) {
   long long e = static_cast<long long>(t) * a.b + i;
   long long row = static_cast<long long>(t) * a.k + f;
   int gained = 0;
-  if (i < a.b && a.ins[e]) {
-    uint32_t p = static_cast<uint32_t>(a.pos[e * a.k + f]);
+  bool insert = false;
+  uint32_t key = 0;
+  if (i < a.b) {  // two independent loads
+    insert = a.ins[e] != 0;
+    key = a.keys[e];
+  }
+  if (insert) {
+    uint32_t p = position(a, key, f);
     uint32_t m = 1u << (p & 31u);
     uint32_t old = atomicOr(&a.words[row * a.w + (p >> 5)], m);
     gained = (old & m) == 0u;
@@ -181,11 +204,15 @@ __global__ void apply_inserts(StepArgs a) {
 
 // One step of T filters: launches (A), (B), (C) on `stream` in that
 // order. b is the elements per tenant. load_out must hold load_in on entry.
+// keys (T, b) uint32, hashed with the k host seeds (and, for block_bits >
+// 0, the k host block seeds).
 // Returns the first non-zero cudaGetLastError().
 extern "C" int bitset_step_launch(
-    void* words, long long w, int k, int t, int b, const void* pos,
-    const void* del_pos, const void* valid, const void* seen, const void* i_t,
-    const void* u_bern, const void* u_aux, const void* which,
+    void* words, long long w, int k, int t, int b, const void* keys,
+    const uint32_t* seeds, const uint32_t* bseeds, int block_bits,
+    const void* del_pos, const void* valid,
+    const void* seen, const void* i_t, const void* u_bern, const void* u_aux,
+    const void* which,
     const void* load_in, void* load_out, void* dup, void* ins, void* del_rows,
     int variant, int s, float s_f, float p_star, void* stream) {
   StepArgs a;
@@ -194,7 +221,7 @@ extern "C" int bitset_step_launch(
   a.k = k;
   a.t = t;
   a.b = b;
-  a.pos = static_cast<const int32_t*>(pos);
+  a.keys = static_cast<const uint32_t*>(keys);
   a.del_pos = static_cast<const int32_t*>(del_pos);
   a.valid = static_cast<const uint8_t*>(valid);
   a.seen = static_cast<const uint8_t*>(seen);
@@ -211,6 +238,8 @@ extern "C" int bitset_step_launch(
   a.s = s;
   a.s_f = s_f;
   a.p_star = p_star;
+  a.h = make_hash_spec(seeds, bseeds, k, static_cast<uint32_t>(s),
+                       block_bits);
   if (b <= 0 || t <= 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   dim3 grid1((b + kThreads - 1) / kThreads, t);

@@ -1,58 +1,78 @@
 // hashmix: fused k-way murmur-mix hashing for Hopper (sm_90a).
 //
 // Replaces the TPU kernel repro/kernels/hashmix.py::hashmix (_kernel), which
-// the JAX step computes as core/hashing.py::hash_positions:
-//   pos[e, f] = fmix32(keys[e] ^ seeds[f]) reduced to [0, s) by a mask when
-//   s is a power of two and by % s otherwise, stored as int32.
+// the JAX step computes as core/hashing.py::hash_positions: keys (B,) ->
+// positions (B, k) int32, fmix32(key ^ seed_f) reduced to [0, s) — and the
+// blocked layout of DESIGN §3.3 in the same launch (hashmix.cuh holds the
+// one definition of the hash that every kernel of the port uses).
 //
-// What bounds it on the card: bytes. It reads 4 B per key and writes
-// 4 B per (key, row); its ~10 integer operations per output are far below
-// the card's rate. The TPU kernel tiled the batch in 2048-key VMEM blocks;
-// here one thread computes one (key, row) output, neighbouring threads
-// write neighbouring int32 outputs (coalesced stores), and the k-fold
-// re-read of each key hits L1. uint32_t arithmetic wraps by definition, so
-// the result is bit-identical to the reference's wrapping uint32.
+// What bounds it on the card: latency, not bytes. It reads 4 B per key and
+// writes 4 B per (key, row) — ~0.03 µs of bytes at B = 8192, k = 2 — and
+// its ~10 integer operations per output are far below the card's rate;
+// what is left is the launch ramp and one DRAM round trip of the keys.
+// The bitset step and fused_probe compute the same positions inside their
+// own launches and launch no hashmix at all; this kernel serves the
+// counter family, whose sorted event lists need the positions in memory
+// before the counter step runs.
+//
+// The design, as measured on an H100 (80 GB HBM3, 700 W), in turns with
+// the L2 flushed, against the first form of this kernel (one thread per
+// (key, row), the seeds loaded from device memory): on the flat layout it
+// is as fast as the first form, within the spread of such a comparison.
+// What it gains is the blocked layout in the same launch, which the first
+// form ran as two launches and three eager ops, and no seed load: the
+// seeds come in the argument block and are staged in shared memory while
+// the key load is in flight (read from the argument block per lane, lanes
+// of different rows asked for different words and the kernel was
+// slower). One thread per key, its k positions stored together (a vector
+// store), was slower too: two hashes in a row per thread, for no fewer
+// round trips.
 
-#include <cstdint>
 #include <cuda_runtime.h>
+
+#include "hashmix.cuh"
 
 namespace {
 
-__device__ __forceinline__ uint32_t fmix32(uint32_t x) {
-  x ^= x >> 16;
-  x *= 0x85EBCA6Bu;
-  x ^= x >> 13;
-  x *= 0xC2B2AE35u;
-  x ^= x >> 16;
-  return x;
-}
+constexpr int kThreads = 256;
 
 __global__ void hashmix_kernel(const uint32_t* __restrict__ keys,
-                               const uint32_t* __restrict__ seeds,
-                               int32_t* __restrict__ out, int n, int k,
-                               uint32_t s, int pow2) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
+                               int32_t* __restrict__ out, int n,
+                               const HashSpec h) {
+  __shared__ uint32_t seeds[2 * kMaxHashRows];  // probe, then block seeds
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int e = i / h.k;
+  const uint32_t key = i < n ? keys[e] : 0u;
+  if (threadIdx.x < h.k) {
+    seeds[threadIdx.x] = h.seeds[threadIdx.x];
+    seeds[kMaxHashRows + threadIdx.x] = h.bseeds[threadIdx.x];
+  }
+  __syncthreads();
   if (i >= n) return;
-  int e = i / k;
-  int f = i - e * k;
-  uint32_t x = fmix32(keys[e] ^ seeds[f]);
-  out[i] = static_cast<int32_t>(pow2 ? (x & (s - 1u)) : (x % s));
+  const int f = i - e * h.k;
+  const uint32_t x = fmix32(key ^ seeds[f]);
+  out[i] = h.n_blocks == 0u
+               ? static_cast<int32_t>(reduce_to(x, h.s))
+               : blocked_position(x, fmix32(key ^ seeds[kMaxHashRows + f]),
+                                  h);
 }
 
 }  // namespace
 
-// keys (b,) and seeds (k,) uint32, out (b, k) int32 row-major; s in
+// keys (b,) uint32, out (b, k) int32 row-major; seeds
+// and, for block_bits > 0, bseeds: k host values each (k <= 32); s in
 // [1, 2^31]. Launches on `stream`; returns cudaGetLastError().
-extern "C" int hashmix_launch(const void* keys, const void* seeds, void* out,
-                              int b, int k, uint32_t s, void* stream) {
-  int n = b * k;
+extern "C" int hashmix_launch(const void* keys, void* out, int b,
+                              const uint32_t* seeds, const uint32_t* bseeds,
+                              int k, uint32_t s, int block_bits,
+                              void* stream) {
+  const int n = b * k;
   if (n > 0) {
-    int threads = 256;
-    int blocks = (n + threads - 1) / threads;
-    int pow2 = (s & (s - 1u)) == 0u;
-    hashmix_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint32_t*>(keys), static_cast<const uint32_t*>(seeds),
-        static_cast<int32_t*>(out), n, k, s, pow2);
+    const HashSpec h = make_hash_spec(seeds, bseeds, k, s, block_bits);
+    hashmix_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint32_t*>(keys), static_cast<int32_t*>(out), n,
+        h);
   }
   return static_cast<int>(cudaGetLastError());
 }

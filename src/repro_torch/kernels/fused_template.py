@@ -5,7 +5,8 @@ bit:
 
 * **bitset** (``_make_bitset_kernel_step``): ``bitset_step`` is the
   wrapper — on CUDA tensors it launches the hand-written kernel in
-  ``csrc/bitset_step.cu`` or raises; on CPU tensors it runs
+  ``csrc/bitset_step.cu``, which hashes the keys itself, or raises; on CPU
+  tensors it hashes with the plain hashmix and runs
   ``bitset_step_plain``, which follows the reference's jnp step (DESIGN
   §3.1/§3.2): probe, decide, sort the enabled positions, keep run heads,
   build the (k, W) deletion and insertion words with an int64
@@ -32,9 +33,10 @@ counter step is also the reference kernel's ``params_aware=True`` form:
 each tenant's threshold and set-to-Max value are (T,) device rows that the
 kernel reads itself.
 
-Every step updates its filter tensor in place; the caller computes hashes,
-the intra-batch join, the randomness and the sorted event lists first, as
-the reference does outside its ``pallas_call``.
+Every step updates its filter tensor in place; the caller computes the
+intra-batch join, the randomness and the sorted event lists first, as the
+reference does outside its ``pallas_call``, and the counter step's
+positions; the bitset kernel hashes its keys inside its launches.
 """
 
 from __future__ import annotations
@@ -49,6 +51,7 @@ from ..core import batched as _batched
 from ..core import packed as _packed
 from ..core import u32
 from . import build
+from . import hashmix as _hashmix
 
 VARIANT_CODES = {"rsbf": 0, "bsbf": 1, "bsbfsd": 2, "rlbsbf": 3}
 # the counter sketches whose decision the kernel computes: a min over the k
@@ -110,13 +113,19 @@ def bitset_step_plain(cfg, words, pos, rnd, valid, seen, i_t, load):
     return new, dup, insert, new_load
 
 
-def _check(cfg, words, pos, rnd, valid, seen, i_t, load):
+def _check(cfg, words, keys, seeds, block_seeds, rnd, valid, seen, i_t,
+           load):
     k, w = cfg.k, cfg.s_words
     t = words.shape[0] if words.dim() == 3 else -1
-    b = pos.shape[1] if pos.dim() == 3 else -1
+    b = valid.shape[1] if valid.dim() == 2 else -1
+    _hashmix.check_hash_operands("bitset_step", keys, seeds, cfg.s,
+                                 cfg.block_bits, block_seeds)
+    if seeds.shape[0] != k:
+        raise ValueError(f"bitset_step: seeds must be ({k},), got "
+                         f"{tuple(seeds.shape)}")
     _check_tensors("bitset_step", {
         "words": (words, torch.int32, (t, k, w)),
-        "pos": (pos, torch.int32, (t, b, k)),
+        "keys": (keys, torch.int32, (t, b)),
         "del_pos": (rnd.del_pos, torch.int32, (t, b, k)),
         "u_bern": (rnd.u_bern, torch.float32, (t, b)),
         "u_aux": (rnd.u_aux, torch.float32, (t, b, k)),
@@ -141,24 +150,27 @@ def _entry():
     """The C entry point, built at first use, its signature set once."""
     fn = build.load("bitset_step").bitset_step_launch
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, ctypes.c_longlong, i, i, i,
-                   p, p, p, p, p, p, p, p, p, p, p, p, p,
+    fn.argtypes = [p, ctypes.c_longlong, i, i, i, p, p, p, i,
+                   p, p, p, p, p, p, p, p, p, p, p, p,
                    i, i, ctypes.c_float, ctypes.c_float, p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(cfg, words, pos, rnd, valid, seen, i_t, load, dup, ins,
-            del_rows, load_out):
+def _launch(cfg, words, keys, seeds, block_seeds, rnd, valid, seen, i_t,
+            load, dup, ins, del_rows, load_out):
     stream = torch.cuda.current_stream(words.device).cuda_stream
     t, k, w = words.shape
-    err = _entry()(words.data_ptr(), w, k, t, pos.shape[1],
-                   pos.data_ptr(), rnd.del_pos.data_ptr(), valid.data_ptr(),
-                   seen.data_ptr(), i_t.data_ptr(), rnd.u_bern.data_ptr(),
-                   rnd.u_aux.data_ptr(), rnd.which.data_ptr(),
-                   load.data_ptr(), load_out.data_ptr(), dup.data_ptr(),
-                   ins.data_ptr(), del_rows.data_ptr(),
-                   VARIANT_CODES[cfg.variant], cfg.s,
+    hs, hb = _hashmix.host_seeds(seeds, block_seeds if cfg.block_bits > 0
+                                 else None)
+    err = _entry()(words.data_ptr(), w, k, t, valid.shape[1],
+                   keys.data_ptr(), hs.data_ptr(), _hashmix.ptr(hb),
+                   max(cfg.block_bits, 0), rnd.del_pos.data_ptr(),
+                   valid.data_ptr(), seen.data_ptr(), i_t.data_ptr(),
+                   rnd.u_bern.data_ptr(), rnd.u_aux.data_ptr(),
+                   rnd.which.data_ptr(), load.data_ptr(),
+                   load_out.data_ptr(), dup.data_ptr(), ins.data_ptr(),
+                   del_rows.data_ptr(), VARIANT_CODES[cfg.variant], cfg.s,
                    float(np.float32(cfg.s)), float(np.float32(cfg.p_star)),
                    stream)
     if err != 0:
@@ -166,23 +178,37 @@ def _launch(cfg, words, pos, rnd, valid, seen, i_t, load, dup, ins,
                            f"{err}")
 
 
-def bitset_step(cfg, words, pos, rnd, valid, seen, i_t, load):
+def bitset_step(cfg, words, keys, rnd, valid, seen, i_t, load, *, seeds,
+                block_seeds=None):
     """One bitset-family step on the int32 ``words``, updated in place.
-    One filter: words (k, W), pos (B, k) int32 positions, ``rnd`` the
-    step's ``BatchRandomness``, valid/seen (B,) bool, i_t (B,) int32
-    stream positions, load (k,) int32 batch-entry load. A fleet of T
-    tenants: words (T, k, W) and every operand with a leading T axis; the
-    kernel's grid carries the tenant axis, so T filters are one launch.
-    Returns (dup bool, inserted bool, load int32). ``bitset_step.launches``
-    counts kernel launches: one per step, three grid launches each."""
+    One filter: words (k, W), keys (B,) int32 words, ``rnd`` the step's
+    ``BatchRandomness``, valid/seen (B,) bool, i_t (B,) int32 stream
+    positions, load (k,) int32 batch-entry load; the probe ``seeds`` (k,),
+    plus ``block_seeds`` (k,) when ``cfg.block_bits`` > 0, int32 words. A
+    fleet of T tenants: words (T, k, W) and every batch operand with a
+    leading T axis; the kernel's grid carries the tenant axis, so T filters
+    are one launch. Returns (dup bool, inserted bool, load int32).
+
+    On CUDA the kernel's probe and insert launches hash each key in
+    registers (``csrc/hashmix.cuh``): no hashmix launch, no positions in
+    device memory; the seeds are read on the host and must be CPU tensors
+    (``hashmix.host_seeds``). On the CPU the wrapper computes the positions
+    with the plain hashmix and runs ``bitset_step_plain``.
+    ``bitset_step.launches`` counts kernel launches: one per step, three
+    grid launches each."""
     if words.dim() == 2:
         dup, ins, new_load = bitset_step(
-            cfg, words[None], pos[None],
+            cfg, words[None], keys[None],
             _batched.BatchRandomness(*(x[None] for x in rnd)), valid[None],
-            seen[None], i_t[None], load[None])
+            seen[None], i_t[None], load[None], seeds=seeds,
+            block_seeds=block_seeds)
         return dup[0], ins[0], new_load[0]
-    _check(cfg, words, pos, rnd, valid, seen, i_t, load)
+    _check(cfg, words, keys, seeds, block_seeds, rnd, valid, seen, i_t,
+           load)
     if words.device.type == "cpu":
+        pos = _hashmix.positions_plain(
+            keys.reshape(-1), seeds, cfg.s, cfg.block_bits,
+            block_seeds).view(*keys.shape, cfg.k)
         new, dup, ins, new_load = bitset_step_plain(
             cfg, words, pos, rnd, valid, seen, i_t, load)
         words.copy_(new)
@@ -195,8 +221,8 @@ def bitset_step(cfg, words, pos, rnd, valid, seen, i_t, load):
     del_rows = torch.empty(valid.shape, dtype=torch.int32,
                            device=words.device)
     load_out = load.clone()
-    _launch(cfg, words, pos, rnd, valid, seen, i_t, load, dup, ins,
-            del_rows, load_out)
+    _launch(cfg, words, keys, seeds, block_seeds, rnd, valid, seen, i_t,
+            load, dup, ins, del_rows, load_out)
     bitset_step.launches += 1
     return dup, ins, load_out
 

@@ -1,10 +1,17 @@
 """hashmix: fused k-way murmur-mix hashing — keys (B,) -> positions (B, k).
 
-The port of ``repro/kernels/hashmix.py::hashmix``. ``hashmix`` is the
-wrapper: on a CUDA tensor it launches the hand-written kernel in
-``csrc/hashmix.cu`` (note there: what bounds it and how) or raises; on a
-CPU tensor it runs ``hashmix_plain``, the same function in plain PyTorch.
-It is ``hash_positions`` for the plane layout on every device.
+The port of ``repro/kernels/hashmix.py::hashmix``, with the blocked layout
+of DESIGN §3.3 in the same call. ``hashmix`` is the wrapper: on a CUDA
+tensor it launches the hand-written kernel in ``csrc/hashmix.cu`` (note
+there: what bounds it and how) or raises; on a CPU tensor it runs the
+plain versions, ``hashmix_plain`` and ``positions_plain``. The bitset step
+and ``fused_probe`` hash inside their own kernels (``csrc/hashmix.cuh``,
+the one definition of the hash), so on the card only the counter family's
+steps, ``Dedup.estimate`` and ``ops.hash_positions`` launch this kernel.
+
+A launch reads the seeds on the host, into the kernel's argument block:
+callers pass them as a CPU tensor (``host_seeds`` refuses seeds on the
+card).
 """
 
 from __future__ import annotations
@@ -19,6 +26,7 @@ from . import build
 
 M1 = 0x85EBCA6B
 M2 = 0xC2B2AE35
+MAX_ROWS = 32                     # csrc/hashmix.cuh::kMaxHashRows
 
 
 def hashmix_plain(keys: torch.Tensor, seeds: torch.Tensor, s: int
@@ -34,48 +42,111 @@ def hashmix_plain(keys: torch.Tensor, seeds: torch.Tensor, s: int
     return pos.to(torch.int32)
 
 
+def positions_plain(keys: torch.Tensor, seeds: torch.Tensor, s: int,
+                    block_bits: int = 0,
+                    block_seeds: torch.Tensor | None = None) -> torch.Tensor:
+    """The positions of either layout in plain PyTorch: ``hashmix_plain``,
+    or for ``block_bits`` > 0 the blocked layout as the reference computes
+    it — ``hb % n_blocks`` and ``h & (bsize - 1)`` are hashmix at ``s =
+    n_blocks`` and at ``s = bsize``, the product taken in int64 and kept
+    to its low 32 bits."""
+    if block_bits <= 0:
+        return hashmix_plain(keys, seeds, s)
+    bsize = 1 << block_bits
+    n_blocks = max(1, s // bsize)
+    block = hashmix_plain(keys, block_seeds, n_blocks).to(torch.int64)
+    bit = hashmix_plain(keys, seeds, bsize)
+    return u32.to_i32(block * bsize + bit)
+
+
+def check_hash_operands(kernel: str, keys, seeds, s: int, block_bits: int,
+                        block_seeds) -> None:
+    """What every hashing wrapper takes: int32 keys and seeds (k,), s in
+    [1, 2^31], and block seeds (k,) for the blocked layout. A launch also
+    needs k <= 32 (``host_seeds``)."""
+    for name, t in (("keys", keys), ("seeds", seeds),
+                    ("block_seeds", block_seeds)):
+        if t is not None and t.dtype != torch.int32:
+            raise TypeError(f"{kernel}: {name} must be int32 words, got "
+                            f"{t.dtype}")
+    if seeds.dim() != 1 or seeds.shape[0] < 1:
+        raise ValueError(f"{kernel}: seeds must be (k,) with k >= 1, got "
+                         f"{tuple(seeds.shape)}")
+    if not 1 <= s <= 1 << 31:
+        raise ValueError(f"{kernel}: s={s} outside [1, 2^31]")
+    if block_bits > 0:
+        if block_seeds is None:
+            raise ValueError("blocked layout needs block_seeds")
+        if block_seeds.shape != seeds.shape:
+            raise ValueError(f"{kernel}: block_seeds must be "
+                             f"{tuple(seeds.shape)}, got "
+                             f"{tuple(block_seeds.shape)}")
+        if not 1 <= block_bits <= 31:
+            raise ValueError(f"{kernel}: block_bits={block_bits} outside "
+                             f"[1, 31]")
+
+
+def host_seeds(seeds: torch.Tensor, block_seeds: torch.Tensor | None
+               ) -> tuple:
+    """The seeds (and the block seeds, or None) as contiguous CPU int32
+    tensors, as a launch reads them into its argument block. Seeds on the
+    card are refused: copying them to the host would wait for the card at
+    every launch. Keep the result alive until the launch returns."""
+    if seeds.shape[0] > MAX_ROWS:
+        raise ValueError(f"the hashing kernels take k <= {MAX_ROWS} rows, "
+                         f"got {seeds.shape[0]}")
+    for name, x in (("seeds", seeds), ("block_seeds", block_seeds)):
+        if x is not None and x.device.type != "cpu":
+            raise ValueError(f"a kernel launch reads its {name} on the "
+                             f"host: pass them as a CPU tensor, not on "
+                             f"{x.device}")
+    return tuple(None if x is None else x.contiguous()
+                 for x in (seeds, block_seeds))
+
+
+def ptr(t: torch.Tensor | None):
+    """A tensor's address for a C call, None (NULL) for no tensor."""
+    return None if t is None else t.data_ptr()
+
+
 @functools.lru_cache(maxsize=None)
 def _entry():
     """The C entry point, built at first use, its signature set once."""
     fn = build.load("hashmix").hashmix_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_uint32,
-                   ctypes.c_void_p]
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p, p, i, p, p, i, ctypes.c_uint32, i, p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(keys: torch.Tensor, seeds: torch.Tensor, out: torch.Tensor,
-            s: int) -> None:
-    stream = torch.cuda.current_stream(keys.device).cuda_stream
-    err = _entry()(keys.data_ptr(), seeds.data_ptr(), out.data_ptr(),
-             keys.shape[0], seeds.shape[0], s, stream)
-    if err != 0:
-        raise RuntimeError(f"hashmix kernel launch failed: CUDA error {err}")
-
-
-def hashmix(keys: torch.Tensor, seeds: torch.Tensor, *, s: int
-            ) -> torch.Tensor:
-    """Positions (B, k) int32. keys (B,) and seeds (k,) are int32 words on
-    one device; ``hashmix.launches`` counts kernel launches."""
-    if keys.dtype != torch.int32 or seeds.dtype != torch.int32:
-        raise TypeError("hashmix takes int32 word tensors")
-    if keys.dim() != 1 or seeds.dim() != 1:
-        raise ValueError(f"hashmix takes keys (B,) and seeds (k,); got "
-                         f"{tuple(keys.shape)} and {tuple(seeds.shape)}")
-    if keys.device != seeds.device:
-        raise ValueError("keys and seeds must share a device")
-    if not 1 <= s <= 1 << 31:
-        raise ValueError(f"s={s} outside [1, 2^31]")
+def hashmix(keys: torch.Tensor, seeds: torch.Tensor, *, s: int,
+            block_bits: int = 0,
+            block_seeds: torch.Tensor | None = None) -> torch.Tensor:
+    """Positions (B, k) int32 of keys (B,) int32 words. ``seeds`` (k,),
+    and ``block_seeds`` (k,) for ``block_bits`` > 0, are int32 words: on
+    the keys' device for the plain versions, on the CPU for a launch,
+    which reads them on the host (``host_seeds``).
+    ``hashmix.launches`` counts kernel launches: one per call on CUDA,
+    either layout."""
+    check_hash_operands("hashmix", keys, seeds, s, block_bits, block_seeds)
+    if keys.dim() != 1:
+        raise ValueError(f"hashmix takes keys (B,); got "
+                         f"{tuple(keys.shape)}")
     if not (keys.is_contiguous() and seeds.is_contiguous()):
         raise ValueError("hashmix takes contiguous tensors")
     if keys.device.type == "cpu":
-        return hashmix_plain(keys, seeds, s)
+        return positions_plain(keys, seeds, s, block_bits, block_seeds)
     if keys.device.type != "cuda":
         raise ValueError(f"hashmix runs on cpu or cuda, not {keys.device}")
     out = torch.empty((keys.shape[0], seeds.shape[0]), dtype=torch.int32,
                       device=keys.device)
-    _launch(keys, seeds, out, s)
+    hs, hb = host_seeds(seeds, block_seeds if block_bits > 0 else None)
+    err = _entry()(keys.data_ptr(), out.data_ptr(), keys.shape[0],
+                   hs.data_ptr(), ptr(hb), hs.shape[0], s,
+                   max(block_bits, 0),
+                   torch.cuda.current_stream(keys.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"hashmix kernel launch failed: CUDA error {err}")
     hashmix.launches += 1
     return out
 

@@ -1,11 +1,14 @@
 """Public wrappers around the port's probe and scatter kernels — the port of
 ``repro/kernels/ops.py``.
 
-``fused_probe`` chains hashmix -> split -> bloom_probe -> AND-reduce: the
-paper's "report duplicate / distinct" decision of Algorithms 1-4 in two
-kernel launches. Each function runs where its tensors lie: the
-hand-written kernels on CUDA, their plain versions on the CPU. Words, keys,
-seeds and masks are int32 tensors of uint32 bit patterns (``core.u32``).
+``fused_probe`` is hashmix -> split -> bloom_probe -> AND-reduce, the
+paper's "report duplicate / distinct" decision of Algorithms 1-4, which
+the reference runs as two kernel launches: here it is one kernel
+(``bloom_probe.fused_probe``). Each function runs where its tensors lie:
+the hand-written kernels on CUDA, their plain versions on the CPU. Words,
+keys, seeds and masks are int32 tensors of uint32 bit patterns
+(``core.u32``); a launch reads the seeds on the host, so they are given
+on the CPU.
 
 One difference from the reference: ``probe`` does not refuse filter rows
 over 8 MiB. That limit was the TPU's VMEM budget for a row pinned in fast
@@ -16,7 +19,7 @@ from __future__ import annotations
 
 import torch
 
-from ..core import packed
+from . import bloom_probe as _probe
 from .bloom_probe import bloom_probe
 from .hashmix import hashmix
 from .scatter_delta import scatter_delta
@@ -36,11 +39,9 @@ def probe(words: torch.Tensor, word_idx: torch.Tensor,
 
 def fused_probe(keys: torch.Tensor, words: torch.Tensor, seeds: torch.Tensor,
                 s: int):
-    """keys (B,) -> (dup (B,) bool, hits (B, k) uint8, pos (B, k) int32)."""
-    pos = hash_positions(keys, seeds, s)
-    w_idx, mask = packed.split_pos(pos)
-    hits = probe(words, w_idx, mask)
-    return (hits == 1).all(dim=1), hits, pos
+    """keys (B,) -> (dup (B,) bool, hits (B, k) uint8, pos (B, k) int32),
+    one kernel launch on CUDA."""
+    return _probe.fused_probe(keys, words, seeds, s)
 
 
 def scatter_or(words: torch.Tensor, word_idx: torch.Tensor,

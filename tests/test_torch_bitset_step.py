@@ -149,18 +149,23 @@ def test_wrapper_on_cpu_updates_in_place_without_launch():
     i_t = torch.arange(1, 65, dtype=torch.int32)
     _, rnd = tb.draw_randomness(tc, st.rng, 64)
     words = st.bits.clone()
+    seeds = _w(hashing.derive_seeds(tc.seed, 2))
     before = bitset_step.launches
-    dup, ins, load = bitset_step(tc, words, pos, rnd, v, seen, i_t, st.load)
+    dup, ins, load = bitset_step(tc, words, keys, rnd, v, seen, i_t, st.load,
+                                 seeds=seeds)
     new, dup_p, ins_p, load_p = bitset_step_plain(tc, st.bits, pos, rnd, v,
                                                   seen, i_t, st.load)
     assert bitset_step.launches == before
     assert torch.equal(words, new) and torch.equal(load, load_p)
     assert torch.equal(dup, dup_p) and torch.equal(ins, ins_p)
     assert torch.equal(load, packed.popcount(words))
-    with pytest.raises(ValueError, match="pos"):
-        bitset_step(tc, words, pos.long(), rnd, v, seen, i_t, st.load)
+    with pytest.raises(ValueError, match="i_t"):
+        bitset_step(tc, words, keys, rnd, v, seen, i_t.long(), st.load,
+                    seeds=seeds)
     with pytest.raises(ValueError, match="words"):
-        bitset_step(tc, words[:1], pos, rnd, v, seen, i_t, st.load)
+        bitset_step(tc, words[:1], keys, rnd, v, seen, i_t, st.load,
+                    seeds=seeds)
     with pytest.raises(ValueError, match="contiguous"):
-        bitset_step(tc, words, pos.T.contiguous().T, rnd, v, seen, i_t,
-                    st.load)
+        bitset_step(tc, words, keys, rnd._replace(
+            u_aux=rnd.u_aux.T.contiguous().T), v, seen, i_t, st.load,
+            seeds=seeds)

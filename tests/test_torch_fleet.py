@@ -323,7 +323,8 @@ def test_fleet_overflow_is_counted_and_distinct():
     jc, tc = configs("bsbf", T=2)
     tf = tfleet.FleetDedup(tc, capacity=8, device="cpu", params=tfleet
                            .TenantParams(*(torch.tensor(v) for v in (
-                               [1, 1], [1, 1], [1, 1], [2, 8]))))
+                               [1, 1], [1, 1], [1, 1], [2, 8]))),
+                           partitionable=_layout())
     jf = jfleet.FleetDedup(jc, capacity=8, params=jfleet.FleetDedup(
         jc, capacity=8).params._replace(capacity=jnp.asarray([2, 8],
                                                               jnp.int32)))

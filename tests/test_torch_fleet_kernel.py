@@ -218,14 +218,14 @@ def test_tenant_axis_wrappers_check_their_operands():
     kw = u32.from_numpy_u32(keys, "cpu")
     from repro_torch.core import hashing
     seeds = u32.from_numpy_u32(hashing.derive_seeds(bc.seed, bc.k), "cpu")
-    bpos = hashing.hash_positions(kw, seeds, bc.s)
     vv = torch.ones((4, 16), dtype=torch.bool)
     i_t = bs.position[:, None] + torch.arange(16, dtype=torch.int32)
     with pytest.raises(ValueError, match="load"):
-        ft.bitset_step(bc, bs.bits, bpos, rnd, vv, vv, i_t, bs.load[0])
+        ft.bitset_step(bc, bs.bits, kw, rnd, vv, vv, i_t, bs.load[0],
+                       seeds=seeds)
     with pytest.raises(ValueError, match="u_aux"):
-        ft.bitset_step(bc, bs.bits, bpos, rnd._replace(u_aux=rnd.u_aux[:1]),
-                       vv, vv, i_t, bs.load)
+        ft.bitset_step(bc, bs.bits, kw, rnd._replace(u_aux=rnd.u_aux[:1]),
+                       vv, vv, i_t, bs.load, seeds=seeds)
 
 
 @pytest.mark.parametrize("variant", ("swbf", "rlbsbf", "sbf"))

@@ -74,26 +74,27 @@ def test_kernel_matches_plain_on_card(cuda, variant):
     """The CUDA bitset step equals its plain version bit for bit on a
     half-full filter, over colliding, ragged and fresh batches."""
     from repro_torch.core import hashing, prng
+    from repro_torch.kernels.hashmix import hashmix_plain
     tc = DedupConfig.for_variant(variant, memory_bits=1 << 22, packed=True)
     gen = torch.Generator(device=cuda).manual_seed(1)
     words = torch.randint(-2 ** 31, 2 ** 31, (tc.k, tc.s_words),
                           dtype=torch.int32, device=cuda, generator=gen)
     load = packed.popcount(words)
     rng = prng.PRNGKey(3, cuda)
-    seeds = u32.from_numpy_u32(hashing.derive_seeds(tc.seed, tc.k), cuda)
+    seeds = u32.from_numpy_u32(hashing.derive_seeds(tc.seed, tc.k), "cpu")
     r = np.random.default_rng(5)
     position = tc.s - 3000
     for n_valid, hi in ((8192, 200), (5000, 2 ** 32), (8192, 2 ** 32)):
         keys = u32.from_numpy_u32(r.integers(0, hi, 8192, dtype=np.uint64),
                                   cuda)
         v = torch.arange(8192, device=cuda) < n_valid
-        pos = hashing.hash_positions(keys, seeds, tc.s)
+        pos = hashmix_plain(keys, seeds.to(cuda), tc.s)
         seen = tb.intra_batch_seen(keys, v)
         i_t = position + torch.arange(8192, dtype=torch.int32, device=cuda)
         rng, rnd = tb.draw_randomness(tc, rng, 8192)
         got = words.clone()
-        dup, ins, new_load = bitset_step(tc, got, pos, rnd, v, seen, i_t,
-                                         load)
+        dup, ins, new_load = bitset_step(tc, got, keys, rnd, v, seen, i_t,
+                                         load, seeds=seeds)
         new, dup_p, ins_p, load_p = bitset_step_plain(tc, words, pos, rnd, v,
                                                       seen, i_t, load)
         torch.cuda.synchronize()
@@ -105,14 +106,19 @@ def test_kernel_matches_plain_on_card(cuda, variant):
 @pytest.mark.gpu
 @pytest.mark.parametrize("s", (1 << 30, 715827882, 1 << 12, 1365))
 def test_hashmix_kernel_matches_plain_on_card(cuda, s):
+    """k from 1 to 32 (the seeds staged per block), B not a multiple of
+    the block; the seeds are given on the host, and seeds on the card are
+    refused."""
     from repro_torch.core import hashing
     from repro_torch.kernels.hashmix import hashmix, hashmix_plain
     keys = u32.from_numpy_u32(np.random.default_rng(s % 1000).integers(
-        0, 2 ** 32, 8192, dtype=np.uint64), cuda)
-    for k in (1, 2, 3):
-        seeds = u32.from_numpy_u32(hashing.derive_seeds(7, k), cuda)
-        assert torch.equal(hashmix(keys, seeds, s=s),
-                           hashmix_plain(keys, seeds, s))
+        0, 2 ** 32, 8191, dtype=np.uint64), cuda)
+    for k in (1, 2, 3, 4, 6, 8, 32):
+        seeds = u32.from_numpy_u32(hashing.derive_seeds(7, k), "cpu")
+        want = hashmix_plain(keys, seeds.to(cuda), s)
+        assert torch.equal(hashmix(keys, seeds, s=s), want)
+        with pytest.raises(ValueError, match="CPU tensor"):
+            hashmix(keys, seeds.to(cuda), s=s)
 
 
 @pytest.mark.gpu
@@ -131,7 +137,8 @@ def test_engine_on_card_matches_engine_on_cpu(cuda, variant):
     launches = (hashmix.launches, bitset_step.launches)
     sg, dg = on_card.run_stream(on_card.init(), keys)
     sc, dc = on_cpu.run_stream(on_cpu.init(), keys)
-    assert hashmix.launches - launches[0] == 10
+    # the bitset kernel hashes its keys itself: no hashmix launch
+    assert hashmix.launches - launches[0] == 0
     assert bitset_step.launches - launches[1] == 10
     assert torch.equal(dg.cpu(), dc)
     a, b = state_to_numpy(sg), state_to_numpy(sc)
@@ -155,7 +162,8 @@ def test_counter_kernel_matches_plain_on_card(cuda, name, accumulate):
     events = spec.make_events(cfg)
     r = np.random.default_rng(11)
     st = random_counter_state(cfg, cuda, r)
-    seeds = u32.from_numpy_u32(hashing.derive_seeds(cfg.seed, cfg.k), cuda)
+    seeds = u32.from_numpy_u32(hashing.derive_seeds(cfg.seed, cfg.k),
+                               "cpu")
     for n_valid, hi in ((8192, 200), (5000, 2 ** 32), (8192, 2 ** 32)):
         keys = u32.from_numpy_u32(r.integers(0, hi, 8192, dtype=np.uint64),
                                   cuda)
@@ -280,7 +288,7 @@ def test_tenant_axis_bitset_kernel_matches_plain_on_card(cuda, variant, t):
     load = packed.popcount(words)
     rng = prng.fold_in(prng.PRNGKey(3, cuda),
                        torch.arange(t, device=cuda))
-    seeds = u32.from_numpy_u32(hashing.derive_seeds(cfg.seed, k), cuda)
+    seeds = u32.from_numpy_u32(hashing.derive_seeds(cfg.seed, k), "cpu")
     r = np.random.default_rng(t)
     position = torch.full((t,), cfg.s - 3000, dtype=torch.int32,
                           device=cuda)
@@ -293,8 +301,8 @@ def test_tenant_axis_bitset_kernel_matches_plain_on_card(cuda, variant, t):
         rng, rnd = tb.draw_randomness(cfg, rng, c)
         got = words.clone()
         before = bitset_step.launches
-        dup, ins, new_load = bitset_step(cfg, got, pos, rnd, v, seen, i_t,
-                                         load)
+        dup, ins, new_load = bitset_step(cfg, got, keys, rnd, v, seen, i_t,
+                                         load, seeds=seeds)
         new, dup_p, ins_p, load_p = bitset_step_plain(cfg, words, pos, rnd,
                                                       v, seen, i_t, load)
         torch.cuda.synchronize()
@@ -369,7 +377,8 @@ def test_params_aware_counter_kernel_matches_plain_on_card(cuda, variant, t):
     r = np.random.default_rng(11 + t)
     st = random_fleet_counter_state(cfg, cuda, r)
     knobs = hetero_knobs(cfg, t, cuda)
-    seeds = u32.from_numpy_u32(hashing.derive_seeds(cfg.seed, cfg.k), cuda)
+    seeds = u32.from_numpy_u32(hashing.derive_seeds(cfg.seed, cfg.k),
+                               "cpu")
     c = 2048
     for hi in (200, 2 ** 32, 2 ** 32):
         keys, v = fleet_lanes(cfg, t, c, r, cuda, hi)
@@ -407,7 +416,9 @@ def test_params_aware_counter_kernel_matches_plain_on_card(cuda, variant, t):
                                      "cms"))
 def test_fleet_on_card_matches_fleet_on_cpu(cuda, variant):
     """The whole fleet through the kernels equals it through the plain
-    versions, with one hashmix and one step launch per fleet step."""
+    versions, with one step launch per fleet step, and one hashmix launch
+    per step on the counter paths only (the bitset kernel hashes its
+    keys itself)."""
     from repro_torch.convert import state_to_numpy
     from repro_torch.core.fleet import FleetDedup, default_tenant_params
     from repro_torch.kernels.hashmix import hashmix
@@ -430,7 +441,8 @@ def test_fleet_on_card_matches_fleet_on_cpu(cuda, variant):
     sg, dg, og = fleets[0].run_stream(fleets[0].init(), keys, tens)
     sc, dc, oc = fleets[1].run_stream(fleets[1].init(), keys, tens)
     step = bitset_step if variant in BITSET else counter_step
-    assert hashmix.launches - launches[0] == 10
+    assert hashmix.launches - launches[0] == (0 if step is bitset_step
+                                              else 10)
     assert step.launches - launches[1 if step is bitset_step else 2] == 10
     assert torch.equal(dg.cpu(), dc) and torch.equal(og.cpu(), oc)
     a, b = state_to_numpy(sg), state_to_numpy(sc)
@@ -442,18 +454,19 @@ def test_fleet_on_card_matches_fleet_on_cpu(cuda, variant):
 @pytest.mark.gpu
 @pytest.mark.parametrize("block_bits", (5, 9))
 def test_blocked_layout_on_card_matches_plain(cuda, block_bits):
-    """The blocked layout on the card (two hashmix launches) equals its
-    plain form, at a power-of-two s and at one that is not."""
+    """The blocked layout on the card (one hashmix launch) equals the
+    formula of two plain hashmix calls, at a power-of-two s and at one
+    that is not."""
     from repro_torch.core import hashing
     from repro_torch.kernels.hashmix import hashmix, hashmix_plain
     keys = u32.from_numpy_u32(np.random.default_rng(block_bits).integers(
         0, 2 ** 32, 8192, dtype=np.uint64), cuda)
-    seeds = u32.from_numpy_u32(hashing.derive_seeds(9, 3, 0), cuda)
-    bseeds = u32.from_numpy_u32(hashing.derive_seeds(9, 3, 1), cuda)
+    seeds = u32.from_numpy_u32(hashing.derive_seeds(9, 3, 0), "cpu")
+    bseeds = u32.from_numpy_u32(hashing.derive_seeds(9, 3, 1), "cpu")
     for s in (1 << 20, 3_000_000):
         before = hashmix.launches
         got = hashing.hash_positions(keys, seeds, s, block_bits, bseeds)
-        assert hashmix.launches == before + 2
+        assert hashmix.launches == before + 1
         bsize = 1 << block_bits
         want = (hashmix_plain(keys.cpu(), bseeds.cpu(), max(1, s // bsize))
                 .long() * bsize + hashmix_plain(keys.cpu(), seeds.cpu(),
@@ -553,7 +566,7 @@ def test_bitset_kernel_large_and_ragged_grids_on_card(cuda, variant, t, c):
                           dtype=torch.int32, device=cuda, generator=gen)
     load = packed.popcount(words)
     rng = prng.fold_in(prng.PRNGKey(5, cuda), torch.arange(t, device=cuda))
-    seeds = u32.from_numpy_u32(hashing.derive_seeds(cfg.seed, k), cuda)
+    seeds = u32.from_numpy_u32(hashing.derive_seeds(cfg.seed, k), "cpu")
     r = np.random.default_rng(c)
     position = torch.full((t,), cfg.s - 3000, dtype=torch.int32,
                           device=cuda)
@@ -566,8 +579,8 @@ def test_bitset_kernel_large_and_ragged_grids_on_card(cuda, variant, t, c):
         rng, rnd = tb.draw_randomness(cfg, rng, c)
         got = words.clone()
         before = bitset_step.launches
-        dup, ins, new_load = bitset_step(cfg, got, pos, rnd, v, seen, i_t,
-                                         load)
+        dup, ins, new_load = bitset_step(cfg, got, keys, rnd, v, seen, i_t,
+                                         load, seeds=seeds)
         new, dup_p, ins_p, load_p = bitset_step_plain(cfg, words, pos, rnd,
                                                       v, seen, i_t, load)
         torch.cuda.synchronize()
@@ -577,3 +590,122 @@ def test_bitset_kernel_large_and_ragged_grids_on_card(cuda, variant, t, c):
         assert torch.equal(new_load, packed.popcount(got))
         words, load = got, new_load
         position = position + v.sum(dim=1, dtype=torch.int32)
+
+
+# ------------------------- the hash inside the kernels (hashmix.cuh users) //
+
+def random_filter(cfg, device, seed):
+    """(k, W) words at ~50% density with the bits past s clear, and their
+    load."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    words = torch.randint(-2 ** 31, 2 ** 31, (cfg.k, cfg.s_words),
+                          dtype=torch.int32, device=device, generator=gen)
+    tail = cfg.s - 32 * (cfg.s_words - 1)
+    if tail < 32:
+        words[:, -1] &= (1 << tail) - 1
+    return words, packed.popcount(words)
+
+
+def hashed_step_case(device, k, s, block_bits):
+    """The bitset step hashing its keys in the kernel equals the plain
+    hashmix (``positions_plain``) feeding ``bitset_step_plain``, over a
+    colliding and a fresh batch with a ragged valid mask; it launches no
+    hashmix."""
+    from repro_torch.core import prng
+    from repro_torch.kernels.hashmix import hashmix, positions_plain
+    cfg = DedupConfig(variant="rlbsbf", k=k, memory_bits=k * s, packed=True,
+                      block_bits=block_bits).validate()
+    words, load = random_filter(cfg, device, k)
+    seeds, bseeds = tb._seeds(cfg)
+    rng = prng.PRNGKey(k, device)
+    r = np.random.default_rng(s % 1009 + k)
+    for hi in (200, 2 ** 32):
+        keys = u32.from_numpy_u32(r.integers(0, hi, 8192, dtype=np.uint64),
+                                  device)
+        v = torch.from_numpy(r.random(8192) < 0.9).to(device)
+        seen = tb.intra_batch_seen(keys, v)
+        i_t = 1 + torch.arange(8192, dtype=torch.int32, device=device)
+        rng, rnd = tb.draw_randomness(cfg, rng, 8192)
+        pos = positions_plain(keys, seeds.to(device), s, block_bits,
+                              None if bseeds is None else bseeds.to(device))
+        got = words.clone()
+        before = (hashmix.launches, bitset_step.launches)
+        dup, ins, new_load = bitset_step(
+            cfg, got, keys, rnd, v, seen, i_t, load, seeds=seeds,
+            block_seeds=bseeds)
+        assert (hashmix.launches, bitset_step.launches) == (before[0],
+                                                            before[1] + 1)
+        new, dup_p, ins_p, load_p = bitset_step_plain(cfg, words, pos, rnd,
+                                                      v, seen, i_t, load)
+        torch.cuda.synchronize()
+        assert torch.equal(got, new)
+        assert torch.equal(dup, dup_p) and torch.equal(ins, ins_p)
+        assert torch.equal(new_load, load_p)
+        words, load = got, new_load
+        del new, pos
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", (1 << 30, 715827882, 1365))
+@pytest.mark.parametrize("k", (1, 2, 3, 8, 32))
+def test_hashed_bitset_step_matches_hashmix_plus_plain_on_card(cuda, k, s):
+    hashed_step_case(cuda, k, s, 0)
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("block_bits, s", ((5, 1 << 20), (9, 3_000_000)))
+def test_hashed_bitset_step_blocked_layout_on_card(cuda, block_bits, s):
+    hashed_step_case(cuda, 3, s, block_bits)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", (1 << 30, 715827882, 1365))
+@pytest.mark.parametrize("k", (1, 2, 3, 8, 9, 32))
+def test_fused_probe_matches_plain_chain_on_card(cuda, k, s):
+    """``ops.fused_probe``'s one launch equals the chain of plain versions
+    (hashmix, split, bloom_probe, AND) on a half-full filter; it moves
+    only its own launch counter."""
+    from repro_torch.core import hashing
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.bloom_probe import (bloom_probe, fused_probe,
+                                                 fused_probe_plain)
+    from repro_torch.kernels.hashmix import hashmix
+    cfg = DedupConfig(variant="rlbsbf", k=k, memory_bits=k * s,
+                      packed=True).validate()
+    words, _ = random_filter(cfg, cuda, k + 1)
+    seeds = u32.from_numpy_u32(hashing.derive_seeds(5, k), "cpu")
+    keys = u32.from_numpy_u32(np.random.default_rng(k).integers(
+        0, 2 ** 32, 8191, dtype=np.uint64), cuda)
+    before = (fused_probe.launches, hashmix.launches, bloom_probe.launches)
+    got = ops.fused_probe(keys, words, seeds, s)
+    assert (fused_probe.launches, hashmix.launches,
+            bloom_probe.launches) == (before[0] + 1, *before[1:])
+    want = fused_probe_plain(keys, words, seeds.to(cuda), s)
+    torch.cuda.synchronize()
+    for x, y in zip(got, want):
+        assert x.dtype == y.dtype and torch.equal(x, y)
+    del words
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", (1, 2, 3, 4, 8, 12))
+def test_bloom_probe_kernel_on_views_and_every_k_on_card(cuda, k):
+    """bloom_probe at k from 1 to 12, on operands that start at their
+    allocation and on views that start one element in, with indices
+    outside [0, W) clamped."""
+    from repro_torch.kernels.bloom_probe import bloom_probe, bloom_probe_plain
+    w, b = 1 << 16, 8191
+    r = np.random.default_rng(k)
+    words = u32.from_numpy_u32(r.integers(0, 2 ** 32, (k, w),
+                                          dtype=np.uint64), cuda)
+    idx = torch.from_numpy(r.integers(-5, w + 5, (b + 1) * k)
+                           .astype(np.int32)).to(cuda)
+    mask = u32.to_i32(1 << torch.from_numpy(r.integers(0, 32, (b + 1) * k))
+                      .to(cuda))
+    for start in (0, 1):
+        i = idx[start:start + b * k].view(b, k)
+        m = mask[start:start + b * k].view(b, k)
+        assert torch.equal(bloom_probe(words, i, m),
+                           bloom_probe_plain(words, i, m))
