@@ -5,25 +5,37 @@
 
 Builds the port's CUDA kernels from the sources in this checkout (one
 ``nvcc`` per source, all at once), holds each against its plain PyTorch
-version on the card at the paper's 256 MB table — the bitset step for
-rsbf, bsbf, bsbfsd and rlbsbf (hashing its keys in the kernel), the
-counter step for sbf, sbf at Max 1, swbf, cms and
-hh (sbf at Max 1 at 128 MB: its one plane of 2^31 cells would overflow
-the int32 sentinel), hashmix (both layouts), bloom_probe, fused_probe and
-scatter_delta — and reproduces the reference's seven pinned digests on
-CUDA. Then it drives three paths over one 2^24-record stream at the
-paper's 60% distinct fraction, batch 8192, each with the launch counts set
-to 0 just before and read just after:
+version on the card at the paper's 256 MB table (``paper_config``) — the
+bitset step for rsbf, bsbf, bsbfsd and rlbsbf (hashing its keys in the
+kernel), the counter step for sbf, sbf at Max 1, swbf, cms and hh (sbf at
+Max 1 at 128 MB: its one plane of 2^31 cells would overflow the int32
+sentinel), hashmix (both layouts, k up to 64, the seeds past 32 rows read
+from device memory), bloom_probe, fused_probe and scatter_delta — and
+reproduces the reference's seven pinned digests on CUDA. Then it drives
+three paths over one 2^24-record stream at the paper's 60% distinct
+fraction, batch 8192, each with the launch counts set to 0 just before
+and read just after:
 
-* rlbsbf on the 256 MB table (k = 2, s = 2^30 bits per row): the bitset
-  step, which hashes its keys itself (no hashmix launch);
+* rlbsbf on the 256 MB table (k = 2, s = 2^30 bits per row) on the plane
+  layout: the bitset step, which hashes its keys itself (no hashmix
+  launch);
 * sbf, the paper's baseline, on the 256 MB table (k = 3, Max 3, 2^30
-  two-bit cells): hashmix and the counter step, then one ``estimate`` and
-  one ``top_cells``;
+  two-bit cells) on the plane layout: hashmix and the counter step, then
+  one ``estimate`` and one ``top_cells``;
 * a classic Bloom filter through ``kernels/ops.py`` on the rlbsbf table's
   shape, over the stream's first 2^21 records: fused_probe (one launch per
   batch) and scatter_delta, then a pass that checks every key is held
   with ``hash_positions`` (hashmix) and ``probe`` (bloom_probe).
+
+Then the reference's default path, "dense8": ``DedupPipeline`` over
+``paper_config(v, 256)`` with the default layout, which is dense8 (one
+byte per bit, per cell for sbf): rlbsbf (a (2, 2^30) uint8 state, 2 GiB)
+and sbf (2^30 cells, 1 GiB) over the stream's first 2^22 records (the
+depth cut from 2^24 for the run's time limit), one hashmix launch per step
+and no step kernel, their FPR / FNR from ``StreamMetrics.summary()`` and
+their dup reports equal bit for bit to the plane paths' on that prefix;
+and the sbf oracle, ``run_stream_oracle`` at the 256 MB table over 4096
+keys, equal to the batch-size-1 engine.
 
 Then the tenant fleets (DESIGN §4.6): 32 tenants of 8 MB each (the paper's
 smallest table per tenant, 256 MiB stacked). Its "fleet" phase holds both
@@ -31,37 +43,37 @@ step kernels over their tenant grid axis against their plain versions
 (the bitset step for the four variants; the params-aware counter step for
 sbf with per-tenant Max 3 / 2, swbf with per-tenant windows, cms with
 per-tenant thresholds, and hh), and two paths run ``FleetDedup.run_stream``
-over the stream's first 2^23 records with tenant ids drawn uniformly from a
-seeded generator (capacity 512 per tenant and step):
+over the stream's first 2^22 records (cut from 2^23 to make room for the
+dense8 phase) with tenant ids drawn uniformly from a seeded generator
+(capacity 512 per tenant and step):
 
 * fleet-rlbsbf-32x8MB: rlbsbf, k = 2, s = 2^25 per row (no hashmix);
 * fleet-sbf-32x8MB-hetero: sbf on planes, d = 2, per-tenant Max 3 and 2.
 
 Last it times each kernel beside its bound and the card's latency floor
 (an empty launch, and 1 - 3 dependent scattered loads per thread), and
-profiles a step of each engine and fleet path. Every phase fails the run;
-the last line of standard output is ``{"ok": true, "device": {...}}``
-only when all of them passed. Without a CUDA device, or without the
-``src/repro_torch`` package beside this file, it exits non-zero and
-prints no result.
+profiles a step of each engine and fleet path and of the two dense8
+steps. Every phase fails the run; the last line of standard output is
+``{"ok": true, "device": {...}}`` only when all of them passed. Without a
+CUDA device, or without the ``src/repro_torch`` package beside this file,
+it exits non-zero and prints no result.
 
     python3 chip_smoke.py --parent DIR
 
-also builds an earlier design of hashmix, bloom_probe and the bitset step
-from ``DIR``'s ``hashmix.cu``, ``bloom_probe.cu`` and ``bitset_step.cu``
-(with ``DIR``'s own headers, if it has any; the C interfaces of the
-commit before the hash moved into the kernels) and times it against the
-current one on the same inputs, in turns (earlier, current, current,
-earlier), the L2 flushed before each: the earlier hashmix plus bitset
-step against the step that hashes its keys, for one filter and for the
-fleet; the earlier
-``fused_probe`` chain (hashmix, split, bloom_probe, AND) against the one
-launch; the standalone hashmix and bloom_probe, old against new.
+also builds an earlier design of hashmix, bloom_probe, the bitset step and
+the counter step from ``DIR``'s ``hashmix.cu``, ``bloom_probe.cu``,
+``bitset_step.cu`` and ``counter_step.cu`` (with ``DIR``'s own headers, if
+it has any; the C interfaces of the commit before the seeds could come
+from device memory) and times them against the current ones on the same
+inputs, through the same wrappers, in turns (earlier, current, current,
+earlier, twice over), the L2 flushed before each: the bitset and counter
+steps for one filter and for the fleet, hashmix and fused_probe.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import dataclasses
 import functools
@@ -78,13 +90,15 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 SEED = 0
-MEMORY_BITS = 1 << 31            # the paper's 256 MB table (configs/paper_dedup.py)
+MEMORY_MB = 256                  # the paper's 256 MB table (PAPER_MEMORIES_MB)
 BATCH = 8192                     # DedupConfig.batch_size
 STREAM_N = 1 << 24               # the paper's 695M-1B records, cut for time
 OPS_N = 1 << 21                  # the ops path's prefix of the stream
 FLEET_T = 32                     # tenants of a fleet path
-FLEET_MEMORY_BITS = 1 << 26      # 8 MB per tenant (PAPER_MEMORIES_MB[0])
-FLEET_N = 1 << 23                # the fleet paths' prefix of the stream
+FLEET_MB = 8                     # per tenant (PAPER_MEMORIES_MB[0])
+FLEET_N = 1 << 22                # the fleet paths' prefix of the stream
+DENSE8_N = 1 << 22               # the dense8 pipelines' prefix of the stream
+ORACLE_N = 4096                  # keys of the sbf oracle on the card
 FLEET_CAPACITY = 512             # FleetDedup's default: ceil(2·8192 / 32)
 DISTINCT_FRAC = 0.60             # the paper's 60% distinct (Section 6)
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
@@ -103,7 +117,7 @@ COUNTER = ("sbf", "sbf_d1", "swbf", "cms", "hh")
 # each step kernel's device kernels, as the profiler names them
 BITSET_KERNELS = ("probe_decide", "apply_deletes", "apply_inserts")
 COUNTER_KERNELS = ("counter_probe_partition", "counter_merge_apply")
-PARENT_SOURCES = ("hashmix", "bloom_probe", "bitset_step")
+PARENT_SOURCES = ("hashmix", "bloom_probe", "bitset_step", "counter_step")
 
 
 T0 = time.perf_counter()
@@ -118,18 +132,23 @@ def stamp(phase: str) -> None:
     log(f"[elapsed] {phase} done at {time.perf_counter() - T0:.1f} s")
 
 
-def config(name, **kw):
+def config(name, mb=None, **kw):
     """The port's config for a variant name of the digest grid: the bitset
-    variants and sbf on the plane layout, sbf_d1 = sbf at Max 1."""
+    variants and sbf on the plane layout, sbf_d1 = sbf at Max 1. With
+    ``mb`` it is the paper's table of that many MB (``paper_config``),
+    else ``DedupConfig.for_variant`` at ``kw``'s memory_bits."""
+    from repro_torch.configs import paper_config
     from repro_torch.core import DedupConfig
+    variant = "sbf" if name == "sbf_d1" else name
     if name in BITSET:
-        return DedupConfig.for_variant(name, packed=True, **kw)
-    if name == "sbf":
-        return DedupConfig.for_variant("sbf", layout="planes", **kw)
-    if name == "sbf_d1":
-        return DedupConfig.for_variant("sbf", layout="planes", sbf_max=1,
-                                       **kw)
-    return DedupConfig.for_variant(name, **kw)
+        kw["packed"] = True
+    elif variant == "sbf":
+        kw["layout"] = "planes"
+        if name == "sbf_d1":
+            kw["sbf_max"] = 1
+    if mb is not None:
+        return paper_config(variant, mb, **kw)
+    return DedupConfig.for_variant(variant, **kw)
 
 
 def abs_err(a, b) -> int:
@@ -258,8 +277,8 @@ def phase_counter(rng):
         # sbf at Max 1 has one plane: 256 MB would be 2^31 cells, whose
         # sentinel 32·W = 2^31 overflows int32 (in the reference too), so it
         # runs at 128 MB
-        memory = MEMORY_BITS // 2 if name == "sbf_d1" else MEMORY_BITS
-        base = config(name, memory_bits=memory, batch_size=BATCH)
+        mb = MEMORY_MB // 2 if name == "sbf_d1" else MEMORY_MB
+        base = config(name, mb, batch_size=BATCH)
         spec = get_spec(base.variant)
         start = random_counter_state(base, rng, 5000)
         batches = [
@@ -385,14 +404,14 @@ def phase_hashmix(rng):
     worst = 0
     keys = u32.from_numpy_u32(
         rng.integers(0, 2 ** 32, BATCH, dtype=np.uint64), "cuda")
-    sbf_cfg = config("sbf", memory_bits=MEMORY_BITS)
+    sbf_cfg = config("sbf", MEMORY_MB)
     cases = [(sbf_cfg.k, sbf_cfg.s, sbf_cfg.block_bits)]
     for variant in ("rlbsbf", "rsbf"):
-        cfg = DedupConfig.for_variant(variant, memory_bits=MEMORY_BITS,
-                                      packed=True)
+        cfg = config(variant, MEMORY_MB)
         cases.append((cfg.k, cfg.s, 0))
+    # past 32 rows the seeds come from device memory
     cases += [(4, 1 << 30, 0), (8, 715827882, 0), (3, 1 << 30, 9),
-              (2, 715827882, 5)]
+              (2, 715827882, 5), (33, 1 << 30, 0), (64, 715827882, 9)]
     for k, s, block_bits in cases:
         seeds = u32.from_numpy_u32(hashing.derive_seeds(SEED, k, 0), "cpu")
         bseeds = u32.from_numpy_u32(hashing.derive_seeds(SEED, k, 1), "cpu")
@@ -431,7 +450,7 @@ def phase_bitset(rng):
     from repro_torch.kernels.fused_template import bitset_step_plain
     worst = 0
     for variant in BITSET:
-        cfg = config(variant, memory_bits=MEMORY_BITS)
+        cfg = config(variant, MEMORY_MB)
         # position s - 4000 puts rsbf's phase-1 -> phase-2 boundary inside
         # the batches
         state = random_state(cfg, rng, cfg.s - 4000)
@@ -521,7 +540,7 @@ def phase_main_path(keys, truth):
     from repro_torch.dedup.metrics import fpr_fnr
     from repro_torch.kernels.fused_template import bitset_step
     from repro_torch.kernels.hashmix import hashmix
-    cfg = config("rlbsbf", memory_bits=MEMORY_BITS, batch_size=BATCH)
+    cfg = config("rlbsbf", MEMORY_MB, batch_size=BATCH)
     eng = Dedup(cfg)
     state = eng.init()
     torch.cuda.synchronize()
@@ -557,7 +576,7 @@ def phase_main_path(keys, truth):
         raise AssertionError(f"main path: expected no hashmix and one "
                              f"bitset_step per step ({n_steps}), got "
                              f"{launches}")
-    return cfg, state, launches, secs
+    return cfg, state, launches, dup[:DENSE8_N].clone()
 
 
 def phase_sbf_path(keys, truth):
@@ -568,7 +587,7 @@ def phase_sbf_path(keys, truth):
     from repro_torch.dedup.metrics import fpr_fnr
     from repro_torch.kernels.fused_template import counter_step
     from repro_torch.kernels.hashmix import hashmix
-    cfg = config("sbf", memory_bits=MEMORY_BITS, batch_size=BATCH)
+    cfg = config("sbf", MEMORY_MB, batch_size=BATCH)
     eng = Dedup(cfg)
     state = eng.init()
     torch.cuda.synchronize()
@@ -618,7 +637,7 @@ def phase_sbf_path(keys, truth):
             and int(counts[0]) == cfg.sbf_max
             and bool((counts[:-1] >= counts[1:]).all())):
         raise AssertionError("sbf read-outs out of bounds")
-    return cfg, state, launches, secs
+    return cfg, state, launches, dup[:DENSE8_N].clone()
 
 
 def phase_ops_path(keys, truth):
@@ -636,7 +655,7 @@ def phase_ops_path(keys, truth):
     from repro_torch.kernels.bloom_probe import bloom_probe, fused_probe
     from repro_torch.kernels.hashmix import hashmix
     from repro_torch.kernels.scatter_delta import scatter_delta
-    cfg = config("rlbsbf", memory_bits=MEMORY_BITS)
+    cfg = config("rlbsbf", MEMORY_MB)
     seeds = u32.from_numpy_u32(hashing.derive_seeds(cfg.seed, cfg.k), "cpu")
     kw = u32.from_numpy_u32(keys[:OPS_N], "cuda")
     words = torch.zeros((cfg.k, cfg.s_words), dtype=torch.int32,
@@ -678,9 +697,116 @@ def phase_ops_path(keys, truth):
     return launches
 
 
+def phase_dense8(keys, truth, planes_dups):
+    """The reference's default path on the card: ``DedupPipeline`` over
+    ``paper_config(v, 256)`` with the config's default layout, which is
+    dense8 (one byte per bit, per cell for sbf), for rlbsbf (k = 2, a (2,
+    2^30) uint8 state, 2 GiB) and sbf (k = 3, Max 3, P = 13, 2^30 cells, 1
+    GiB), batch 8192, over the stream's first DENSE8_N records: the FPR
+    and FNR of ``StreamMetrics.summary()`` under the other paths' sanity
+    bounds; exactly one hashmix launch per step and no step kernel; the
+    dup reports equal to the plane paths' on the same prefix, bit for bit
+    (the reference makes both layouts bit-identical); the load equal to a
+    recount. Then the oracle on the card: ``run_stream_oracle`` for sbf at
+    the 256 MB table over ORACLE_N keys, equal to the batch-size-1 engine in
+    reports, cells, load, position and key. -> {variant: (cfg, final
+    state)}."""
+    import torch
+    from repro_torch.configs import paper_config
+    from repro_torch.core import Dedup, state_memory_bytes
+    from repro_torch.dedup import DedupPipeline
+    from repro_torch.kernels.fused_template import bitset_step, counter_step
+    from repro_torch.kernels.hashmix import hashmix
+    counters = (hashmix, bitset_step, counter_step)
+    kw = torch.from_numpy(keys[:DENSE8_N].view(np.int32)).cuda()
+    tw = torch.from_numpy(truth[:DENSE8_N]).cuda()
+    n_steps = -(-DENSE8_N // BATCH)
+    out = {}
+    for variant in ("rlbsbf", "sbf"):
+        cfg = paper_config(variant, MEMORY_MB, batch_size=BATCH)
+        if cfg.effective_layout != "dense8":
+            raise AssertionError(f"{variant}'s default layout is "
+                                 f"{cfg.effective_layout}, not dense8")
+        pipe = DedupPipeline(cfg, mode="flag")
+        nbytes = state_memory_bytes(pipe.state)
+        dups = torch.empty((DENSE8_N,), dtype=torch.bool, device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        for i in range(0, DENSE8_N, BATCH):
+            dups[i:i + BATCH] = pipe.process({"key": kw[i:i + BATCH]},
+                                             tw[i:i + BATCH]).dup
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = {c.__name__: c.launches for c in counters}
+        summary = pipe.metrics.summary()
+        st = pipe.state
+        recount = (st.bits > 0).sum(dim=-1, dtype=torch.int32)
+        exact = torch.equal(st.load, recount)
+        same = torch.equal(dups, planes_dups[variant])
+        log(f"[dense8] {variant} 256 MB paper_config (layout "
+            f"{cfg.effective_layout}) k={cfg.k} s={cfg.s} batch={BATCH} "
+            f"through DedupPipeline: {DENSE8_N} elements in {secs:.4f} s = "
+            f"{DENSE8_N / secs:.1f} elements/s (host clock, ends in "
+            f"synchronize); state {nbytes} bytes "
+            f"({tuple(st.bits.shape)} {st.bits.dtype}); peak memory "
+            f"allocated {torch.cuda.max_memory_allocated() / 2 ** 20:.1f} "
+            f"MiB")
+        log(f"[dense8] {variant} StreamMetrics.summary(): FPR="
+            f"{summary['fpr']:.6g} FNR={summary['fnr']:.6g} final_load="
+            f"{summary['final_load']:.6g} n={summary['n']} "
+            f"convergence_batch={summary['convergence_batch']}; load "
+            f"{st.load.tolist()} == recount: {exact}; dup reports equal "
+            f"to the planes path's on the same {DENSE8_N} records: {same}; "
+            f"kernel launches: {launches}")
+        if not (exact and same and summary["n"] == DENSE8_N
+                and int(st.position) == DENSE8_N + 1
+                and 0.0 <= summary["fpr"] < 0.05
+                and 0.0 <= summary["fnr"] < 0.5):
+            raise AssertionError(f"dense8 {variant} path result out of "
+                                 f"bounds")
+        if launches != {"hashmix": n_steps, "bitset_step": 0,
+                        "counter_step": 0}:
+            raise AssertionError(f"dense8 {variant}: expected one hashmix "
+                                 f"per step ({n_steps}) and no step "
+                                 f"kernel, got {launches}")
+        out[variant] = (cfg, st)
+        del pipe, dups
+    del kw, tw
+    # the oracle against the batched engine at B = 1, at the 256 MB table
+    cfg = paper_config("sbf", MEMORY_MB, batch_size=1)
+    eng = Dedup(cfg)
+    ok = eng.init()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    so, do = eng.run_stream_oracle(ok, keys[:ORACLE_N])
+    torch.cuda.synchronize()
+    t_oracle = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sb, db = eng.run_stream(ok, keys[:ORACLE_N])
+    torch.cuda.synchronize()
+    t_engine = time.perf_counter() - t0
+    same = {"dups": torch.equal(do, db), "cells": torch.equal(so.bits,
+                                                              sb.bits),
+            "load": torch.equal(so.load, sb.load),
+            "position": torch.equal(so.position, sb.position),
+            "rng": torch.equal(so.rng, sb.rng)}
+    log(f"[dense8] sbf oracle on the card, 256 MB, {ORACLE_N} keys: "
+        f"{t_oracle:.1f} s; the batched engine at B = 1: {t_engine:.1f} s; "
+        f"equal: {same}; reported dups {int(do.sum())}, load "
+        f"{so.load.tolist()}")
+    if not all(same.values()):
+        raise AssertionError("sbf oracle != the B = 1 engine on the card")
+    del so, sb, ok
+    torch.cuda.empty_cache()
+    return out
+
+
 def fleet_config(name, **kw):
     """A fleet of FLEET_T tenants of 8 MB each for a digest-grid name."""
-    cfg = config(name, memory_bits=FLEET_MEMORY_BITS, batch_size=BATCH, **kw)
+    cfg = config(name, FLEET_MB, batch_size=BATCH, **kw)
     return dataclasses.replace(cfg, n_tenants=FLEET_T).validate()
 
 
@@ -1107,8 +1233,9 @@ def finish_nvcc(proc, so: str, what: str) -> ctypes.CDLL:
 
 def start_extra_builds(parent_dir):
     """The latency-floor kernels, and with ``parent_dir`` the earlier
-    hashmix, bloom_probe and bitset step (each with ``parent_dir``'s own
-    headers, if it has any), all compiled at once into ``build/``."""
+    hashmix, bloom_probe, bitset step and counter step (each with
+    ``parent_dir``'s own headers, if it has any), all compiled at once
+    into ``build/``."""
     out = os.path.join(ROOT, "build", "chip_smoke")
     os.makedirs(out, exist_ok=True)
     src = os.path.join(out, "latency_floor.cu")
@@ -1125,107 +1252,74 @@ def start_extra_builds(parent_dir):
 
 
 def finish_extra_builds(jobs) -> tuple:
-    """-> (the latency-floor library, {name: the earlier C entry point with
-    its signature set} or None)."""
+    """-> (the latency-floor library, {entry name: the earlier C entry
+    point with its signature set} or None). The earlier interfaces are
+    those before the seeds could come from device memory: each current one
+    without its device-seed pointer."""
     libs = {name: finish_nvcc(proc, so, name)
             for name, (proc, so) in jobs.items()}
     floor = libs.pop("latency_floor")
-    p, i = ctypes.c_void_p, ctypes.c_int
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     floor.empty_launch.argtypes = [i, i, p]
     floor.chase_launch.argtypes = [p, ctypes.c_uint32, p, i, i,
                                    ctypes.c_uint32, p]
     if not libs:
         return floor, None
     argtypes = {
-        "hashmix": [p, p, p, i, i, ctypes.c_uint32, p],
-        "bloom_probe": [p, p, p, p, i, i, ctypes.c_longlong, p],
-        "bitset_step": [p, ctypes.c_longlong, i, i, i] + [p] * 13
-                       + [i, i, ctypes.c_float, ctypes.c_float, p]}
+        "hashmix": [p, p, i, p, p, i, ctypes.c_uint32, i, p],
+        "fused_probe": [p, p, p, p, p, i, ll, p, i, ctypes.c_uint32, p],
+        "bitset_step": [p, ll, i, i, i, p, p, p, i] + [p] * 12
+                       + [i, i, ctypes.c_float, ctypes.c_float, p],
+        "counter_step": [p, ll, i, i, i, i, p, p, p, i, p, p, p, p, i, i,
+                         p, i, i, i, p, p, p]}
     entries = {}
-    for name, lib in libs.items():
+    for name, lib in (("hashmix", libs["hashmix"]),
+                      ("fused_probe", libs["bloom_probe"]),
+                      ("bitset_step", libs["bitset_step"]),
+                      ("counter_step", libs["counter_step"])):
         fn = getattr(lib, f"{name}_launch")
         fn.argtypes, fn.restype = argtypes[name], ctypes.c_int
         entries[name] = fn
     log(f"[parent] built the earlier {', '.join(PARENT_SOURCES)} from "
-        f"{len(entries)} sources")
+        f"{len(libs)} sources")
     return floor, entries
 
 
-def parent_hashmix(entry, keys, seeds, s):
-    """The earlier hashmix: keys (B,) and seeds (k,) on the card -> (B, k)
-    int32, one thread per (key, row)."""
-    import torch
-    out = torch.empty((keys.shape[0], seeds.shape[0]), dtype=torch.int32,
-                      device=keys.device)
-    err = entry(keys.data_ptr(), seeds.data_ptr(), out.data_ptr(),
-                keys.shape[0], seeds.shape[0], s,
-                torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"earlier hashmix failed: CUDA error {err}")
-    return out
+@contextlib.contextmanager
+def parent_kernels(parent):
+    """Inside, the port's wrappers launch the earlier kernels: each
+    wrapper's C entry point is swapped for the earlier one, the device-seed
+    pointer dropped from its arguments (k <= 32 here, so it is null)."""
+    from repro_torch.kernels import bloom_probe, fused_template, hashmix
+
+    def drop(fn, at):
+        return lambda *a: fn(*a[:at], *a[at + 1:])
+
+    saved = (hashmix._entry, bloom_probe._entry, fused_template._entry,
+             fused_template._counter_entry)
+    hashmix._entry = lambda: drop(parent["hashmix"], 5)
+    bloom_probe._entry = (lambda name: drop(parent["fused_probe"], 8)
+                          if name == "fused_probe" else saved[1](name))
+    fused_template._entry = lambda: drop(parent["bitset_step"], 8)
+    fused_template._counter_entry = lambda: parent["counter_step"]
+    try:
+        yield
+    finally:
+        (hashmix._entry, bloom_probe._entry, fused_template._entry,
+         fused_template._counter_entry) = saved
 
 
-def parent_bloom_probe(entry, words, word_idx, bit_mask):
-    """The earlier bloom_probe: one thread per (element, row)."""
-    import torch
-    b, k = word_idx.shape
-    hits = torch.empty((b, k), dtype=torch.uint8, device=words.device)
-    err = entry(words.data_ptr(), word_idx.data_ptr(), bit_mask.data_ptr(),
-                hits.data_ptr(), b, k, words.shape[1],
-                torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"earlier bloom_probe failed: CUDA error {err}")
-    return hits
+def earlier(parent, make):
+    """A timed-run factory like ``make`` whose calls go through the
+    earlier kernels."""
+    def mk():
+        fn = make()
 
-
-def parent_fused_probe(parent, keys, words, seeds, s):
-    """The earlier ``ops.fused_probe``: hashmix, the eager split,
-    bloom_probe and the AND over the rows."""
-    from repro_torch.core import packed
-    pos = parent_hashmix(parent["hashmix"], keys, seeds, s)
-    hits = parent_bloom_probe(parent["bloom_probe"], words,
-                              *packed.split_pos(pos))
-    return (hits == 1).all(dim=1), hits, pos
-
-
-def parent_bitset_step(entry, cfg, words, pos, rnd, valid, seen, i_t, load):
-    """The earlier bitset wrapper's CUDA branch over ``entry``: positions
-    read from memory."""
-    import torch
-    from repro_torch.core import batched
-    from repro_torch.kernels.fused_template import VARIANT_CODES
-    if words.dim() == 2:
-        return tuple(x[0] for x in parent_bitset_step(
-            entry, cfg, words[None], pos[None],
-            batched.BatchRandomness(*(x[None] for x in rnd)), valid[None],
-            seen[None], i_t[None], load[None]))
-    t, k, w = words.shape
-    dup = torch.empty(valid.shape, dtype=torch.bool, device=words.device)
-    ins = torch.empty(valid.shape, dtype=torch.bool, device=words.device)
-    del_rows = torch.empty(valid.shape, dtype=torch.int32,
-                           device=words.device)
-    load_out = load.clone()
-    err = entry(words.data_ptr(), w, k, t, pos.shape[1], pos.data_ptr(),
-                rnd.del_pos.data_ptr(), valid.data_ptr(), seen.data_ptr(),
-                i_t.data_ptr(), rnd.u_bern.data_ptr(), rnd.u_aux.data_ptr(),
-                rnd.which.data_ptr(), load.data_ptr(), load_out.data_ptr(),
-                dup.data_ptr(), ins.data_ptr(), del_rows.data_ptr(),
-                VARIANT_CODES[cfg.variant], cfg.s, float(np.float32(cfg.s)),
-                float(np.float32(cfg.p_star)),
-                torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"earlier bitset_step failed: CUDA error {err}")
-    return dup, ins, load_out
-
-
-def parent_hashed_bitset_step(parent, cfg, seeds, words, kw, args, load):
-    """The earlier engine's bitset step: a hashmix launch over the keys
-    (``seeds`` on the card), then the step from the positions it
-    stored."""
-    pos = parent_hashmix(parent["hashmix"], kw.reshape(-1), seeds,
-                         cfg.s).view(*kw.shape, cfg.k)
-    return parent_bitset_step(parent["bitset_step"], cfg, words, pos,
-                              *args[1:], load)
+        def run(i):
+            with parent_kernels(parent):
+                return fn(i)
+        return run
+    return mk
 
 
 _FLUSH = []
@@ -1247,27 +1341,36 @@ def device_split(fn, n: int, names=None) -> dict:
     """Device ms per call of ``fn(i)`` for i < n, from torch.profiler, by
     kernel name: each of ``names`` (the kernels whose names hold it), or
     every device kernel under "all" when ``names`` is None. Empty when the
-    profiler recorded none of them."""
+    profiler recorded none of them. A trace that holds fewer than ``n``
+    launches of a named kernel lost events (seen on the H100: turns read 0
+    or a third of the others); the run is timed again, up to three times,
+    and logged."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    flush_l2()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for i in range(n):
-            fn(i)
-        torch.cuda.synchronize()
-    rows = [r for r in prof.key_averages()
-            if str(getattr(r, "device_type", "")).endswith("CUDA")
-            and r.self_device_time_total > 0]
-    if names is None:
-        split = {"all": sum(r.self_device_time_total for r in rows)}
-    else:
-        split = {}
+    for attempt in range(3):
+        flush_l2()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for i in range(n):
+                fn(i)
+            torch.cuda.synchronize()
+        rows = [r for r in prof.key_averages()
+                if str(getattr(r, "device_type", "")).endswith("CUDA")
+                and r.self_device_time_total > 0]
+        if names is None:
+            split = {"all": sum(r.self_device_time_total for r in rows)}
+            break
+        split, count = {}, {}
         for r in rows:
             for x in names:
                 if x in r.key:
                     split[x] = split.get(x, 0) + r.self_device_time_total
+                    count[x] = count.get(x, 0) + r.count
                     break
+        if all(count.get(x, 0) >= n for x in names):
+            break
+        log(f"[time] the profiler kept {count} of {n} launches of "
+            f"{names}: timing the run again")
     return {x: us / 1e3 / n for x, us in split.items() if us > 0}
 
 
@@ -1298,11 +1401,7 @@ def timed(make_run, n: int, names=None):
     """(ms per call, how it was measured): the profiler's device time, or,
     where the profiler saw no such kernel, CUDA events around calls issued
     back to back."""
-    # the profiler now and then returns without a short kernel's rows:
-    # one more try before the fallback
-    ms = device_ms(make_run(), n, names)
-    if ms is None:
-        ms = device_ms(make_run(), n, names)
+    ms = device_ms(make_run(), n, names)   # retries a trace that lost rows
     if ms is not None:
         return ms, "device time, torch.profiler"
     return (wall_ms(make_run(), n), "CUDA events, host issue included: "
@@ -1616,57 +1715,33 @@ def phase_timings(cfg, state, sbf_cfg, sbf_state, card, fleets, floor_lib,
     if parent is None:
         return out
 
-    def parent_bitset(words, i, load):
-        return words, parent_hashed_bitset_step(
-            parent, cfg, seeds_dev, words, keys[i], inputs[i], load)[2]
-
-    def parent_fleet_bitset(words, i, load):
-        args, kw = fb_in[i]
-        return words, parent_hashed_bitset_step(
-            parent, fb.cfg, fb_seeds, words, kw, args, load)[2]
-
-    fb_seeds = batched._seeds(fb.cfg)[0].cuda()
-    with_hash = ("hashmix_kernel",) + BITSET_KERNELS
-    # name -> [(label, run factory, kernel names)], timed in turns
-    versions = {
-        "bitset_step": [
-            ("earlier", steps(parent_bitset, state.bits, state.load),
-             with_hash),
-            ("current", steps(bitset, state.bits, state.load),
-             BITSET_KERNELS)],
-        "bitset_step_fleet": [
-            ("earlier", steps(parent_fleet_bitset, fb_state.bits,
-                              fb_state.load), with_hash),
-            ("current", steps(fleet_bitset, fb_state.bits,
-                              fb_state.load), BITSET_KERNELS)],
-        # every device kernel of the call: the chain's split and AND
-        # are eager elementwise kernels
-        "fused_probe": [
-            ("earlier", lambda: lambda i: parent_fused_probe(
-                parent, keys[i], state.bits, seeds_dev, cfg.s), None),
-            ("current", lambda: lambda i: fused_probe(
-                keys[i], state.bits, seeds, cfg.s), None)],
+    # name -> [(label, run factory, kernel names)], timed in turns: the
+    # earlier kernels through the same wrappers, on the same inputs
+    current = {
+        "bitset_step": (steps(bitset, state.bits, state.load),
+                        BITSET_KERNELS),
+        "bitset_step_fleet": (steps(fleet_bitset, fb_state.bits,
+                                    fb_state.load), BITSET_KERNELS),
+        "counter_step": (steps(counter, sbf_planes, sbf_state.load),
+                         COUNTER_KERNELS),
+        "counter_step_params_aware": (steps(fleet_counter, fc_planes,
+                                            fc_state.load),
+                                      COUNTER_KERNELS),
         # at the sbf path's shape, as the hashmix row
-        "hashmix": [
-            ("earlier", lambda: lambda i: parent_hashmix(
-                parent["hashmix"], keys[i], sbf_seeds_dev, sbf_cfg.s),
-             ("hashmix_kernel",)),
-            ("current", lambda: lambda i: hashmix(keys[i], sbf_seeds,
-                                                  s=sbf_cfg.s),
-             ("hashmix_kernel",))],
-        "bloom_probe": [
-            ("earlier", lambda: lambda i: parent_bloom_probe(
-                parent["bloom_probe"], state.bits, *idx[i]),
-             ("bloom_probe_kernel",)),
-            ("current", lambda: lambda i: bloom_probe(state.bits,
-                                                      *idx[i]),
-             ("bloom_probe_kernel",))],
+        "hashmix": (lambda: lambda i: hashmix(keys[i], sbf_seeds,
+                                              s=sbf_cfg.s),
+                    ("hashmix_kernel",)),
+        "fused_probe": (lambda: lambda i: fused_probe(
+            keys[i], state.bits, seeds, cfg.s), ("fused_probe_kernel",)),
     }
+    versions = {name: [("earlier", earlier(parent, make), names),
+                       ("current", make, names)]
+                for name, (make, names) in current.items()}
     for name, vs in versions.items():
         got = {label: [] for label, _, _ in vs}
         for label, make, names in vs:
             make()(0)                                    # warm
-        for label, make, names in vs + vs[::-1]:         # in turns
+        for label, make, names in (vs + vs[::-1]) * 2:   # in turns
             split = device_split(make(), n_b, names)
             wrap = wall_ms(make(), n_b)
             got[label].append((split, wrap))
@@ -1755,7 +1830,8 @@ def phase_profile(cfg, state, card, make_pieces, kernels, fleet=None,
                                          seed=SEED + 2)
     if fleet is None:
         eng = Dedup(cfg)
-        tag = f"{cfg.variant} 256 MB, batch {BATCH}"
+        tag = (f"{cfg.variant} 256 MB {cfg.effective_layout}, batch "
+               f"{BATCH}")
 
         def run(st, x):
             return eng.run_stream(st, x)[0]
@@ -1819,8 +1895,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", metavar="DIR",
                     help="a directory holding an earlier hashmix.cu, "
-                         "bloom_probe.cu and bitset_step.cu to time "
-                         "against the current ones")
+                         "bloom_probe.cu, bitset_step.cu and "
+                         "counter_step.cu to time against the current "
+                         "ones")
     args = ap.parse_args()
     try:
         import torch
@@ -1864,10 +1941,13 @@ def main() -> int:
     stamp("fleet")
     phase_digests()
     keys, truth = make_stream()
-    cfg, state, launches, _ = phase_main_path(keys, truth)
-    sbf_cfg, sbf_state, sbf_launches, _ = phase_sbf_path(keys, truth)
+    cfg, state, launches, rl_dups = phase_main_path(keys, truth)
+    sbf_cfg, sbf_state, sbf_launches, sbf_dups = phase_sbf_path(keys, truth)
     ops_launches = phase_ops_path(keys, truth)
     stamp("digests, stream and the three paths")
+    dense8 = phase_dense8(keys, truth, {"rlbsbf": rl_dups, "sbf": sbf_dups})
+    del rl_dups, sbf_dups
+    stamp("dense8")
     f_keys, f_tenants, f_truth = fleet_stream(keys)
     del keys, truth
     fb, fb_state, fb_launches = phase_fleet_path("rlbsbf", f_keys, f_tenants,
@@ -1882,6 +1962,11 @@ def main() -> int:
     stamp("time")
     phase_profile(cfg, state, card, bitset_pieces, BITSET_KERNELS)
     phase_profile(sbf_cfg, sbf_state, card, sbf_pieces, COUNTER_KERNELS)
+    # the dense8 steps launch hashmix and no step kernel
+    for (d8_cfg, d8_state), pieces in zip(dense8.values(),
+                                          (bitset_pieces, sbf_pieces)):
+        phase_profile(d8_cfg, d8_state, card, pieces, ())
+    del dense8
     p_tenants = np.random.default_rng(SEED + 5).integers(
         0, FLEET_T, 16 * BATCH).astype(np.int32)
     for fleet, st, kern in ((fb, fb_state, BITSET_KERNELS),

@@ -3,13 +3,15 @@
 A filter state is the system's "weights": a stream started under one
 framework continues under the other from the same leaves —
 
-    {"bits": (k, W) | (d, 1, W) | (1, W) uint32, "position": () int32,
-     "load": (k,) int32, "rng": (2,) uint32}
+    {"bits": (k, s) uint8 | (k, W) | (d, 1, W) | (1, W) uint32,
+     "position": () int32, "load": (k,) int32, "rng": (2,) uint32}
 
 plus, for swbf, ``"ring_events"`` (window, E) int32 and ``"ring_slot"`` ()
 int32 — the reference's ``state.ring.events`` and ``state.ring.slot``.
-``bits`` is the bitset family's (k, W) rows or the counter family's
-(d, 1, W) bit-planes, squeezed to (1, W) at d == 1; ``rng`` is
+``bits`` is the dense8 layout's (n_rows, s) uint8 cells, the bitset
+family's (k, W) rows or the counter family's (d, 1, W) bit-planes,
+squeezed to (1, W) at d == 1 — as the config's layout says, which
+``state_from_numpy`` checks; ``rng`` is
 ``jax.random.key_data(state.rng)``. ``state_from_numpy`` builds the port's
 ``FilterState`` from such a dict, ``state_to_numpy`` returns one with the
 same dtypes and bytes, and ``config_from_dict`` takes a config from
@@ -49,13 +51,15 @@ def state_from_numpy(leaves: dict, cfg: DedupConfig, device=None, *,
     device = resolve_device(device)
     lead = (cfg.n_tenants,) if fleet else ()
     shape = lead + bits_shape(cfg)
+    want = np.uint32 if cfg.is_planes else np.uint8
     bits = np.asarray(leaves["bits"])
     load = np.asarray(leaves["load"])
     rng = np.asarray(leaves["rng"])
     position = np.asarray(leaves["position"])
-    if bits.shape != shape or bits.dtype != np.uint32:
-        raise ValueError(f"bits must be uint32 {shape} for this config, "
-                         f"got {bits.dtype} {bits.shape}")
+    if bits.shape != shape or bits.dtype != want:
+        raise ValueError(f"bits must be {np.dtype(want)} {shape} for this "
+                         f"config ({cfg.effective_layout}), got "
+                         f"{bits.dtype} {bits.shape}")
     if (load.shape != lead + (cfg.n_rows,) or rng.shape != lead + (2,)
             or position.shape != lead):
         raise ValueError(f"load {lead + (cfg.n_rows,)}, rng {lead + (2,)} "
@@ -76,7 +80,8 @@ def state_from_numpy(leaves: dict, cfg: DedupConfig, device=None, *,
             events=torch.from_numpy(events.copy()).to(device),
             slot=torch.from_numpy(slot.astype(np.int32)).to(device))
     return FilterState(
-        bits=u32.from_numpy_u32(bits, device),
+        bits=(u32.from_numpy_u32(bits, device) if cfg.is_planes
+              else torch.from_numpy(bits.copy()).to(device)),
         position=torch.from_numpy(position.astype(np.int32)).to(device),
         load=torch.from_numpy(load.astype(np.int32)).to(device),
         rng=u32.from_numpy_u32(rng, device),
@@ -85,12 +90,16 @@ def state_from_numpy(leaves: dict, cfg: DedupConfig, device=None, *,
 
 
 def state_to_numpy(state: FilterState) -> dict:
-    """numpy leaves of a state, one filter's or a fleet's stacked ones."""
+    """numpy leaves of a state, one filter's or a fleet's stacked ones:
+    uint8 cells from a dense8 state, uint32 words from a plane state (the
+    layout read off the cells' dtype)."""
     def ints(x):
         return x.detach().cpu().numpy().astype(np.int32)
 
+    dense8 = state.bits.dtype == torch.uint8
     leaves = {
-        "bits": u32.to_numpy_u32(state.bits),
+        "bits": (state.bits.detach().cpu().numpy().copy() if dense8
+                 else u32.to_numpy_u32(state.bits)),
         "position": ints(state.position),
         "load": ints(state.load),
         "rng": u32.to_numpy_u32(state.rng),

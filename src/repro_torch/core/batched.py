@@ -3,7 +3,8 @@
 Processes B stream elements per step (DESIGN §3.1):
 
   1. hash all B keys (``hash_positions``: the hashmix kernel on CUDA for
-     the counter family; the bitset kernel hashes its keys itself),
+     the counter family and the dense8 layout; the bitset kernel hashes
+     its keys itself),
   2. exact intra-batch first-occurrence detection by sorting the keys,
   3. draw the step's randomness from the state's threefry key,
   4. probe the batch-entry snapshot, decide per variant and update the
@@ -18,6 +19,9 @@ Processes B stream elements per step (DESIGN §3.1):
 
 Steps 2-3, and the counter family's sorted event lists, are plain PyTorch
 on both devices, as they are XLA outside the Pallas call in the reference.
+So is the whole step on the dense8 layout (one byte per cell, the
+reference's default), which the reference runs in jnp only: its probes and
+updates are gathers and scatters around the one hashmix launch.
 ``valid`` masks let ragged stream tails ride through fixed-width steps as
 no-ops. A step updates ``state.bits`` in place and returns the new state
 around the same tensor; the engine clones first where the caller keeps its
@@ -43,7 +47,7 @@ from .config import DedupConfig
 from .device import resolve_device
 from .hashing import derive_seeds, hash_positions
 from .packed import (clamped_run_counts, count_planes_from_sorted,
-                     planes_nonzero, popcount, probe_cell_values, run_heads,
+                     planes_nonzero, popcount, probe_cell_values,
                      run_heads_1d)
 from .state import FilterState, WindowRing
 from ..kernels import fused_template as _fused
@@ -154,8 +158,10 @@ def make_decision_fn(cfg: DedupConfig):
     p_star = float(np.float32(cfg.p_star))
 
     def decide(vals, valid, seen, i_t, load, rnd: BatchRandomness):
-        b = valid.shape[0]
-        dup = ((vals == 1).all(dim=1) | seen) & valid
+        # vals (..., B, k), the rest (..., B) with load (..., k): one
+        # filter, or a fleet's rows with the tenant axis written out
+        shape = vals.shape
+        dup = ((vals == 1).all(dim=-1) | seen) & valid
         distinct = valid & ~dup
         if cfg.variant == "rsbf":
             i_f = i_t.to(torch.float32)
@@ -165,22 +171,22 @@ def make_decision_fn(cfg: DedupConfig):
             bern = rnd.u_bern < p_ins
             insert = torch.where(ph1, valid,
                                  torch.where(ph3, distinct, distinct & bern))
-            ph2_del = ((~ph1) & (~ph3) & insert)[:, None]
-            ph3_del = (ph3 & insert)[:, None] & (vals == 0)
-            del_mask = torch.where(ph3[:, None], ph3_del,
-                                   ph2_del.expand(b, k))
+            ph2_del = ((~ph1) & (~ph3) & insert)[..., None]
+            ph3_del = (ph3 & insert)[..., None] & (vals == 0)
+            del_mask = torch.where(ph3[..., None], ph3_del,
+                                   ph2_del.expand(shape))
         elif cfg.variant == "bsbf":
             insert = distinct
-            del_mask = insert[:, None].expand(b, k)
+            del_mask = insert[..., None].expand(shape)
         elif cfg.variant == "bsbfsd":
             insert = distinct
             rows = torch.arange(k, dtype=torch.int32, device=valid.device)
-            del_mask = insert[:, None] & (rnd.which[:, None] == rows[None, :])
+            del_mask = insert[..., None] & (rnd.which[..., None] == rows)
         elif cfg.variant == "rlbsbf":
             insert = distinct
             load_f = load.to(torch.float32)
-            p_del = (load_f / torch.full_like(load_f, s_f))[None, :]
-            del_mask = insert[:, None] & (rnd.u_aux < p_del)
+            p_del = (load_f / torch.full_like(load_f, s_f))[..., None, :]
+            del_mask = insert[..., None] & (rnd.u_aux < p_del)
         else:
             raise ValueError(cfg.variant)
         return dup, insert, del_mask
@@ -190,10 +196,10 @@ def make_decision_fn(cfg: DedupConfig):
 
 def sorted_enabled_positions(pos: torch.Tensor, mask: torch.Tensor,
                              sentinel: int) -> torch.Tensor:
-    """(B, k) positions + enable mask -> (k, B) int64 ascending per row;
-    disabled lanes carry ``sentinel`` (> any real position)."""
+    """(..., B, k) positions + enable mask -> (..., k, B) int64 ascending
+    per row; disabled lanes carry ``sentinel`` (> any real position)."""
     p = torch.where(mask, pos.to(torch.int64), sentinel)
-    return torch.sort(p.T, dim=-1).values
+    return torch.sort(p.transpose(-1, -2), dim=-1).values
 
 
 def load_delta_from_sorted(spi, pre_i, spd, pre_d, post_d, s: int
@@ -202,8 +208,8 @@ def load_delta_from_sorted(spi, pre_i, spd, pre_d, post_d, s: int
     delete positions and their pre/post-update bits: gained = first
     inserts of clear bits; lost = first deletes of set bits that were not
     re-inserted (DESIGN §3.1)."""
-    gained = (run_heads(spi) & (spi < s) & (pre_i == 0)).sum(dim=-1)
-    lost = (run_heads(spd) & (spd < s) & (post_d == 0)
+    gained = (run_heads_1d(spi) & (spi < s) & (pre_i == 0)).sum(dim=-1)
+    lost = (run_heads_1d(spd) & (spd < s) & (post_d == 0)
             & (pre_d == 1)).sum(dim=-1)
     return (gained - lost).to(torch.int32)
 
@@ -222,14 +228,17 @@ def _seeds(cfg: DedupConfig):
 def make_bitset_step(cfg: DedupConfig, spec, device=None,
                      partitionable: bool = True,
                      params_aware: bool = False) -> BatchedStep:
-    """The bitset-family step (DESIGN §3.1/§3.8) on the plane layout:
-    rsbf, bsbf, bsbfsd and rlbsbf are this function under their specs.
+    """The bitset-family step (DESIGN §3.1/§3.8): rsbf, bsbf, bsbfsd and
+    rlbsbf are this function under their specs, on either layout.
     ``params_aware=True`` returns the fleet step over the stacked state; it
     accepts the ``TenantStepParams`` and ignores them, as the reference
     does — the bitset decisions have no value-like knob."""
     cfg = cfg.validate()
     resolve_device(device)
     seeds, bseeds = _seeds(cfg)
+    if not cfg.is_planes:
+        step = _dense8_bitset_step(cfg, spec, seeds, bseeds, partitionable)
+        return step if params_aware else _one_filter(step)
 
     def step(state: FilterState, keys: torch.Tensor, valid: torch.Tensor,
              tp: Optional[TenantStepParams] = None):
@@ -249,6 +258,137 @@ def make_bitset_step(cfg: DedupConfig, spec, device=None,
         return new, BatchResult(dup=dup, inserted=insert)
 
     return step if params_aware else _one_filter(step)
+
+
+# --------------------------------------------------------- dense8 layout //
+# One byte per bit (per cell for sbf): the reference's default layout. The
+# reference runs it in jnp only (its Pallas backend needs the planes), so
+# the port runs it in plain PyTorch on both devices, the probe positions
+# from ``hash_positions`` — one hashmix launch per step on the card. The
+# reference's scatters drop disabled lanes (``mode="drop"``, index s);
+# here every lane scatters under a min or a max, and a disabled lane's
+# value cannot change the cell it names — 1 (255 for sbf's cells) under a
+# min, 0 under a max — so a pad lane never writes a cell, whatever index
+# it carries, and no step waits on the host for a mask.
+
+def _dense8_bitset_step(cfg: DedupConfig, spec, seeds, bseeds,
+                        partitionable: bool):
+    """The dense8 branch of the reference's ``make_bitset_step`` with the
+    tenant axis written out: state.bits (T, k, s) uint8, keys and valid
+    (T, B). Probe the snapshot, decide, clear the deletions, set the
+    insertions (insertions win), and the exact load delta from the sorted
+    positions' pre/post values."""
+    s, k = cfg.s, cfg.k
+    decide = spec.make_decide(cfg)
+    sentinel = 32 * cfg.s_words
+
+    def step(state: FilterState, keys: torch.Tensor, valid: torch.Tensor,
+             tp: Optional[TenantStepParams] = None):
+        t, b = keys.shape
+        dev = keys.device
+        bits = state.bits
+        flat = bits.view(-1)
+        # the flat index of cell (tenant, row, 0): (T, 1, k)
+        base = ((torch.arange(t, device=dev)[:, None] * k
+                 + torch.arange(k, device=dev)) * s)[:, None, :]
+        pos = hash_positions(keys, seeds, s, cfg.block_bits, bseeds)
+        vals = flat[base + pos]                                 # (T, B, k)
+        seen = intra_batch_seen(keys, valid)
+        i_t = state.position[:, None] + torch.arange(
+            b, dtype=torch.int32, device=dev)
+        rng, rnd = spec.draw(cfg, state.rng, b, partitionable)
+        dup, insert, del_mask = decide(vals, valid, seen, i_t, state.load,
+                                       rnd)
+        ins_mask = insert[..., None].expand(t, b, k)
+        spi = sorted_enabled_positions(pos, ins_mask, sentinel)  # (T, k, B)
+        spd = sorted_enabled_positions(rnd.del_pos, del_mask, sentinel)
+        rows = base.transpose(-1, -2)                           # (T, k, 1)
+
+        def probe_sorted(sp):
+            # sentinels clamp onto cell s - 1; the load mask drops them
+            return flat[rows + torch.clamp(sp, max=s - 1)]
+
+        pre_i, pre_d = probe_sorted(spi), probe_sorted(spd)
+        flat.scatter_reduce_(0, (base + rnd.del_pos).reshape(-1),
+                             (~del_mask).to(torch.uint8).reshape(-1),
+                             reduce="amin")
+        flat.scatter_reduce_(0, (base + pos).reshape(-1),
+                             ins_mask.to(torch.uint8).reshape(-1),
+                             reduce="amax")
+        if cfg.debug_exact_load:
+            load = bits.sum(dim=-1, dtype=torch.int32)
+        else:
+            load = state.load + load_delta_from_sorted(
+                spi, pre_i, spd, pre_d, probe_sorted(spd), s)
+        n_valid = valid.sum(dim=-1, dtype=torch.int32)
+        new = FilterState(bits, state.position + n_valid, load, rng)
+        return new, BatchResult(dup=dup, inserted=insert)
+
+    return step
+
+
+def _make_sbf_dense8_step(cfg: DedupConfig, device=None,
+                          partitionable: bool = True) -> BatchedStep:
+    """The reference's dense uint8 sbf branch (not spec-driven: it is the
+    cross-check the plane steps are held against), one filter: state.bits
+    (1, s) uint8 cells. Probe, decrement each valid element's run of P
+    cells from its random start (wrapping), then set its k cells to Max.
+
+    The reference builds a dense (s,) decrement array every step; the
+    decrement of a cell is the number of runs covering it, so the step
+    sorts the B·P run cells instead and writes ``max(cell - count, 0)``
+    at each run head, the count clamped at Max (lossless: cells hold at
+    most Max). Its load, which the reference recounts over all s cells,
+    is the entry load plus the set cells that were zero, less the
+    decremented cells that were nonzero and end at zero — the recount's
+    value whenever the entry load was exact (``debug_exact_load``
+    recounts)."""
+    cfg = cfg.validate()
+    resolve_device(device)
+    seeds, bseeds = _seeds(cfg)
+    s, p_run, cmax = cfg.s, cfg.sbf_p_effective, cfg.sbf_max
+    np.uint8(cmax)           # refuses a Max past the cell's byte, as the
+                             # reference does with the same words
+    sentinel = 32 * cfg.s_words
+
+    def step(state: FilterState, keys: torch.Tensor, valid: torch.Tensor):
+        b = keys.shape[0]
+        dev = keys.device
+        cells = state.bits.view(-1)                             # (s,)
+        pos = hash_positions(keys, seeds, s, cfg.block_bits, bseeds)
+        dup = (cells[pos] > 0).all(dim=-1) & valid
+        rng, start = draw_sbf_randomness(cfg, state.rng, b, partitionable)
+        run = (start.to(torch.int64)[:, None]
+               + torch.arange(p_run, device=dev)) % s
+        spd = torch.sort(torch.where(valid[:, None], run, sentinel)
+                         .reshape(-1)).values
+        head, cnt = clamped_run_counts(spd, cmax)
+        dec_live = head & (spd < s)
+        dec_at = torch.clamp(spd, max=s - 1)
+        sps = torch.sort(torch.where(valid[:, None], pos.to(torch.int64),
+                                     sentinel).reshape(-1)).values
+        set_live = run_heads_1d(sps) & (sps < s)
+        set_at = torch.clamp(sps, max=s - 1)
+        pre_dec = cells[dec_at].to(torch.int64)
+        pre_set = cells[set_at]
+        # in int64, then back: uint8 arithmetic would wrap below zero
+        mid = torch.clamp(pre_dec - cnt, min=0)
+        cells.scatter_reduce_(0, dec_at, torch.where(dec_live, mid, 255)
+                              .to(torch.uint8), reduce="amin")
+        cells.scatter_reduce_(0, set_at, torch.where(set_live, cmax, 0)
+                              .to(torch.uint8), reduce="amax")
+        if cfg.debug_exact_load:
+            load = torch.count_nonzero(cells).to(torch.int32).reshape(1)
+        else:
+            gained = (set_live & (pre_set == 0)).sum(dtype=torch.int32)
+            lost = (dec_live & (pre_dec > 0) & (cells[dec_at] == 0)
+                    ).sum(dtype=torch.int32)
+            load = state.load + (gained - lost)
+        n_valid = valid.sum(dtype=torch.int32)
+        new = FilterState(state.bits, state.position + n_valid, load, rng)
+        return new, BatchResult(dup=dup, inserted=valid)
+
+    return step
 
 
 # ------------------------------------------------------- counter family //
@@ -458,9 +598,13 @@ def make_counter_planes_step(cfg: DedupConfig, spec, device=None,
     device = resolve_device(device)
     seeds, bseeds = _seeds(cfg)
     events_fn = spec.make_events(cfg)
-    # the one-filter step's knobs, as (1,) rows like a fleet's
+    if spec.combine == "set":
+        np.uint32(cfg.sbf_max)   # past 32 planes: the reference's refusal,
+                                 # in its words
+    # the one-filter step's knobs, as (1,) rows like a fleet's (Max as its
+    # int32 bit pattern)
     one = TenantStepParams(
-        *(torch.full((1,), v, dtype=torch.int32, device=device)
+        *(_fused.int32_rows(v, 1, device)
           for v in (cfg.sbf_max, cfg.count_threshold, max(cfg.window, 1))))
 
     def step(state: FilterState, keys: torch.Tensor, valid: torch.Tensor,
@@ -542,18 +686,17 @@ def make_templated_step(cfg: DedupConfig, spec=None, device=None,
 def make_batched_step(cfg: DedupConfig, device=None,
                       partitionable: bool = True) -> BatchedStep:
     """The engine's step for ``cfg`` on ``device`` (``cuda`` unless the
-    caller passes ``"cpu"``; ``core.device``); refuses what the port does
-    not run yet, naming the ROADMAP queue that brings it."""
+    caller passes ``"cpu"``; ``core.device``), dispatched as the
+    reference does: dense8 sbf keeps its own branch (the cross-check, not
+    a template instance), everything else is the sketch template on
+    either layout."""
     cfg = cfg.validate()
     device = resolve_device(device)
-    if not cfg.is_planes:
-        raise NotImplementedError(
-            "the dense8 layout and the sequential oracle are not ported "
-            "yet — ROADMAP Queue 1 item 6; use packed=True or "
-            "layout='planes'")
     if cfg.n_tenants > 1:
         raise NotImplementedError(
             "n_tenants > 1 is a tenant fleet: run it with "
             "repro_torch.core.fleet.FleetDedup (DESIGN §4.6)")
+    if cfg.variant == "sbf" and not cfg.is_planes:
+        return _make_sbf_dense8_step(cfg, device, partitionable)
     return make_templated_step(cfg, device=device,
                                partitionable=partitionable)

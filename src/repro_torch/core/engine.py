@@ -1,17 +1,20 @@
 """Public de-duplication engine — the port of ``repro.core.engine``.
 
-    cfg   = DedupConfig.for_variant("rlbsbf", memory_bits=1 << 31, packed=True)
+    cfg   = DedupConfig.for_variant("rlbsbf", memory_bits=1 << 31)
     dedup = Dedup(cfg)                               # on the CUDA device
     state = dedup.init()
     state, res = dedup.process(state, keys)          # one batched step
     state, dup = dedup.run_stream(state, long_keys)  # the whole stream
+    state, dup = dedup.run_stream_oracle(state, keys)  # sequential oracle
 
 An engine is fully determined by its frozen ``DedupConfig`` and its device.
 It runs on ``cuda`` unless the caller passes ``device="cpu"``; without a
 CUDA device and without that request it raises, and it never falls back.
-On CUDA the step goes through the hand-written kernels (the bitset step,
-which hashes its keys itself, or hashmix and the counter step), on the
-CPU through their plain PyTorch versions;
+On CUDA the step goes through the hand-written kernels (on the plane
+layout the bitset step, which hashes its keys itself, or hashmix and the
+counter step; on the dense8 layout, the reference's default, hashmix and
+plain PyTorch gathers and scatters), on the CPU through their plain
+PyTorch versions;
 at fixed seed both reproduce the JAX package's reports and state bit for
 bit. The counter family (sbf, swbf, cms, hh) adds two read-outs:
 ``estimate`` (count-min per key) and ``top_cells`` (the highest cells).
@@ -27,7 +30,9 @@ first. ``run_stream`` and ``process_padded(donate=True)`` update the filter
 tensor in place — do not reuse the state passed to them; thread the
 returned one. ``run_stream`` is a loop over batches that never waits on
 the host: keys, reports and state stay on the device until the caller
-reads them.
+reads them. ``run_stream_oracle`` (dense8 only, as in the reference) is a
+loop over the keys calling the paper-order scan step
+(``core.variants``); it leaves the caller's state as it was.
 """
 
 from __future__ import annotations
@@ -43,6 +48,7 @@ from .batched import (BatchResult, make_batched_step, make_estimate_fn,
 from .config import DedupConfig
 from .device import resolve_device
 from .state import FilterState, init_state
+from .variants import make_scan_step
 
 TOP_CELLS_CHUNK_WORDS = 1 << 20     # top_cells unpacks 2^25 cells at a time
 
@@ -64,8 +70,11 @@ class Dedup:
         self.cfg = cfg.validate()
         self.device = resolve_device(device)
         self._step = make_batched_step(self.cfg, self.device, partitionable)
+        self._scan_step = (make_scan_step(self.cfg, partitionable)
+                           if self.cfg.effective_layout == "dense8" else None)
         self._estimate = (make_estimate_fn(self.cfg, self.device)
-                          if self.cfg.is_counter else None)
+                          if self.cfg.is_counter and self.cfg.is_planes
+                          else None)
         self._widths: set = set()
         self._stream_lengths: set = set()
 
@@ -210,6 +219,21 @@ class Dedup:
     def stream_cache_size(self) -> int:
         """Distinct stream lengths seen by ``run_stream``."""
         return len(self._stream_lengths)
+
+    def run_stream_oracle(self, state: FilterState, keys
+                          ) -> Tuple[FilterState, torch.Tensor]:
+        """Sequential per-element oracle (paper pseudocode order) over a
+        whole (N,) stream: one scan step per key, on a copy of the
+        caller's filter. Returns the state and (N,) bool reports on the
+        device; the loop never waits on the host."""
+        if self._scan_step is None:
+            raise ValueError("oracle runs on the dense8 layout")
+        keys = u32.as_words(keys, self.device)
+        state = state._replace(bits=state.bits.clone())
+        dups = torch.empty(keys.shape, dtype=torch.bool, device=self.device)
+        for i in range(keys.shape[0]):
+            state, dups[i] = self._scan_step(state, keys[i])
+        return state, dups
 
 
 @functools.lru_cache(maxsize=64)

@@ -11,7 +11,11 @@
   draws over the (T, 2) keys in one broadcast evaluation, and the bitset
   kernel (hashing the T·C slot keys itself) or hashmix and the counter
   kernel, with the tenant as a grid axis
-  (``core.batched.make_templated_step(params_aware=True)``).
+  (``core.batched.make_templated_step(params_aware=True)``). A bitset
+  fleet on the dense8 layout (the reference's default) is the dense8 step
+  with the tenant axis written out: one hashmix launch over the T·C slot
+  keys, then gathers and scatters over the (T, k, s) cells; counter-family
+  fleets run on the plane layout only, as in the reference.
 * **Per-tenant knobs** — ``TenantParams`` stacks the value-like config
   (sbf Max, cms/hh threshold, swbf window, admission capacity) as (T,)
   int32 rows on the device; everything that shapes the state stays
@@ -219,12 +223,7 @@ class FleetDedup:
                 "tenant fleets run the counter family on the plane layout "
                 "only — the dense8 sbf branch is the single-filter "
                 "reference, not a template instance (DESIGN §4.6); use "
-                "layout='planes' (dense8 fleets wait for the dense8 port, "
-                "ROADMAP Queue 1 item 6)")
-        if not cfg.is_planes:
-            raise NotImplementedError(
-                "the dense8 layout is not ported yet — ROADMAP Queue 1 "
-                "item 6; use packed=True or layout='planes'")
+                "layout='planes'")
         self._step = make_templated_step(cfg, device=self.device,
                                          partitionable=partitionable,
                                          params_aware=True)

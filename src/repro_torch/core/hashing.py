@@ -9,7 +9,8 @@ int32 bit patterns; the arithmetic runs on int64 values masked to 32 bits
 one launch, and its plain form on the CPU. It is not the only place the
 hash runs on the card: the bitset step and ``ops.fused_probe`` hash their
 keys inside their own kernels (``kernels/csrc/hashmix.cuh``) and never call
-it; the counter family, ``Dedup.estimate`` and ``ops.hash_positions`` do.
+it; the counter family, the dense8 steps and oracle, ``Dedup.estimate`` and
+``ops.hash_positions`` do.
 """
 
 from __future__ import annotations

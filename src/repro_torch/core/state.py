@@ -1,17 +1,21 @@
-"""Filter state — the port of ``repro.core.state`` for the plane layout
-(DESIGN §3.6).
+"""Filter state — the port of ``repro.core.state`` (DESIGN §3.6).
 
-``bits`` holds the filter as int32 tensors of uint32 BIT PATTERNS
-(``core.u32``), bit j of word w holding cell 32·w + j — bit for bit the
-JAX package's plane layout, so ``repro_torch.convert.state_to_numpy``
-returns the same bytes as ``np.asarray(state.bits)`` in JAX:
+``bits`` depends on ``cfg.effective_layout``, as in the reference:
 
-* the paper's 1-bit variants (rsbf, bsbf, bsbfsd, rlbsbf): (k, W), k rows
-  of W = ceil(s/32) words;
-* the counter family (sbf, swbf, cms, hh): d bit-planes of one row of
-  d-bit cells, the (d, 1, W) stack — cell j's value is
-  sum_p plane[p] bit j << p. At d == 1 (sbf with Max = 1) the plane axis is
-  squeezed to (1, W), as in the reference.
+* "dense8" (the reference's default): (n_rows, s) uint8, one byte per bit
+  — per cell for sbf, holding the counter value. The paper's 1-bit
+  variants keep k rows, sbf one row of cells;
+* "planes": int32 tensors of uint32 BIT PATTERNS (``core.u32``), bit j of
+  word w holding cell 32·w + j — bit for bit the JAX package's plane
+  layout, so ``repro_torch.convert.state_to_numpy`` returns the same bytes
+  as ``np.asarray(state.bits)`` in JAX:
+
+  - the paper's 1-bit variants (rsbf, bsbf, bsbfsd, rlbsbf): (k, W), k
+    rows of W = ceil(s/32) words;
+  - the counter family (sbf, swbf, cms, hh): d bit-planes of one row of
+    d-bit cells, the (d, 1, W) stack — cell j's value is
+    sum_p plane[p] bit j << p. At d == 1 (sbf with Max = 1) the plane axis
+    is squeezed to (1, W), as in the reference.
 
 ``position`` is the 1-indexed stream position ``i`` of the next element
 (RSBF's insert probability is s/i), ``load`` the exact per-row count of set
@@ -57,7 +61,8 @@ class FilterState:
     iterating it yields its leaves, and a ``ring`` that is None is no leaf,
     so a bitset state is the same four tensors as before the ring existed.
     ``_replace`` returns a copy with the named fields changed."""
-    bits: torch.Tensor       # (k, W) | (d, 1, W) | (1, W) int32 words
+    bits: torch.Tensor       # (k, s) uint8 | (k, W) | (d, 1, W) | (1, W)
+                             #   int32 words
     position: torch.Tensor   # () int32 — 1-indexed next stream position
     load: torch.Tensor       # (k,) int32 — set bits (nonzero cells)
     rng: torch.Tensor        # (2,) int32 — threefry key data
@@ -78,11 +83,19 @@ class FilterState:
 
 
 def bits_shape(cfg: DedupConfig) -> tuple:
-    """The ``bits`` leaf's shape on the plane layout: (d, n_rows, W) for
-    d > 1 planes, else the squeezed (n_rows, W)."""
+    """The ``bits`` leaf's shape: (n_rows, s) on dense8; on the plane
+    layout (d, n_rows, W) for d > 1 planes, else the squeezed (n_rows,
+    W)."""
+    if not cfg.is_planes:
+        return (cfg.n_rows, cfg.s)
     d = cfg.n_planes
     return ((d, cfg.n_rows, cfg.s_words) if d > 1
             else (cfg.n_rows, cfg.s_words))
+
+
+def bits_dtype(cfg: DedupConfig) -> torch.dtype:
+    """uint8 cells on dense8, int32 words on the plane layout."""
+    return torch.int32 if cfg.is_planes else torch.uint8
 
 
 def init_ring(cfg: DedupConfig, event_capacity: int | None = None,
@@ -111,7 +124,8 @@ def init_state(cfg: DedupConfig, seed: int | None = None, device=None,
     ring = (init_ring(cfg, event_capacity, device)
             if cfg.variant == "swbf" else None)
     return FilterState(
-        bits=torch.zeros(bits_shape(cfg), dtype=torch.int32, device=device),
+        bits=torch.zeros(bits_shape(cfg), dtype=bits_dtype(cfg),
+                         device=device),
         position=torch.ones((), dtype=torch.int32, device=device),
         load=torch.zeros((cfg.n_rows,), dtype=torch.int32, device=device),
         rng=prng.PRNGKey(seed, device=device),

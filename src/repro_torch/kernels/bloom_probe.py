@@ -52,7 +52,7 @@ def _entry(name: str):
     fn = getattr(build.load("bloom_probe"), f"{name}_launch")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     fn.argtypes = {"bloom_probe": [p, p, p, p, i, i, ll, p],
-                   "fused_probe": [p, p, p, p, p, i, ll, p, i,
+                   "fused_probe": [p, p, p, p, p, i, ll, p, p, i,
                                    ctypes.c_uint32, p]}[name]
     fn.restype = ctypes.c_int
     return fn
@@ -112,7 +112,7 @@ def fused_probe(keys: torch.Tensor, words: torch.Tensor, seeds: torch.Tensor,
                 s: int):
     """keys (B,) int32 words against the (k, W) ``words`` -> (dup (B,)
     bool, hits (B, k) uint8, pos (B, k) int32), ``seeds`` (k,) int32 words
-    (read on the host by a launch: on the CPU). On CUDA one
+    (read on the host by a launch: on the CPU; any k). On CUDA one
     launch: the hash in registers, all k gathers, the bit tests and the
     AND. ``fused_probe.launches`` counts its kernel launches (bloom_probe's
     count does not move)."""
@@ -138,10 +138,10 @@ def fused_probe(keys: torch.Tensor, words: torch.Tensor, seeds: torch.Tensor,
     hits = torch.empty((b, k), dtype=torch.uint8, device=keys.device)
     dup = torch.empty((b,), dtype=torch.bool, device=keys.device)
     pos = torch.empty((b, k), dtype=torch.int32, device=keys.device)
-    hs, _ = _hashmix.host_seeds(seeds, None)
+    hs, _, dev = _hashmix.launch_seeds(seeds, None, keys.device)
     err = _entry("fused_probe")(
         words.data_ptr(), keys.data_ptr(), hits.data_ptr(), dup.data_ptr(),
-        pos.data_ptr(), b, w, hs.data_ptr(), k, s,
+        pos.data_ptr(), b, w, hs.data_ptr(), _hashmix.ptr(dev), k, s,
         torch.cuda.current_stream(keys.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused_probe kernel launch failed: CUDA error "

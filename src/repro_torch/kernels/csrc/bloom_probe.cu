@@ -59,6 +59,7 @@ __global__ void bloom_probe_kernel(const uint32_t* __restrict__ words,
   hits[i] = (words[f * w + wi] & bit_mask[i]) != 0u ? 1 : 0;
 }
 
+template <bool kDev>  // k > 32: the seeds from device memory
 __global__ void fused_probe_kernel(const uint32_t* __restrict__ words,
                                    const uint32_t* __restrict__ keys,
                                    uint8_t* __restrict__ hits,
@@ -77,7 +78,7 @@ __global__ void fused_probe_kernel(const uint32_t* __restrict__ words,
 #pragma unroll
     for (int j = 0; j < kGathers; ++j) {
       if (f0 + j < k) {
-        p[j] = hash_position(key, f0 + j, h);
+        p[j] = hash_position<kDev>(key, f0 + j, h);
         word[j] = words[static_cast<long long>(f0 + j) * w +
                         clamp_index(static_cast<long long>(p[j]) >> 5, w)];
       }
@@ -116,16 +117,23 @@ extern "C" int bloom_probe_launch(const void* words, const void* word_idx,
 }
 
 // words (k, w); keys (b,); hits (b, k) uint8, dup (b,) bool, pos (b, k)
-// int32; seeds: k <= 32 host values; s in [1, 2^31]. Launches on `stream`;
-// returns cudaGetLastError().
+// int32; seeds: k host values, read for k <= 32; dseeds: for k > 32, the k
+// seeds on the card; s in [1, 2^31]. Launches on `stream`; returns
+// cudaGetLastError().
 extern "C" int fused_probe_launch(const void* words, const void* keys,
                                   void* hits, void* dup, void* pos, int b,
-                                  long long w, const uint32_t* seeds, int k,
-                                  uint32_t s, void* stream) {
+                                  long long w, const uint32_t* seeds,
+                                  const uint32_t* dseeds, int k, uint32_t s,
+                                  void* stream) {
+  if (k > kMaxHashRows && dseeds == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (b > 0 && k > 0) {
-    const HashSpec h = make_hash_spec(seeds, nullptr, k, s, 0);
-    fused_probe_kernel<<<(b + kThreads - 1) / kThreads, kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
+    const HashSpec h = make_hash_spec(seeds, nullptr, dseeds, k, s, 0);
+    const int blocks = (b + kThreads - 1) / kThreads;
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    auto* kernel = k > kMaxHashRows ? fused_probe_kernel<true>
+                                    : fused_probe_kernel<false>;
+    kernel<<<blocks, kThreads, 0, st>>>(
         static_cast<const uint32_t*>(words),
         static_cast<const uint32_t*>(keys), static_cast<uint8_t*>(hits),
         static_cast<uint8_t*>(dup), static_cast<int32_t*>(pos), b, w, h);

@@ -58,7 +58,12 @@
 //       its load delta and adds it with one integer atomic.
 // The plane arrays are sized by D, the power of two at or above d (a
 // template argument), so few planes hold few registers and many blocks
-// stay resident.
+// stay resident. d runs to 32, the widest cell the reference's plane
+// layout holds (sbf with Max up to 2^32 - 1; a wider Max overflows its
+// uint32 counts). Counts and run lengths stay below 2^31 (there are fewer
+// events than that), so the caller clamps the caps there; a set-to-Max
+// value is read bit by bit, so Max >= 2^31 travels as its int32 bit
+// pattern.
 //
 // What bounds it now: latency, not bytes. On an H100 the probe launch
 // waits on two dependent scattered reads (positions, then plane words),
@@ -92,7 +97,7 @@ namespace {
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kTile = kThreads;            // merged events per tile
-constexpr int kMaxPlanes = 16;
+constexpr int kMaxPlanes = 32;             // the reference's widest cell
 constexpr int kProbeUnroll = 4;            // probes gathered at once
 
 struct CounterArgs {
@@ -470,5 +475,6 @@ extern "C" int counter_step_launch(
   if (d == 2) return launch<2>(a, st);
   if (d <= 4) return launch<4>(a, st);
   if (d <= 8) return launch<8>(a, st);
-  return launch<16>(a, st);
+  if (d <= 16) return launch<16>(a, st);
+  return launch<32>(a, st);
 }

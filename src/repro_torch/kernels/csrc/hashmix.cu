@@ -26,7 +26,8 @@
 // of different rows asked for different words and the kernel was
 // slower). One thread per key, its k positions stored together (a vector
 // store), was slower too: two hashes in a row per thread, for no fewer
-// round trips.
+// round trips. Past 32 rows the seeds come from device memory (hashmix.cuh)
+// and are read where they are used, not staged.
 
 #include <cuda_runtime.h>
 
@@ -36,6 +37,9 @@ namespace {
 
 constexpr int kThreads = 256;
 
+// kDev: k > 32, the seeds read from device memory where they are used;
+// otherwise staged in shared memory from the argument block
+template <bool kDev>
 __global__ void hashmix_kernel(const uint32_t* __restrict__ keys,
                                int32_t* __restrict__ out, int n,
                                const HashSpec h) {
@@ -43,36 +47,53 @@ __global__ void hashmix_kernel(const uint32_t* __restrict__ keys,
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const int e = i / h.k;
   const uint32_t key = i < n ? keys[e] : 0u;
-  if (threadIdx.x < h.k) {
-    seeds[threadIdx.x] = h.seeds[threadIdx.x];
-    seeds[kMaxHashRows + threadIdx.x] = h.bseeds[threadIdx.x];
+  if constexpr (!kDev) {
+    if (threadIdx.x < h.k) {
+      seeds[threadIdx.x] = h.seeds[threadIdx.x];
+      seeds[kMaxHashRows + threadIdx.x] = h.bseeds[threadIdx.x];
+    }
+    __syncthreads();
   }
-  __syncthreads();
   if (i >= n) return;
   const int f = i - e * h.k;
-  const uint32_t x = fmix32(key ^ seeds[f]);
+  const uint32_t x = fmix32(key ^ (kDev ? h.dseeds[f] : seeds[f]));
   out[i] = h.n_blocks == 0u
                ? static_cast<int32_t>(reduce_to(x, h.s))
-               : blocked_position(x, fmix32(key ^ seeds[kMaxHashRows + f]),
-                                  h);
+               : blocked_position(
+                     x,
+                     fmix32(key ^ (kDev ? h.dseeds[h.k + f]
+                                        : seeds[kMaxHashRows + f])),
+                     h);
 }
 
 }  // namespace
 
 // keys (b,) uint32, out (b, k) int32 row-major; seeds
-// and, for block_bits > 0, bseeds: k host values each (k <= 32); s in
+// and, for block_bits > 0, bseeds: k host values each, read for k <= 32;
+// dseeds: for k > 32, the 2k seeds (probe, then block) on the card; s in
 // [1, 2^31]. Launches on `stream`; returns cudaGetLastError().
 extern "C" int hashmix_launch(const void* keys, void* out, int b,
                               const uint32_t* seeds, const uint32_t* bseeds,
-                              int k, uint32_t s, int block_bits,
-                              void* stream) {
-  const int n = b * k;
+                              const uint32_t* dseeds, int k, uint32_t s,
+                              int block_bits, void* stream) {
+  const long long n = static_cast<long long>(b) * k;
+  if (k > kMaxHashRows && dseeds == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
   if (n > 0) {
-    const HashSpec h = make_hash_spec(seeds, bseeds, k, s, block_bits);
-    hashmix_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint32_t*>(keys), static_cast<int32_t*>(out), n,
-        h);
+    const HashSpec h = make_hash_spec(seeds, bseeds, dseeds, k, s,
+                                      block_bits);
+    const unsigned blocks = static_cast<unsigned>((n + kThreads - 1) /
+                                                  kThreads);
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (k > kMaxHashRows)
+      hashmix_kernel<true><<<blocks, kThreads, 0, st>>>(
+          static_cast<const uint32_t*>(keys), static_cast<int32_t*>(out),
+          static_cast<int>(n), h);
+    else
+      hashmix_kernel<false><<<blocks, kThreads, 0, st>>>(
+          static_cast<const uint32_t*>(keys), static_cast<int32_t*>(out),
+          static_cast<int>(n), h);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -11,8 +11,11 @@
 //           the product taken in 64 bits and kept to its low 32, as the
 //           reference's uint32 arithmetic keeps it.
 //
-// The seeds travel in the kernel's argument block (HashSpec, by value), so
-// no launch loads them. uint32_t arithmetic wraps by definition, so every
+// Up to kMaxHashRows rows the seeds travel in the kernel's argument block
+// (HashSpec, by value), so no launch loads them; past that (the reference
+// takes any k >= 1) the argument block holds a pointer to them in device
+// memory instead, the probe seeds then the block seeds, 2k words, and each
+// read is a load. uint32_t arithmetic wraps by definition, so every
 // position is bit-identical to the reference's.
 
 #pragma once
@@ -24,22 +27,31 @@ constexpr int kMaxHashRows = 32;
 struct HashSpec {
   uint32_t seeds[kMaxHashRows];   // probe seeds, channel 0
   uint32_t bseeds[kMaxHashRows];  // block seeds, channel 1 (blocked only)
+  const uint32_t* dseeds;         // k > kMaxHashRows: the probe seeds, then
+                                  //   the block seeds, in device memory;
+                                  //   null otherwise
   uint32_t s;                     // positions in [0, s), s in [1, 2^31]
   uint32_t n_blocks;              // 0: flat layout
   uint32_t bsize;                 // 2^block_bits (blocked only)
-  int k;                          // rows, 1 <= k <= 32
+  int k;                          // rows, k >= 1
 };
 
 // seeds / bseeds: k host values each (bseeds may be null when n_blocks is
-// 0). Runs on the host, before a launch.
+// 0), read for k <= kMaxHashRows; dseeds: 2k words on the card, used (and
+// then required) for k > kMaxHashRows. Runs on the host, before a launch.
 inline HashSpec make_hash_spec(const uint32_t* seeds, const uint32_t* bseeds,
-                               int k, uint32_t s, int block_bits) {
+                               const uint32_t* dseeds, int k, uint32_t s,
+                               int block_bits) {
   HashSpec h{};
   h.k = k;
   h.s = s;
-  for (int f = 0; f < k && f < kMaxHashRows; ++f) {
-    h.seeds[f] = seeds[f];
-    h.bseeds[f] = bseeds ? bseeds[f] : 0u;
+  if (k > kMaxHashRows) {
+    h.dseeds = dseeds;
+  } else {
+    for (int f = 0; f < k; ++f) {
+      h.seeds[f] = seeds[f];
+      h.bseeds[f] = bseeds ? bseeds[f] : 0u;
+    }
   }
   if (block_bits > 0) {
     h.bsize = 1u << block_bits;
@@ -70,12 +82,28 @@ __device__ __forceinline__ int32_t blocked_position(uint32_t x, uint32_t xb,
   return static_cast<int32_t>(static_cast<uint32_t>(pos));
 }
 
+// row f's probe and block seeds: from the argument block, or (kDev, for
+// k > 32) from device memory. A template argument, so a launch of 32 rows
+// or fewer carries no branch for the wide case.
+template <bool kDev>
+__device__ __forceinline__ uint32_t probe_seed(const HashSpec& h, int f) {
+  if constexpr (kDev) return h.dseeds[f];
+  return h.seeds[f];
+}
+
+template <bool kDev>
+__device__ __forceinline__ uint32_t block_seed(const HashSpec& h, int f) {
+  if constexpr (kDev) return h.dseeds[h.k + f];
+  return h.bseeds[f];
+}
+
 // row f's bit position of `key`, as the int32 the reference stores; f is
 // the same for every lane of a warp where the callers use it, so each seed
-// read is one broadcast from the argument block
+// read is one broadcast from the argument block (or one load)
+template <bool kDev>
 __device__ __forceinline__ int32_t hash_position(uint32_t key, int f,
                                                  const HashSpec& h) {
-  uint32_t x = fmix32(key ^ h.seeds[f]);
+  uint32_t x = fmix32(key ^ probe_seed<kDev>(h, f));
   if (h.n_blocks == 0u) return static_cast<int32_t>(reduce_to(x, h.s));
-  return blocked_position(x, fmix32(key ^ h.bseeds[f]), h);
+  return blocked_position(x, fmix32(key ^ block_seed<kDev>(h, f)), h);
 }

@@ -58,9 +58,9 @@ VARIANT_CODES = {"rsbf": 0, "bsbf": 1, "bsbfsd": 2, "rlbsbf": 3}
 # probed cells against a threshold (1 for the nonzero probe), OR'd with the
 # intra-batch join where the spec uses it
 COUNTER_SKETCHES = ("sbf", "swbf", "cms", "hh")
-MAX_PLANES = 16                   # csrc/counter_step.cu::kMaxPlanes
+MAX_PLANES = 32                   # csrc/counter_step.cu::kMaxPlanes
 COUNTER_TILE = 128                # csrc/counter_step.cu::kTile
-MAX_TENANTS = 65535               # bitset_step.cu's tenant axis (gridDim.y/z)
+INT_MAX = (1 << 31) - 1
 
 
 def _check_tensors(kernel: str, want: dict, device) -> None:
@@ -79,38 +79,39 @@ def _check_tensors(kernel: str, want: dict, device) -> None:
 
 # ---------------- bitset family ------------------------------------------ //
 
-def _slice_rnd(rnd, t):
-    return _batched.BatchRandomness(*(x[t] for x in rnd))
-
-
 def bitset_step_plain(cfg, words, pos, rnd, valid, seen, i_t, load):
     """-> (new words, dup, inserted, load). One filter: words (k, W), pos
     (B, k), load (k,). A fleet: words (T, k, W) and every other operand
-    with a leading T axis, each tenant stepped on its own (this is the
-    check on the kernel, not the path)."""
-    if words.dim() == 3:
-        outs = [bitset_step_plain(cfg, words[t], pos[t], _slice_rnd(rnd, t),
-                                  valid[t], seen[t], i_t[t], load[t])
-                for t in range(words.shape[0])]
-        return tuple(torch.stack(x) for x in zip(*outs))
-    b, k = pos.shape
-    w = words.shape[1]
+    with a leading T axis, all tenants at once (their rows are disjoint:
+    the (T, k) rows are stepped as T·k rows of one filter)."""
+    k, w = words.shape[-2:]
     decide = _batched.make_decision_fn(cfg)
-    vals = _packed.probe_packed(words, pos)
+    p = pos.to(torch.int64)
+    lead = torch.arange(words.numel() // (k * w), device=words.device)
+    rows = torch.arange(k, device=words.device)
+    got = words.reshape(-1, k, w)[lead[:, None, None], rows,
+                                  (p >> 5).reshape(-1, *p.shape[-2:])]
+    vals = ((u32.to_u64(got.reshape(p.shape)) >> (p & 31)) & 1).to(
+        torch.uint8)
     dup, insert, del_mask = decide(vals, valid, seen, i_t, load, rnd)
     sentinel = 32 * w
     spi = _batched.sorted_enabled_positions(
-        pos, insert[:, None].expand(b, k), sentinel)
+        pos, insert[..., None].expand(pos.shape), sentinel)    # (..., k, B)
     spd = _batched.sorted_enabled_positions(rnd.del_pos, del_mask, sentinel)
-    delta_i = _packed.delta_from_sorted_positions(spi, w)
-    delta_d = _packed.delta_from_sorted_positions(spd, w)
-    new = (words & ~delta_d) | delta_i
-    pre_i = _packed.probe_sorted_packed(words, spi)
-    pre_d = _packed.probe_sorted_packed(words, spd)
-    post_d = _packed.probe_sorted_packed(new, spd)
+
+    def flat(sp):                                              # (T·k, B)
+        return sp.reshape(-1, sp.shape[-1])
+
+    old = words.reshape(-1, w)
+    delta_i = _packed.delta_from_sorted_positions(flat(spi), w)
+    delta_d = _packed.delta_from_sorted_positions(flat(spd), w)
+    new = (old & ~delta_d) | delta_i
+    pre_i = _packed.probe_sorted_packed(old, flat(spi)).view(spi.shape)
+    pre_d = _packed.probe_sorted_packed(old, flat(spd)).view(spd.shape)
+    post_d = _packed.probe_sorted_packed(new, flat(spd)).view(spd.shape)
     new_load = load + _batched.load_delta_from_sorted(
         spi, pre_i, spd, pre_d, post_d, cfg.s)
-    return new, dup, insert, new_load
+    return new.view(words.shape), dup, insert, new_load
 
 
 def _check(cfg, words, keys, seeds, block_seeds, rnd, valid, seen, i_t,
@@ -138,11 +139,6 @@ def _check(cfg, words, keys, seeds, block_seeds, rnd, valid, seen, i_t,
     if cfg.variant not in VARIANT_CODES:
         raise ValueError(f"bitset_step runs {tuple(VARIANT_CODES)}, "
                          f"not {cfg.variant!r}")
-    if not 1 <= k <= 32:
-        raise ValueError(f"bitset_step takes 1 <= k <= 32, got {k}")
-    if t > MAX_TENANTS:
-        raise ValueError(f"bitset_step takes at most {MAX_TENANTS} "
-                         f"tenants, got {t}")
 
 
 @functools.lru_cache(maxsize=None)
@@ -150,7 +146,7 @@ def _entry():
     """The C entry point, built at first use, its signature set once."""
     fn = build.load("bitset_step").bitset_step_launch
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, ctypes.c_longlong, i, i, i, p, p, p, i,
+    fn.argtypes = [p, ctypes.c_longlong, i, i, i, p, p, p, p, i,
                    p, p, p, p, p, p, p, p, p, p, p, p,
                    i, i, ctypes.c_float, ctypes.c_float, p]
     fn.restype = ctypes.c_int
@@ -161,11 +157,12 @@ def _launch(cfg, words, keys, seeds, block_seeds, rnd, valid, seen, i_t,
             load, dup, ins, del_rows, load_out):
     stream = torch.cuda.current_stream(words.device).cuda_stream
     t, k, w = words.shape
-    hs, hb = _hashmix.host_seeds(seeds, block_seeds if cfg.block_bits > 0
-                                 else None)
+    hs, hb, dev = _hashmix.launch_seeds(
+        seeds, block_seeds if cfg.block_bits > 0 else None, words.device)
     err = _entry()(words.data_ptr(), w, k, t, valid.shape[1],
                    keys.data_ptr(), hs.data_ptr(), _hashmix.ptr(hb),
-                   max(cfg.block_bits, 0), rnd.del_pos.data_ptr(),
+                   _hashmix.ptr(dev), max(cfg.block_bits, 0),
+                   rnd.del_pos.data_ptr(),
                    valid.data_ptr(), seen.data_ptr(), i_t.data_ptr(),
                    rnd.u_bern.data_ptr(), rnd.u_aux.data_ptr(),
                    rnd.which.data_ptr(), load.data_ptr(),
@@ -192,7 +189,9 @@ def bitset_step(cfg, words, keys, rnd, valid, seen, i_t, load, *, seeds,
     On CUDA the kernel's probe and insert launches hash each key in
     registers (``csrc/hashmix.cuh``): no hashmix launch, no positions in
     device memory; the seeds are read on the host and must be CPU tensors
-    (``hashmix.host_seeds``). On the CPU the wrapper computes the positions
+    (``hashmix.launch_seeds``: in the argument block up to 32 rows, copied
+    to the card without a host wait past that). On the CPU the wrapper
+    computes the positions
     with the plain hashmix and runs ``bitset_step_plain``.
     ``bitset_step.launches`` counts kernel launches: one per step, three
     grid launches each."""
@@ -218,8 +217,9 @@ def bitset_step(cfg, words, keys, rnd, valid, seen, i_t, load, *, seeds,
                          f"{words.device}")
     dup = torch.empty(valid.shape, dtype=torch.bool, device=words.device)
     ins = torch.empty(valid.shape, dtype=torch.bool, device=words.device)
-    del_rows = torch.empty(valid.shape, dtype=torch.int32,
-                           device=words.device)
+    # the rows each element deletes, 32 to a mask word
+    del_rows = torch.empty((*valid.shape, -(-cfg.k // 32)),
+                           dtype=torch.int32, device=words.device)
     load_out = load.clone()
     _launch(cfg, words, keys, seeds, block_seeds, rnd, valid, seen, i_t,
             load, dup, ins, del_rows, load_out)
@@ -367,7 +367,9 @@ def counter_caps(cfg, spec) -> tuple:
     full = (1 << cfg.n_planes) - 1
     set_mode = spec.combine == "set"
     sub_cap = (cfg.sbf_max if set_mode else full) if spec.has_sub else 0
-    return sub_cap, 0 if set_mode else full
+    # a row holds fewer than 2^31 events, so no run is longer than INT_MAX:
+    # clamping there changes no count (d = 32 caps would overflow an int)
+    return min(sub_cap, INT_MAX), 0 if set_mode else min(full, INT_MAX)
 
 
 @functools.lru_cache(maxsize=None)
@@ -381,9 +383,16 @@ def _counter_entry():
     return fn
 
 
+def int32_rows(value: int, t: int, device) -> torch.Tensor:
+    """(t,) int32 rows holding ``value``'s low 32 bits: a set-to-Max value
+    of 2^31 or more (d = 32 planes) travels as its bit pattern, which the
+    kernel and ``planes_set_value`` read bit by bit."""
+    return u32.to_i32(torch.full((t,), int(value), dtype=torch.int64,
+                                 device=device))
+
+
 def _knob(v, default: int, t: int, device):
-    return (torch.full((t,), default, dtype=torch.int32, device=device)
-            if v is None else v)
+    return int32_rows(default, t, device) if v is None else v
 
 
 def counter_step(cfg, spec, planes, pos, valid, seen, load, ev,

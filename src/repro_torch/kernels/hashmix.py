@@ -7,11 +7,15 @@ there: what bounds it and how) or raises; on a CPU tensor it runs the
 plain versions, ``hashmix_plain`` and ``positions_plain``. The bitset step
 and ``fused_probe`` hash inside their own kernels (``csrc/hashmix.cuh``,
 the one definition of the hash), so on the card only the counter family's
-steps, ``Dedup.estimate`` and ``ops.hash_positions`` launch this kernel.
+steps, the dense8 steps and oracle, ``Dedup.estimate`` and
+``ops.hash_positions`` launch this kernel.
 
 A launch reads the seeds on the host, into the kernel's argument block:
 callers pass them as a CPU tensor (``host_seeds`` refuses seeds on the
-card).
+card). Past ``MAX_ROWS`` rows (the reference takes any k >= 1) the
+argument block cannot hold them: ``launch_seeds`` then copies them to the
+card on the launch's stream, from pinned memory and without a host wait,
+and the kernels read them there.
 """
 
 from __future__ import annotations
@@ -26,7 +30,8 @@ from . import build
 
 M1 = 0x85EBCA6B
 M2 = 0xC2B2AE35
-MAX_ROWS = 32                     # csrc/hashmix.cuh::kMaxHashRows
+MAX_ROWS = 32                     # csrc/hashmix.cuh::kMaxHashRows: seeds
+                                  # in the argument block up to here
 
 
 def hashmix_plain(keys: torch.Tensor, seeds: torch.Tensor, s: int
@@ -62,8 +67,7 @@ def positions_plain(keys: torch.Tensor, seeds: torch.Tensor, s: int,
 def check_hash_operands(kernel: str, keys, seeds, s: int, block_bits: int,
                         block_seeds) -> None:
     """What every hashing wrapper takes: int32 keys and seeds (k,), s in
-    [1, 2^31], and block seeds (k,) for the blocked layout. A launch also
-    needs k <= 32 (``host_seeds``)."""
+    [1, 2^31], and block seeds (k,) for the blocked layout."""
     for name, t in (("keys", keys), ("seeds", seeds),
                     ("block_seeds", block_seeds)):
         if t is not None and t.dtype != torch.int32:
@@ -92,9 +96,6 @@ def host_seeds(seeds: torch.Tensor, block_seeds: torch.Tensor | None
     tensors, as a launch reads them into its argument block. Seeds on the
     card are refused: copying them to the host would wait for the card at
     every launch. Keep the result alive until the launch returns."""
-    if seeds.shape[0] > MAX_ROWS:
-        raise ValueError(f"the hashing kernels take k <= {MAX_ROWS} rows, "
-                         f"got {seeds.shape[0]}")
     for name, x in (("seeds", seeds), ("block_seeds", block_seeds)):
         if x is not None and x.device.type != "cpu":
             raise ValueError(f"a kernel launch reads its {name} on the "
@@ -102,6 +103,21 @@ def host_seeds(seeds: torch.Tensor, block_seeds: torch.Tensor | None
                              f"{x.device}")
     return tuple(None if x is None else x.contiguous()
                  for x in (seeds, block_seeds))
+
+
+def launch_seeds(seeds: torch.Tensor, block_seeds: torch.Tensor | None,
+                 device) -> tuple:
+    """(host seeds, host block seeds or None, device seeds or None) for a
+    launch on ``device``: ``host_seeds``, and for k > ``MAX_ROWS`` the 2k
+    words the kernel reads from device memory instead — the probe seeds,
+    then the block seeds (zeros without them) — copied from pinned host
+    memory on the current stream, so the host does not wait. Keep all
+    three alive until the launch returns."""
+    hs, hb = host_seeds(seeds, block_seeds)
+    if hs.shape[0] <= MAX_ROWS:
+        return hs, hb, None
+    both = torch.cat([hs, torch.zeros_like(hs) if hb is None else hb])
+    return hs, hb, both.pin_memory().to(device, non_blocking=True)
 
 
 def ptr(t: torch.Tensor | None):
@@ -114,7 +130,7 @@ def _entry():
     """The C entry point, built at first use, its signature set once."""
     fn = build.load("hashmix").hashmix_launch
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, i, p, p, i, ctypes.c_uint32, i, p]
+    fn.argtypes = [p, p, i, p, p, p, i, ctypes.c_uint32, i, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -125,7 +141,7 @@ def hashmix(keys: torch.Tensor, seeds: torch.Tensor, *, s: int,
     """Positions (B, k) int32 of keys (B,) int32 words. ``seeds`` (k,),
     and ``block_seeds`` (k,) for ``block_bits`` > 0, are int32 words: on
     the keys' device for the plain versions, on the CPU for a launch,
-    which reads them on the host (``host_seeds``).
+    which reads them on the host (``launch_seeds``; any k).
     ``hashmix.launches`` counts kernel launches: one per call on CUDA,
     either layout."""
     check_hash_operands("hashmix", keys, seeds, s, block_bits, block_seeds)
@@ -140,9 +156,10 @@ def hashmix(keys: torch.Tensor, seeds: torch.Tensor, *, s: int,
         raise ValueError(f"hashmix runs on cpu or cuda, not {keys.device}")
     out = torch.empty((keys.shape[0], seeds.shape[0]), dtype=torch.int32,
                       device=keys.device)
-    hs, hb = host_seeds(seeds, block_seeds if block_bits > 0 else None)
+    hs, hb, dev = launch_seeds(seeds, block_seeds if block_bits > 0
+                               else None, keys.device)
     err = _entry()(keys.data_ptr(), out.data_ptr(), keys.shape[0],
-                   hs.data_ptr(), ptr(hb), hs.shape[0], s,
+                   hs.data_ptr(), ptr(hb), ptr(dev), hs.shape[0], s,
                    max(block_bits, 0),
                    torch.cuda.current_stream(keys.device).cuda_stream)
     if err != 0:

@@ -7,8 +7,12 @@ the reference runs as two kernel launches: here it is one kernel
 (``bloom_probe.fused_probe``). Each function runs where its tensors lie:
 the hand-written kernels on CUDA, their plain versions on the CPU. Words,
 keys, seeds and masks are int32 tensors of uint32 bit patterns
-(``core.u32``); a launch reads the seeds on the host, so they are given
-on the CPU.
+(``core.u32``). As in the reference, ``hash_positions`` and
+``fused_probe`` take their seeds on any device; a launch reads them on the
+host, so seeds given on the card are copied to the host once per call,
+which waits for the card. The engine never does that: it keeps its seeds
+on the CPU, and the kernel wrappers below ``ops`` refuse seeds on the card
+(``hashmix.host_seeds``).
 
 One difference from the reference: ``probe`` does not refuse filter rows
 over 8 MiB. That limit was the TPU's VMEM budget for a row pinned in fast
@@ -25,10 +29,16 @@ from .hashmix import hashmix
 from .scatter_delta import scatter_delta
 
 
+def _host(seeds: torch.Tensor) -> torch.Tensor:
+    """The seeds on the host; seeds on the card are copied, which waits."""
+    return seeds if seeds.device.type == "cpu" else seeds.cpu()
+
+
 def hash_positions(keys: torch.Tensor, seeds: torch.Tensor, s: int
                    ) -> torch.Tensor:
-    """(B,) keys -> (B, k) int32 positions (the hashmix kernel)."""
-    return hashmix(keys, seeds, s=s)
+    """(B,) keys -> (B, k) int32 positions (the hashmix kernel); ``seeds``
+    (k,) on any device."""
+    return hashmix(keys, _host(seeds), s=s)
 
 
 def probe(words: torch.Tensor, word_idx: torch.Tensor,
@@ -40,8 +50,8 @@ def probe(words: torch.Tensor, word_idx: torch.Tensor,
 def fused_probe(keys: torch.Tensor, words: torch.Tensor, seeds: torch.Tensor,
                 s: int):
     """keys (B,) -> (dup (B,) bool, hits (B, k) uint8, pos (B, k) int32),
-    one kernel launch on CUDA."""
-    return _probe.fused_probe(keys, words, seeds, s)
+    one kernel launch on CUDA; ``seeds`` (k,) on any device."""
+    return _probe.fused_probe(keys, words, _host(seeds), s)
 
 
 def scatter_or(words: torch.Tensor, word_idx: torch.Tensor,

@@ -214,16 +214,21 @@ def test_device_rule_and_refusals():
     assert get_engine(cfg, "cpu") is get_engine(cfg, "cpu")
     assert get_engine(cfg, "cpu") is not get_engine(cfg, "cpu",
                                                     partitionable=False)
-    # sbf defaults to dense8, which is not ported; swbf, cms and hh resolve
-    # to the plane layout and run
-    with pytest.raises(NotImplementedError, match="dense8"):
-        Dedup(DedupConfig.for_variant("sbf", memory_bits=1 << 12), "cpu")
+    # sbf and rlbsbf default to dense8, which the port runs (uint8 cells,
+    # the oracle beside the batched step); swbf, cms and hh resolve to the
+    # plane layout and run
+    for variant in ("sbf", "rlbsbf"):
+        eng = Dedup(DedupConfig.for_variant(variant, memory_bits=1 << 12),
+                    "cpu")
+        assert eng.cfg.effective_layout == "dense8"
+        st, dup = eng.run_stream(eng.init(), np.arange(300, dtype=np.uint32))
+        assert st.bits.dtype == torch.uint8 and dup.shape == (300,)
+        assert eng.run_stream_oracle(eng.init(), np.arange(
+            3, dtype=np.uint32))[1].shape == (3,)
     for variant in ("swbf", "cms", "hh"):
         eng = Dedup(DedupConfig.for_variant(variant, memory_bits=1 << 12),
                     "cpu")
         assert eng.cfg.is_counter and eng.cfg.is_planes
-    with pytest.raises(NotImplementedError, match="dense8"):
-        Dedup(DedupConfig.for_variant("rlbsbf", memory_bits=1 << 12), "cpu")
     with pytest.raises(NotImplementedError, match="n_tenants"):
         Dedup(DedupConfig.for_variant("rlbsbf", n_tenants=4, **SMALL), "cpu")
 

@@ -226,8 +226,9 @@ def test_launch_seeds_must_be_on_the_host():
     """A launch reads its seeds into the kernel's argument block on the
     host: CPU seeds pass through as they are, seeds anywhere else (here the
     meta device, standing for the card) are refused rather than copied,
-    which would wait for the card at every launch."""
-    from repro_torch.kernels.hashmix import host_seeds
+    which would wait for the card at every launch. Any k is taken: past 32
+    rows ``launch_seeds`` also stages them for the card (``-m gpu``)."""
+    from repro_torch.kernels.hashmix import MAX_ROWS, host_seeds, launch_seeds
     seeds = _w(jseeds(3, 4))
     hs, hb = host_seeds(seeds, None)
     assert hb is None and torch.equal(hs, seeds)
@@ -236,5 +237,10 @@ def test_launch_seeds_must_be_on_the_host():
         host_seeds(away, None)
     with pytest.raises(ValueError, match="block_seeds"):
         host_seeds(seeds, away)
-    with pytest.raises(ValueError, match="k <= 32"):
-        host_seeds(_w(jseeds(3, 33)), None)
+    wide = _w(jseeds(3, 33))
+    hs, hb = host_seeds(wide, None)
+    assert hb is None and torch.equal(hs, wide)
+    assert launch_seeds(seeds, None, "cpu")[2] is None
+    with pytest.raises(ValueError, match="CPU tensor"):
+        launch_seeds(away, None, "cpu")
+    assert MAX_ROWS == 32

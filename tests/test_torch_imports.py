@@ -30,7 +30,9 @@ def test_port_files_found():
     assert {"engine.py", "hashmix.py", "fused_template.py", "sketch.py",
             "state.py", "packed.py", "convert.py", "metrics.py",
             "bloom_probe.py", "scatter_delta.py", "ops.py", "fleet.py",
-            "batched.py", "prng.py", "chip_smoke.py"} <= names
+            "batched.py", "prng.py", "chip_smoke.py", "variants.py",
+            "theory.py", "pipeline.py", "paper_dedup.py",
+            "streams.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))

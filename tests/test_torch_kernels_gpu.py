@@ -606,14 +606,15 @@ def random_filter(cfg, device, seed):
     return words, packed.popcount(words)
 
 
-def hashed_step_case(device, k, s, block_bits):
+def hashed_step_case(device, k, s, block_bits, variant="rlbsbf",
+                     position=1):
     """The bitset step hashing its keys in the kernel equals the plain
     hashmix (``positions_plain``) feeding ``bitset_step_plain``, over a
-    colliding and a fresh batch with a ragged valid mask; it launches no
-    hashmix."""
+    colliding and a fresh batch with a ragged valid mask, the stream at
+    ``position``; it launches no hashmix."""
     from repro_torch.core import prng
     from repro_torch.kernels.hashmix import hashmix, positions_plain
-    cfg = DedupConfig(variant="rlbsbf", k=k, memory_bits=k * s, packed=True,
+    cfg = DedupConfig(variant=variant, k=k, memory_bits=k * s, packed=True,
                       block_bits=block_bits).validate()
     words, load = random_filter(cfg, device, k)
     seeds, bseeds = tb._seeds(cfg)
@@ -624,7 +625,7 @@ def hashed_step_case(device, k, s, block_bits):
                                   device)
         v = torch.from_numpy(r.random(8192) < 0.9).to(device)
         seen = tb.intra_batch_seen(keys, v)
-        i_t = 1 + torch.arange(8192, dtype=torch.int32, device=device)
+        i_t = position + torch.arange(8192, dtype=torch.int32, device=device)
         rng, rnd = tb.draw_randomness(cfg, rng, 8192)
         pos = positions_plain(keys, seeds.to(device), s, block_bits,
                               None if bseeds is None else bseeds.to(device))
@@ -642,6 +643,7 @@ def hashed_step_case(device, k, s, block_bits):
         assert torch.equal(dup, dup_p) and torch.equal(ins, ins_p)
         assert torch.equal(new_load, load_p)
         words, load = got, new_load
+        position += 8192
         del new, pos
 
 
@@ -663,6 +665,10 @@ def test_hashed_bitset_step_blocked_layout_on_card(cuda, block_bits, s):
 @pytest.mark.parametrize("s", (1 << 30, 715827882, 1365))
 @pytest.mark.parametrize("k", (1, 2, 3, 8, 9, 32))
 def test_fused_probe_matches_plain_chain_on_card(cuda, k, s):
+    fused_probe_case(cuda, k, s)
+
+
+def fused_probe_case(cuda, k, s):
     """``ops.fused_probe``'s one launch equals the chain of plain versions
     (hashmix, split, bloom_probe, AND) on a half-full filter; it moves
     only its own launch counter."""
@@ -709,3 +715,234 @@ def test_bloom_probe_kernel_on_views_and_every_k_on_card(cuda, k):
         m = mask[start:start + b * k].view(b, k)
         assert torch.equal(bloom_probe(words, i, m),
                            bloom_probe_plain(words, i, m))
+
+
+# ------- the card takes every k, tenant count and plane count (any k past
+# the argument block's 32 seeds, bitset fleets past the 65535 a grid axis
+# held, counter cells of up to 32 planes) //
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("block_bits", (0, 9))
+@pytest.mark.parametrize("k", (32, 33, 64))
+def test_hashmix_any_k_on_card(cuda, k, block_bits):
+    """hashmix at 32 rows (seeds in the argument block) and past them
+    (seeds staged on the card), both layouts: one launch, equal to the
+    plain positions."""
+    from repro_torch.core import hashing
+    from repro_torch.kernels.hashmix import hashmix, positions_plain
+    s = 3_000_000
+    keys = u32.from_numpy_u32(np.random.default_rng(k).integers(
+        0, 2 ** 32, 8191, dtype=np.uint64), cuda)
+    seeds = u32.from_numpy_u32(hashing.derive_seeds(7, k), "cpu")
+    bseeds = (u32.from_numpy_u32(hashing.derive_seeds(7, k, 1), "cpu")
+              if block_bits else None)
+    before = hashmix.launches
+    got = hashmix(keys, seeds, s=s, block_bits=block_bits,
+                  block_seeds=bseeds)
+    assert hashmix.launches == before + 1
+    want = positions_plain(keys, seeds.to(cuda), s, block_bits,
+                           None if bseeds is None else bseeds.to(cuda))
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", BITSET)
+@pytest.mark.parametrize("k", (32, 33, 64))
+def test_hashed_bitset_step_any_k_on_card(cuda, k, variant):
+    """The bitset step at 32 rows and past them (two delete-mask words per
+    element), every variant; rsbf's batches cross into phase 3, where the
+    rows to delete are the probe's clear rows."""
+    s = 1 << 16
+    position = 1
+    if variant == "rsbf":
+        position = int(np.ceil(s / 0.03)) - 4000
+    hashed_step_case(cuda, k, s, 0, variant, position)
+
+
+@pytest.mark.gpu
+def test_hashed_bitset_step_blocked_past_32_rows_on_card(cuda):
+    hashed_step_case(cuda, 33, 1 << 20, 5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", (32, 33, 64))
+def test_fused_probe_any_k_on_card(cuda, k):
+    fused_probe_case(cuda, k, 1 << 20)
+    fused_probe_case(cuda, k, 1365)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t", (65536, 131072))
+@pytest.mark.parametrize("variant", ("rsbf", "rlbsbf"))
+def test_bitset_fleet_past_65535_tenants_on_card(cuda, variant, t):
+    """A bitset fleet of 2^16 and 2^17 tenants at a tiny s (one launch of
+    the folded grid) equals the plain step over all tenants at once."""
+    from repro_torch.core import hashing, prng
+    from repro_torch.kernels.hashmix import positions_plain
+    cfg = fleet_cfg(variant, t, memory_bits=1 << 9)
+    k, w, s, c = cfg.k, cfg.s_words, cfg.s, 8
+    gen = torch.Generator(device=cuda).manual_seed(t)
+    words = torch.randint(-2 ** 31, 2 ** 31, (t, k, w), dtype=torch.int32,
+                          device=cuda, generator=gen)
+    tail = s - 32 * (w - 1)
+    if tail < 32:
+        words[..., -1] &= (1 << tail) - 1
+    load = packed.popcount(words)
+    rng = prng.fold_in(prng.PRNGKey(3, cuda), torch.arange(t, device=cuda))
+    seeds = u32.from_numpy_u32(hashing.derive_seeds(cfg.seed, k), "cpu")
+    r = np.random.default_rng(t)
+    position = torch.full((t,), s - 4, dtype=torch.int32, device=cuda)
+    for hi in (50, 2 ** 32):
+        keys, v = fleet_lanes(cfg, t, c, r, cuda, hi)
+        seen = tb.intra_batch_seen(keys, v)
+        i_t = position[:, None] + torch.arange(c, dtype=torch.int32,
+                                               device=cuda)
+        rng, rnd = tb.draw_randomness(cfg, rng, c)
+        pos = positions_plain(keys.reshape(-1), seeds.to(cuda),
+                              s).view(t, c, k)
+        got = words.clone()
+        before = bitset_step.launches
+        dup, ins, new_load = bitset_step(cfg, got, keys, rnd, v, seen, i_t,
+                                         load, seeds=seeds)
+        new, dup_p, ins_p, load_p = bitset_step_plain(cfg, words, pos, rnd,
+                                                      v, seen, i_t, load)
+        torch.cuda.synchronize()
+        assert bitset_step.launches == before + 1
+        assert torch.equal(got, new) and torch.equal(new_load, load_p)
+        assert torch.equal(dup, dup_p) and torch.equal(ins, ins_p)
+        assert torch.equal(new_load, packed.popcount(got))
+        words, load = got, new_load
+        position = position + v.sum(dim=1, dtype=torch.int32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sbf_max", ((1 << 16) - 1, 1 << 16, (1 << 32) - 1))
+def test_counter_step_past_16_planes_on_card(cuda, sbf_max):
+    """sbf at d = 16, 17 and 32 planes (Max up to 2^32 - 1, the widest
+    the reference's planes hold): the counter step equals its plain
+    version over three batches."""
+    from repro_torch.core import hashing
+    from repro_torch.core.sketch import get_spec
+    cfg = DedupConfig.for_variant("sbf", layout="planes", sbf_max=sbf_max,
+                                  memory_bits=1 << 20)
+    assert cfg.n_planes == sbf_max.bit_length()
+    spec = get_spec("sbf")
+    events = spec.make_events(cfg)
+    r = np.random.default_rng(sbf_max % 1000)
+    st = random_counter_state(cfg, cuda, r)
+    seeds = u32.from_numpy_u32(hashing.derive_seeds(cfg.seed, cfg.k), "cpu")
+    for n_valid, hi in ((8192, 200), (5000, 2 ** 32), (8192, 2 ** 32)):
+        keys = u32.from_numpy_u32(r.integers(0, hi, 8192, dtype=np.uint64),
+                                  cuda)
+        v = torch.arange(8192, device=cuda) < n_valid
+        pos = hashing.hash_positions(keys, seeds, cfg.s)
+        rng, rnd = spec.draw(cfg, st.rng, 8192)
+        ev = events(st, pos, v, rnd)
+        planes = tb.sbf_planes_3d(st.bits)[:, 0, :]
+        got = planes.clone()
+        dup, load = counter_step(cfg, spec, got, pos, v, None, st.load, ev)
+        new, dup_p, load_p = counter_step_plain(cfg, spec, planes, pos, v,
+                                                None, st.load, ev)
+        torch.cuda.synchronize()
+        assert torch.equal(got, new) and torch.equal(dup, dup_p)
+        assert torch.equal(load, load_p)
+        st = st._replace(bits=got[:, None, :], load=load, rng=rng)
+
+
+# ------------------------------------ the dense8 layout on the card //
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", ("sbf", "rsbf", "bsbf", "bsbfsd",
+                                     "rlbsbf"))
+def test_dense8_engine_on_card_matches_engine_on_cpu(cuda, variant):
+    """The dense8 engine (the reference's default layout) on the card
+    equals it on the CPU, reports and every leaf, with one hashmix launch
+    per step and no step kernel; the oracle too, one hashmix launch per
+    element."""
+    from repro_torch.convert import state_to_numpy
+    from repro_torch.core import Dedup
+    from repro_torch.kernels.hashmix import hashmix
+    kw = dict(memory_bits=1 << 16, batch_size=1024)
+    if variant == "rsbf":
+        kw["p_star"] = 0.5
+    cfg = DedupConfig.for_variant(variant, **kw)
+    assert cfg.effective_layout == "dense8"
+    keys = np.random.default_rng(4).integers(0, 5000, 10_000) \
+        .astype(np.uint32)
+    on_card, on_cpu = Dedup(cfg, cuda), Dedup(cfg, "cpu")
+    before = (hashmix.launches, bitset_step.launches, counter_step.launches)
+    sg, dg = on_card.run_stream(on_card.init(), keys)
+    assert (hashmix.launches, bitset_step.launches,
+            counter_step.launches) == (before[0] + 10, *before[1:])
+    sc, dc = on_cpu.run_stream(on_cpu.init(), keys)
+    assert torch.equal(dg.cpu(), dc)
+    a, b = state_to_numpy(sg), state_to_numpy(sc)
+    for key in a:
+        assert np.array_equal(a[key], b[key]), key
+    before = hashmix.launches
+    og, odg = on_card.run_stream_oracle(on_card.init(), keys[:300])
+    assert hashmix.launches == before + 300
+    oc, odc = on_cpu.run_stream_oracle(on_cpu.init(), keys[:300])
+    assert torch.equal(odg.cpu(), odc)
+    a, b = state_to_numpy(og), state_to_numpy(oc)
+    for key in a:
+        assert np.array_equal(a[key], b[key]), key
+
+
+@pytest.mark.gpu
+def test_dense8_fleet_and_pipeline_on_card(cuda):
+    """A bitset dense8 fleet and ``DedupPipeline`` on the card equal the
+    same on the CPU."""
+    from repro_torch.configs import scaled_config
+    from repro_torch.convert import state_to_numpy
+    from repro_torch.core.fleet import FleetDedup
+    from repro_torch.data.streams import clickstream
+    from repro_torch.dedup import DedupPipeline
+    cfg = dataclasses.replace(DedupConfig.for_variant(
+        "rlbsbf", memory_bits=1 << 16, batch_size=1024), n_tenants=8)
+    r = np.random.default_rng(5)
+    keys = r.integers(0, 3000, 10_000).astype(np.uint32)
+    tens = r.integers(0, 8, 10_000).astype(np.int32)
+    out = [FleetDedup(cfg, capacity=256, device=d) for d in (cuda, "cpu")]
+    (sg, dg, og), (sc, dc, oc) = (f.run_stream(f.init(), keys, tens)
+                                  for f in out)
+    assert torch.equal(dg.cpu(), dc) and torch.equal(og.cpu(), oc)
+    a, b = state_to_numpy(sg), state_to_numpy(sc)
+    for key in a:
+        assert np.array_equal(a[key], b[key]), key
+    recs, truth, _ = clickstream(8 * 1024, seed=1)
+    pipes = [DedupPipeline(scaled_config("sbf", 8, batch_size=1024),
+                           device=d) for d in (cuda, "cpu")]
+    for i in range(0, 8 * 1024, 1024):
+        batch = {n: col[i:i + 1024] for n, col in recs.items()}
+        got, want = (p.process(batch, truth[i:i + 1024]) for p in pipes)
+        assert torch.equal(got.dup.cpu(), want.dup)
+        assert torch.equal(got.weights.cpu(), want.weights)
+    sg, sc = (p.metrics.summary() for p in pipes)
+    sg.pop("throughput_eps"), sc.pop("throughput_eps")
+    assert sg == sc
+
+
+@pytest.mark.gpu
+def test_ops_take_seeds_on_the_card(cuda):
+    """``ops.hash_positions`` and ``ops.fused_probe`` take seeds on the
+    card, as the reference's ops do (copied to the host per call), and
+    give what they give with host seeds; the kernel wrappers below them
+    keep refusing card seeds."""
+    from repro_torch.core import hashing
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.hashmix import hashmix
+    s = 1 << 20
+    cfg = DedupConfig(variant="rlbsbf", k=3, memory_bits=3 * s,
+                      packed=True).validate()
+    words, _ = random_filter(cfg, cuda, 9)
+    seeds = u32.from_numpy_u32(hashing.derive_seeds(5, 3), "cpu")
+    keys = u32.from_numpy_u32(np.random.default_rng(9).integers(
+        0, 2 ** 32, 4096, dtype=np.uint64), cuda)
+    assert torch.equal(ops.hash_positions(keys, seeds.to(cuda), s),
+                       ops.hash_positions(keys, seeds, s))
+    for x, y in zip(ops.fused_probe(keys, words, seeds.to(cuda), s),
+                    ops.fused_probe(keys, words, seeds, s)):
+        assert torch.equal(x, y)
+    with pytest.raises(ValueError, match="CPU tensor"):
+        hashmix(keys, seeds.to(cuda), s=s)
