@@ -27,14 +27,24 @@ and read just after:
   batch) and scatter_delta, then a pass that checks every key is held
   with ``hash_positions`` (hashmix) and ``probe`` (bloom_probe).
 
+The two 256 MB plane paths checkpoint on the way: at record 2^22 the live
+state is saved with the port's ``CheckpointManager`` (``layout_meta``
+stamped, 256 MB of npz in a temporary directory removed after the dense8
+phase), and the live run goes on. After it, the checkpoint is restored
+into a fresh ``Dedup``'s ``init()`` on the card and continued over the next
+2^21 records: its reports must equal the live run's there, bit for bit,
+and its leaves the live run's at record 2^22 + 2^21.
+
 Then the reference's default path, "dense8": ``DedupPipeline`` over
 ``paper_config(v, 256)`` with the default layout, which is dense8 (one
 byte per bit, per cell for sbf): rlbsbf (a (2, 2^30) uint8 state, 2 GiB)
 and sbf (2^30 cells, 1 GiB) over the stream's first 2^22 records (the
 depth cut from 2^24 for the run's time limit), one hashmix launch per step
-and no step kernel, their FPR / FNR from ``StreamMetrics.summary()`` and
-their dup reports equal bit for bit to the plane paths' on that prefix;
-and the sbf oracle, ``run_stream_oracle`` at the 256 MB table over 4096
+and no step kernel, their FPR / FNR from ``StreamMetrics.summary()``,
+their dup reports equal bit for bit to the plane paths' on that prefix,
+and each final state migrated to the plane layout on the card
+(``migrate_filter_state``) equal leaf for leaf to the plane path's
+checkpoint at the same record; and the sbf oracle, ``run_stream_oracle`` at the 256 MB table over 4096
 keys, equal to the batch-size-1 engine.
 
 Then the tenant fleets (DESIGN §4.6): 32 tenants of 8 MB each (the paper's
@@ -43,12 +53,25 @@ step kernels over their tenant grid axis against their plain versions
 (the bitset step for the four variants; the params-aware counter step for
 sbf with per-tenant Max 3 / 2, swbf with per-tenant windows, cms with
 per-tenant thresholds, and hh), and two paths run ``FleetDedup.run_stream``
-over the stream's first 2^22 records (cut from 2^23 to make room for the
-dense8 phase) with tenant ids drawn uniformly from a seeded generator
+over the stream's first 2^21 records (cut from 2^23 to 2^22 to make room
+for the dense8 phase, and to 2^21 for the checkpoint resumes and the serve
+phase) with tenant ids drawn uniformly from a seeded generator
 (capacity 512 per tenant and step):
 
 * fleet-rlbsbf-32x8MB: rlbsbf, k = 2, s = 2^25 per row (no hashmix);
 * fleet-sbf-32x8MB-hetero: sbf on planes, d = 2, per-tenant Max 3 and 2.
+
+Then the "serve" phase: ``ServeFrontend`` (buckets (64, 256, 1024), four
+batches in flight, 2 ms flush timer, the serving example's ``2 * key``
+scorer) answers 256 closed-loop clients over the stream's first 2^16
+records, for ``paper_config("rlbsbf", 256)`` on its default layout
+(dense8, 2 GiB) and for the fleet-rlbsbf-32x8MB config (tenant ids from a
+seeded generator): every answer must be ``2 * key``, the live verdict
+digest must equal ``replay_schedule`` through a fresh engine on the card,
+at most one step width per bucket, and one hashmix launch (dense8) or one
+bitset-step launch (fleet) per micro-batch and per replayed batch. It
+prints requests/s, fill, shed and cache-hit rates, client-side p50 / p99
+latency and the idle share of a micro-batch step at bucket 256.
 
 Last it times each kernel beside its bound and the card's latency floor
 (an empty launch, and 1 - 3 dependent scattered loads per thread), and
@@ -82,6 +105,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -96,8 +120,13 @@ STREAM_N = 1 << 24               # the paper's 695M-1B records, cut for time
 OPS_N = 1 << 21                  # the ops path's prefix of the stream
 FLEET_T = 32                     # tenants of a fleet path
 FLEET_MB = 8                     # per tenant (PAPER_MEMORIES_MB[0])
-FLEET_N = 1 << 22                # the fleet paths' prefix of the stream
+FLEET_N = 1 << 21                # the fleet paths' prefix of the stream
 DENSE8_N = 1 << 22               # the dense8 pipelines' prefix of the stream
+CKPT_AT = DENSE8_N               # the plane paths' checkpoint record
+RESUME_N = 1 << 21               # records a restored checkpoint continues over
+SERVE_N = 1 << 16                # the serve phase's prefix of the stream
+SERVE_CLIENTS = 256              # its closed-loop clients
+SERVE_PROFILE_WIDTH = 256        # the micro-batch bucket it profiles
 ORACLE_N = 4096                  # keys of the sbf oracle on the card
 FLEET_CAPACITY = 512             # FleetDedup's default: ceil(2·8192 / 32)
 DISTINCT_FRAC = 0.60             # the paper's 60% distinct (Section 6)
@@ -534,7 +563,84 @@ def make_stream():
     return keys, truth
 
 
-def phase_main_path(keys, truth):
+def run_with_checkpoint(tag, eng, state, keys, ckpt_dir):
+    """``eng.run_stream`` over ``keys`` as one run in three legs, cut at
+    CKPT_AT and CKPT_AT + RESUME_N (batch boundaries, so the legs step as
+    the whole stream does): at the first cut the state is saved with the
+    port's ``CheckpointManager`` (``layout_meta`` stamped) under
+    ``ckpt_dir/tag``, at the second a copy of it is kept. Neither is inside
+    the timed legs. -> (state, dup (N,), seconds of the legs, the copy)"""
+    import torch
+    from repro_torch.checkpoint import CheckpointManager, layout_meta
+    cuts = (0, CKPT_AT, CKPT_AT + RESUME_N, len(keys))
+    dups, secs, copy = [], 0.0, None
+    for leg, (lo, hi) in enumerate(zip(cuts, cuts[1:])):
+        t0 = time.perf_counter()
+        state, dup = eng.run_stream(state, keys[lo:hi])
+        torch.cuda.synchronize()
+        secs += time.perf_counter() - t0
+        dups.append(dup)
+        if leg == 0:
+            t0 = time.perf_counter()
+            path = CheckpointManager(os.path.join(ckpt_dir, tag)).save(
+                CKPT_AT, {"filter": state}, extra_meta=layout_meta(eng.cfg))
+            nbytes = os.path.getsize(os.path.join(path, "arrays.npz"))
+            log(f"[checkpoint] {tag}: saved the live state at record "
+                f"{CKPT_AT} ({nbytes} bytes of npz) in "
+                f"{time.perf_counter() - t0:.3f} s (host clock)")
+        elif leg == 1:
+            copy = type(state)(*(x.clone() for x in state))
+    return state, torch.cat(dups), secs, copy
+
+
+def check_resume(tag, cfg, keys, live_dup, live_copy, ckpt_dir, want):
+    """The checkpoint of ``run_with_checkpoint`` restored into a fresh
+    ``Dedup``'s ``init()`` on the card and continued over the RESUME_N
+    records after CKPT_AT: its reports must equal the live run's there and
+    its leaves the live run's copy, bit for bit; its launches must be
+    ``want`` per step."""
+    import torch
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core import Dedup
+    from repro_torch.kernels.fused_template import bitset_step, counter_step
+    from repro_torch.kernels.hashmix import hashmix
+    counters = (hashmix, bitset_step, counter_step)
+    eng = Dedup(cfg)
+    mgr = CheckpointManager(os.path.join(ckpt_dir, tag))
+    meta = mgr.load_meta(CKPT_AT)
+    template = {"filter": eng.init()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = mgr.restore(CKPT_AT, template)["filter"]
+    torch.cuda.synchronize()
+    t_restore = time.perf_counter() - t0
+    on_card = all(x.device.type == "cuda" for x in state)
+    for c in counters:
+        c.launches = 0
+    state, dup = eng.run_stream(state, keys[CKPT_AT:CKPT_AT + RESUME_N])
+    torch.cuda.synchronize()
+    launches = {c.__name__: c.launches for c in counters}
+    n_steps = RESUME_N // BATCH
+    same = {"dups": torch.equal(dup, live_dup[CKPT_AT:CKPT_AT + RESUME_N]),
+            **{f: torch.equal(a, b) for f, a, b in zip(
+                ("bits", "position", "load", "rng"), state, live_copy)}}
+    log(f"[checkpoint] {tag}: restored (layout {meta['filter_layout']}) "
+        f"into a fresh engine's init() on the card in {t_restore:.3f} s "
+        f"(host clock); leaves on the card: {on_card}; continued over "
+        f"records {CKPT_AT} - {CKPT_AT + RESUME_N}: equal to the live run: "
+        f"{same}; kernel launches {launches}")
+    if not (all(same.values()) and on_card
+            and meta["filter_layout"] == cfg.effective_layout):
+        raise AssertionError(f"{tag}: the resumed checkpoint differs from "
+                             f"the live run")
+    expect = {c.__name__: n_steps * want.get(c.__name__, 0)
+              for c in counters}
+    if launches != expect:
+        raise AssertionError(f"{tag} resume: expected launches {expect}, "
+                             f"got {launches}")
+
+
+def phase_main_path(keys, truth, ckpt_dir):
     import torch
     from repro_torch.core import Dedup, packed
     from repro_torch.dedup.metrics import fpr_fnr
@@ -547,10 +653,8 @@ def phase_main_path(keys, truth):
     torch.cuda.reset_peak_memory_stats()
     hashmix.launches = 0
     bitset_step.launches = 0
-    t0 = time.perf_counter()
-    state, dup = eng.run_stream(state, keys)
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
+    state, dup, secs, live_copy = run_with_checkpoint("rlbsbf", eng, state,
+                                                      keys, ckpt_dir)
     launches = {"hashmix": hashmix.launches,
                 "bitset_step": bitset_step.launches}
     peak = torch.cuda.max_memory_allocated()
@@ -576,12 +680,15 @@ def phase_main_path(keys, truth):
         raise AssertionError(f"main path: expected no hashmix and one "
                              f"bitset_step per step ({n_steps}), got "
                              f"{launches}")
+    check_resume("rlbsbf", cfg, keys, dup, live_copy, ckpt_dir,
+                 {"bitset_step": 1})
     return cfg, state, launches, dup[:DENSE8_N].clone()
 
 
-def phase_sbf_path(keys, truth):
+def phase_sbf_path(keys, truth, ckpt_dir):
     """sbf, the paper's baseline, on the 256 MB table over the same stream;
-    then the counter read-outs on its final state."""
+    its checkpoint at record CKPT_AT resumed as ``check_resume`` says; then
+    the counter read-outs on its final state."""
     import torch
     from repro_torch.core import Dedup, packed
     from repro_torch.dedup.metrics import fpr_fnr
@@ -594,10 +701,8 @@ def phase_sbf_path(keys, truth):
     torch.cuda.reset_peak_memory_stats()
     hashmix.launches = 0
     counter_step.launches = 0
-    t0 = time.perf_counter()
-    state, dup = eng.run_stream(state, keys)
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
+    state, dup, secs, live_copy = run_with_checkpoint("sbf", eng, state,
+                                                      keys, ckpt_dir)
     launches = {"hashmix": hashmix.launches,
                 "counter_step": counter_step.launches}
     peak = torch.cuda.max_memory_allocated()
@@ -624,6 +729,8 @@ def phase_sbf_path(keys, truth):
         raise AssertionError(f"sbf path: expected one hashmix and one "
                              f"counter_step per step ({n_steps}), got "
                              f"{launches}")
+    check_resume("sbf", cfg, keys, dup, live_copy, ckpt_dir,
+                 {"hashmix": 1, "counter_step": 1})
     est = eng.estimate(state, keys[-BATCH:])
     cells, counts = eng.top_cells(state, 16)
     torch.cuda.synchronize()
@@ -697,7 +804,7 @@ def phase_ops_path(keys, truth):
     return launches
 
 
-def phase_dense8(keys, truth, planes_dups):
+def phase_dense8(keys, truth, planes_dups, ckpt_dir):
     """The reference's default path on the card: ``DedupPipeline`` over
     ``paper_config(v, 256)`` with the config's default layout, which is
     dense8 (one byte per bit, per cell for sbf), for rlbsbf (k = 2, a (2,
@@ -707,11 +814,14 @@ def phase_dense8(keys, truth, planes_dups):
     bounds; exactly one hashmix launch per step and no step kernel; the
     dup reports equal to the plane paths' on the same prefix, bit for bit
     (the reference makes both layouts bit-identical); the load equal to a
-    recount. Then the oracle on the card: ``run_stream_oracle`` for sbf at
+    recount; the final state migrated to the plane layout on the card
+    (``migrate_filter_state``, dense8 -> planes) equal leaf for leaf to the
+    plane path's checkpoint at the same record (CKPT_AT = DENSE8_N). Then the oracle on the card: ``run_stream_oracle`` for sbf at
     the 256 MB table over ORACLE_N keys, equal to the batch-size-1 engine in
     reports, cells, load, position and key. -> {variant: (cfg, final
     state)}."""
     import torch
+    from repro_torch.checkpoint import CheckpointManager, migrate_filter_state
     from repro_torch.configs import paper_config
     from repro_torch.core import Dedup, state_memory_bytes
     from repro_torch.dedup import DedupPipeline
@@ -772,6 +882,31 @@ def phase_dense8(keys, truth, planes_dups):
             raise AssertionError(f"dense8 {variant}: expected one hashmix "
                                  f"per step ({n_steps}) and no step "
                                  f"kernel, got {launches}")
+        # dense8 -> planes on the card, against the plane path's checkpoint
+        pcfg = config(variant, MEMORY_MB, batch_size=BATCH)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        moved = migrate_filter_state(st, cfg, pcfg)
+        torch.cuda.synchronize()
+        t_move = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        saved = CheckpointManager(os.path.join(ckpt_dir, variant)).restore(
+            CKPT_AT, {"filter": moved})["filter"]
+        same = {f: torch.equal(a, b) for f, a, b in zip(
+            ("bits", "position", "load", "rng"), moved, saved)}
+        log(f"[dense8] {variant}: migrate_filter_state dense8 -> planes on "
+            f"the card in {t_move:.3f} s (host clock; peak memory "
+            f"allocated during it {peak / 2 ** 20:.1f} MiB, the dense8 "
+            f"state {nbytes / 2 ** 20:.1f} MiB): "
+            f"{tuple(st.bits.shape)} {st.bits.dtype} -> "
+            f"{tuple(moved.bits.shape)} {moved.bits.dtype}; equal to the "
+            f"plane path's checkpoint at record {CKPT_AT}: {same}")
+        if not all(same.values()):
+            raise AssertionError(f"dense8 {variant}: the migrated state "
+                                 f"differs from the plane path's "
+                                 f"checkpoint")
+        del moved, saved
         out[variant] = (cfg, st)
         del pipe, dups
     del kw, tw
@@ -802,6 +937,154 @@ def phase_dense8(keys, truth, planes_dups):
     del so, sb, ok
     torch.cuda.empty_cache()
     return out
+
+
+def serve_score(batch):
+    """The serving example's scorer (``examples/serving_frontend.py``)."""
+    return np.asarray(batch["key"], np.float64) * 2.0
+
+
+def serve_clients(cfg, keys, tenants):
+    """``ServeFrontend`` under SERVE_CLIENTS closed-loop clients: client c
+    submits records c, c + SERVE_CLIENTS, ... one at a time, each after the
+    previous one's answer, as the serving example's clients do. -> (front
+    end, wall seconds, per-request latencies in seconds, results)"""
+    import asyncio
+    from repro_torch.serve import DEFAULT_BUCKETS, ServeFrontend
+    fe = ServeFrontend(cfg, serve_score, buckets=DEFAULT_BUCKETS,
+                       max_live_batches=4, flush_timeout=2e-3,
+                       record_schedule=True)
+    lat = np.zeros(len(keys))
+    results = [None] * len(keys)
+
+    async def client(c):
+        for i in range(c, len(keys), SERVE_CLIENTS):
+            t0 = time.perf_counter()
+            results[i] = await fe.submit(int(keys[i]),
+                                         tenant=int(tenants[i]))
+            lat[i] = time.perf_counter() - t0
+
+    async def drive():
+        async with fe:
+            t0 = time.perf_counter()
+            await asyncio.gather(*(client(c) for c in range(SERVE_CLIENTS)))
+            return time.perf_counter() - t0
+
+    secs = asyncio.run(drive())
+    return fe, secs, lat, results
+
+
+def profile_serve_step(ex, keys, card, tag):
+    """Host wall and device busy time of ``ex.dedup_chunk`` at bucket
+    SERVE_PROFILE_WIDTH (8 micro-batches of that many requests, after the
+    digest check: they step the executor's filter on)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    n_b, w = 8, SERVE_PROFILE_WIDTH
+    ten = np.random.default_rng(SEED + 8).integers(
+        0, max(ex.n_tenants, 1), n_b * w).astype(np.int32)
+    chunks = [(keys[i * w:(i + 1) * w], ten[i * w:(i + 1) * w])
+              for i in range(n_b)]
+    ex.dedup_chunk(*chunks[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for k, t in chunks:
+        ex.dedup_chunk(k, t)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / n_b * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for k, t in chunks:
+            ex.dedup_chunk(k, t)
+        torch.cuda.synchronize()
+    dev = [r for r in prof.key_averages()
+           if str(getattr(r, "device_type", "")).endswith("CUDA")
+           and getattr(r, "self_device_time_total", 0) > 0]
+    if not dev:
+        log(f"[serve] {tag}: micro-batch step at bucket {w}: host wall "
+            f"{wall:.4f} ms unprofiled; the profiler recorded no device "
+            f"time: idle share not measured ({card})")
+        return
+    busy = sum(r.self_device_time_total for r in dev) / 1e3 / n_b
+    log(f"[serve] {tag}: micro-batch step at bucket {w}: host wall "
+        f"{wall:.4f} ms unprofiled (the verdicts' copy to the host "
+        f"included), device busy {busy:.4f} ms in "
+        f"{sum(r.count for r in dev) / n_b:.1f} kernels, idle share "
+        f"{max(0.0, 1 - busy / wall):.4f} ({card})")
+
+
+def phase_serve(keys, card):
+    """The serving path on the card: ``ServeFrontend`` under
+    SERVE_CLIENTS closed-loop clients over the stream's first SERVE_N
+    records, for the reference's default rlbsbf 256 MB config (dense8) and
+    for the 32 x 8 MB rlbsbf fleet (tenant ids uniform from a seeded
+    generator). Each must answer every request with ``2 * key``, give the
+    live verdict digest that ``replay_schedule`` gives through a fresh
+    engine on the card, step at most one width per bucket, and launch its
+    path's kernel once per micro-batch and once per replayed batch: hashmix
+    on dense8, the bitset step on the fleet's planes."""
+    import torch
+    from repro_torch.configs import paper_config
+    from repro_torch.kernels.fused_template import bitset_step, counter_step
+    from repro_torch.kernels.hashmix import hashmix
+    from repro_torch.serve import DEFAULT_BUCKETS, replay_schedule
+    counters = (hashmix, bitset_step, counter_step)
+    keys = keys[:SERVE_N]
+    tenants = np.random.default_rng(SEED + 7).integers(
+        0, FLEET_T, SERVE_N).astype(np.int32)
+    for tag, cfg, ten, kernel in (
+            ("rlbsbf-256MB-dense8", paper_config("rlbsbf", MEMORY_MB,
+                                                 batch_size=BATCH),
+             np.zeros(SERVE_N, np.int32), "hashmix"),
+            ("fleet-rlbsbf-32x8MB", fleet_config("rlbsbf"), tenants,
+             "bitset_step")):
+        torch.cuda.synchronize()
+        for c in counters:
+            c.launches = 0
+        fe, secs, lat, results = serve_clients(cfg, keys, ten)
+        launches = {c.__name__: c.launches for c in counters}
+        ex = fe.executor
+        st = fe.stats()
+        ok = [r is not None and r.verdict == "ok" for r in results]
+        exact = all(ok) and all(float(r.value) == 2.0 * float(k)
+                                for r, k in zip(results, keys))
+        for c in counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        replayed = replay_schedule(cfg, ex.schedule)
+        t_replay = time.perf_counter() - t0
+        replay_launches = {c.__name__: c.launches for c in counters}
+        same = replayed == ex.digest()
+        p50, p99 = np.percentile(lat, [50, 99]) * 1e3
+        log(f"[serve] {tag} ({cfg.effective_layout}, k={cfg.k}, "
+            f"s={cfg.s} per row, {cfg.n_tenants} tenant(s)), buckets "
+            f"{DEFAULT_BUCKETS}, {SERVE_CLIENTS} closed-loop clients over "
+            f"{SERVE_N} records: {st['completed'] / secs:.1f} requests/s "
+            f"served (host clock); p50 {p50:.4f} ms, p99 {p99:.4f} ms per "
+            f"request from submit to result, in the clients; "
+            f"{st['batches']} micro-batches, mean fill "
+            f"{st['mean_fill']:.2f}; shed rate {st['shed_rate']:.6g}; cache "
+            f"hit rate {st['cache_hit_rate']:.6g}; dup rate "
+            f"{st['dup_rate']:.6g}; step widths {ex.process_cache_size()} "
+            f"({card})")
+        log(f"[serve] {tag}: every answer 2 * key: {exact}; live digest "
+            f"{ex.digest()[:16]} == replay_schedule on the card "
+            f"{replayed[:16]}: {same} (replay of {len(ex.schedule)} "
+            f"batches in {t_replay:.2f} s); kernel launches: front end "
+            f"{launches}, replay {replay_launches}")
+        if not (exact and same and ex.process_cache_size() <= 3
+                and st["completed"] == SERVE_N):
+            raise AssertionError(f"serve {tag}: result out of bounds")
+        for got, n in ((launches, ex.n_batches),
+                       (replay_launches, len(ex.schedule))):
+            want = {c.__name__: n if c.__name__ == kernel else 0
+                    for c in counters}
+            if got != want:
+                raise AssertionError(f"serve {tag}: expected launches "
+                                     f"{want}, got {got}")
+        profile_serve_step(ex, keys, card, tag)
+        del fe, ex
+        torch.cuda.empty_cache()
 
 
 def fleet_config(name, **kw):
@@ -1941,13 +2224,19 @@ def main() -> int:
     stamp("fleet")
     phase_digests()
     keys, truth = make_stream()
-    cfg, state, launches, rl_dups = phase_main_path(keys, truth)
-    sbf_cfg, sbf_state, sbf_launches, sbf_dups = phase_sbf_path(keys, truth)
-    ops_launches = phase_ops_path(keys, truth)
-    stamp("digests, stream and the three paths")
-    dense8 = phase_dense8(keys, truth, {"rlbsbf": rl_dups, "sbf": sbf_dups})
+    # the plane paths' checkpoints live until the dense8 phase has read them
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckpt_dir:
+        cfg, state, launches, rl_dups = phase_main_path(keys, truth,
+                                                        ckpt_dir)
+        sbf_cfg, sbf_state, sbf_launches, sbf_dups = phase_sbf_path(
+            keys, truth, ckpt_dir)
+        ops_launches = phase_ops_path(keys, truth)
+        stamp("digests, stream and the three paths")
+        dense8 = phase_dense8(keys, truth, {"rlbsbf": rl_dups,
+                                            "sbf": sbf_dups}, ckpt_dir)
     del rl_dups, sbf_dups
     stamp("dense8")
+    serve_keys = keys[:SERVE_N].copy()
     f_keys, f_tenants, f_truth = fleet_stream(keys)
     del keys, truth
     fb, fb_state, fb_launches = phase_fleet_path("rlbsbf", f_keys, f_tenants,
@@ -1956,6 +2245,8 @@ def main() -> int:
                                                  f_truth)
     del f_keys, f_tenants, f_truth
     stamp("fleet paths")
+    phase_serve(serve_keys, card)
+    stamp("serve")
     times = phase_timings(cfg, state, sbf_cfg, sbf_state, card,
                           ((fb, fb_state), (fc, fc_state)), floor_lib,
                           parent)

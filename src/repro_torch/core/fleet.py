@@ -283,15 +283,18 @@ class FleetDedup:
             valid = torch.as_tensor(valid, device=self.device).to(torch.bool)
         return keys, tenant, valid
 
-    def process(self, state: FilterState, keys, tenant, valid=None
-                ) -> Tuple[FilterState, FleetResult]:
+    def process(self, state: FilterState, keys, tenant, valid=None, *,
+                donate: bool = False) -> Tuple[FilterState, FleetResult]:
         """One mixed batch through the whole fleet: T logical filters, one
-        launch of each kernel. ``tenant`` (B,) ints in [0, T). The caller's
-        state is left as it was."""
+        launch of each kernel. ``tenant`` (B,) ints in [0, T); keys,
+        tenants and valid may be host arrays. The caller's state is left as
+        it was, unless ``donate=True``: then the filters are updated in
+        place (the serving front-end threads its state, DESIGN §5.2)."""
         keys, tenant, valid = self._lanes(keys, tenant, valid)
         self._widths.add(int(keys.shape[0]))
-        return self._fleet_step(state._replace(bits=state.bits.clone()),
-                                keys, tenant, valid)
+        if not donate:
+            state = state._replace(bits=state.bits.clone())
+        return self._fleet_step(state, keys, tenant, valid)
 
     def run_stream(self, state: FilterState, keys, tenant
                    ) -> Tuple[FilterState, torch.Tensor, torch.Tensor]:

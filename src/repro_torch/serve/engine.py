@@ -1,0 +1,99 @@
+"""Serving with request-level dedup — the port of ``repro.serve.engine``,
+its dedup half (the paper's search-engine / URL-probe application,
+Section 1).
+
+``ServeSession`` batches requests, runs the dedup engine on request keys
+first, and only executes the scoring function for requests the response
+cache cannot answer. The reference's LM steps (``make_prefill_step``,
+``make_decode_step``) wait for the port of the models (ROADMAP [14]).
+
+Contract (DESIGN.md §5): the session delegates to the shared
+``MicroBatchExecutor`` (``repro_torch.serve.frontend``) — request keys are
+padded to one of a small set of fixed batch buckets, the response cache is
+probed in ONE vectorized pass BEFORE the Bloom verdict gates anything (a
+false-negative duplicate can never recompute a cached response), and
+eviction is FIFO by default (``cache_policy="lru"`` keeps hot keys alive
+under zipf traffic — see ``repro_torch.serve.cache``). Concurrent
+multi-client traffic goes through the async ``ServeFrontend`` instead.
+The session runs on ``cuda`` unless it is given ``device="cpu"``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional, Sequence
+
+import numpy as np
+
+from ..core.config import DedupConfig
+from .frontend import DEFAULT_BUCKETS, MicroBatchExecutor
+
+
+@dataclasses.dataclass
+class ServeSession:
+    """Synchronous request-level dedup in front of any scoring function.
+
+    One caller, one batch per ``serve`` call — the single-tenant shape.
+    The batch work itself (padding to a bucket, verdicts, the vectorized
+    cache probe, scoring the misses) is the same ``MicroBatchExecutor``
+    core the async ``ServeFrontend`` coalesces concurrent clients into;
+    this class only adapts it to a blocking call-and-return API.
+
+    The response cache is authoritative and probed FIRST for every request:
+    the Bloom verdict is probabilistic in both directions, and gating the
+    cache lookup on it would turn a false-NEGATIVE duplicate into a full
+    recompute despite a cached response sitting right there. The verdict
+    still drives what the filter learns (and the duplicate-traffic stats);
+    the cache is bounded at ``cache_size`` entries — FIFO by default, LRU
+    with ``cache_policy="lru"`` (batch-granular recency).
+    """
+
+    dedup_cfg: DedupConfig
+    score_fn: Callable[[dict], np.ndarray]     # batch -> responses
+    cache_size: int = 65536
+    cache_policy: str = "fifo"                 # "fifo" | "lru"
+    buckets: Sequence[int] = DEFAULT_BUCKETS   # fixed padded widths
+    device: Optional[str] = None               # cuda unless "cpu"
+    partitionable: bool = True                 # threefry layout (``Dedup``)
+
+    def __post_init__(self):
+        self._exec = MicroBatchExecutor(
+            self.dedup_cfg, self.score_fn, buckets=self.buckets,
+            cache_size=self.cache_size, cache_policy=self.cache_policy,
+            device=self.device, partitionable=self.partitionable)
+
+    def serve(self, batch: dict) -> np.ndarray:
+        # score_fn is a mutable dataclass field (tests swap it mid-session)
+        self._exec.score_fn = self.score_fn
+        vals, _dup, _hit = self._exec.run(batch)
+        return np.stack(list(vals))
+
+    # ------------------------------------------------ delegated surface //
+    @property
+    def engine(self):
+        return self._exec.engine
+
+    @property
+    def state(self):
+        return self._exec.state
+
+    @property
+    def cache(self):
+        return self._exec.cache
+
+    @property
+    def n_served(self) -> int:
+        return self._exec.n_scored
+
+    @property
+    def n_cached(self) -> int:
+        return self._exec.n_cached
+
+    @property
+    def n_flagged_dup(self) -> int:
+        return self._exec.n_dup
+
+    @property
+    def hit_rate(self) -> float:
+        total = self.n_served + self.n_cached
+        return self.n_cached / max(1, total)

@@ -32,7 +32,8 @@ def test_port_files_found():
             "bloom_probe.py", "scatter_delta.py", "ops.py", "fleet.py",
             "batched.py", "prng.py", "chip_smoke.py", "variants.py",
             "theory.py", "pipeline.py", "paper_dedup.py",
-            "streams.py"} <= names
+            "streams.py", "cache.py", "frontend.py", "manager.py",
+            "migrate.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))

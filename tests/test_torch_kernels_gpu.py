@@ -946,3 +946,81 @@ def test_ops_take_seeds_on_the_card(cuda):
         assert torch.equal(x, y)
     with pytest.raises(ValueError, match="CPU tensor"):
         hashmix(keys, seeds.to(cuda), s=s)
+
+
+# ------------------------------------- serving and checkpoints on the card //
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fleet", (False, True), ids=("dense8", "fleet4"))
+def test_serve_frontend_replay_parity_on_card(cuda, fleet):
+    """A small front end on the card: exact answers, its live digest equal
+    to ``replay_schedule`` on the card and on the CPU; a dense8 executor
+    launches one hashmix per micro-batch, a plane fleet one bitset step."""
+    import asyncio
+    from repro_torch.serve import ServeFrontend, replay_schedule
+    from repro_torch.kernels.hashmix import hashmix
+    kw = dict(memory_bits=1 << 16, batch_size=64)
+    if fleet:
+        kw.update(packed=True, n_tenants=4)
+    cfg = DedupConfig.for_variant("rlbsbf", **kw)
+    r = np.random.default_rng(2)
+    keys = r.integers(0, 200, 600)
+    tens = r.integers(0, 4, 600) if fleet else np.zeros(600, np.int64)
+    counter = bitset_step if fleet else hashmix
+
+    def double(b):
+        return np.asarray(b["key"], np.float64) * 2.0
+
+    async def go():
+        fe = ServeFrontend(cfg, double, buckets=(64, 256),
+                           record_schedule=True, device=cuda)
+        async with fe:
+            res = await asyncio.gather(*(fe.submit(int(k), tenant=int(t))
+                                         for k, t in zip(keys, tens)))
+        return res, fe
+
+    before = counter.launches
+    res, fe = asyncio.run(go())
+    assert counter.launches - before == fe.executor.n_batches
+    assert [float(x.value) for x in res] == [2.0 * k for k in keys]
+    sched = fe.executor.schedule
+    live = fe.executor.digest()
+    assert live == replay_schedule(cfg, sched, device=cuda)
+    assert live == replay_schedule(cfg, sched, device="cpu")
+    assert fe.executor.process_cache_size() <= 2
+
+
+@pytest.mark.gpu
+def test_checkpoint_restores_onto_template_device(cuda, tmp_path):
+    """A card state saved and restored into a card template lands on the
+    card, equal leaf for leaf; restored into a CPU template it lands on
+    the CPU; a dense8 -> planes migration on the card equals it on the
+    CPU and resumes as the plane engine does."""
+    from repro_torch.checkpoint import (CheckpointManager, layout_meta,
+                                        migrate_filter_state)
+    from repro_torch.convert import state_to_numpy
+    from repro_torch.core import Dedup
+    kw = dict(memory_bits=1 << 16, batch_size=1024)
+    c8 = DedupConfig.for_variant("sbf", **kw)
+    cp = DedupConfig.for_variant("sbf", layout="planes", **kw)
+    keys = np.random.default_rng(6).integers(0, 9000, 8192).astype(np.uint32)
+    eng = Dedup(c8, cuda)
+    st, _ = eng.run_stream(eng.init(), keys[:4096])
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(1, {"filter": st}, extra_meta=layout_meta(c8))
+    on_card = mgr.restore(1, {"filter": eng.init()})["filter"]
+    on_cpu = mgr.restore(1, {"filter": Dedup(c8, "cpu").init()})["filter"]
+    assert all(x.device.type == "cuda" for x in on_card)
+    assert all(x.device.type == "cpu" for x in on_cpu)
+    a, b, c = (state_to_numpy(x) for x in (st, on_card, on_cpu))
+    for key in a:
+        assert np.array_equal(a[key], b[key]) and np.array_equal(
+            a[key], c[key]), key
+    mg, mc = (migrate_filter_state(x, c8, cp) for x in (on_card, on_cpu))
+    assert mg.bits.device.type == "cuda"
+    a, b = state_to_numpy(mg), state_to_numpy(mc)
+    for key in a:
+        assert np.array_equal(a[key], b[key]), key
+    _, d8 = eng.run_stream(on_card, keys[4096:])
+    _, dp = Dedup(cp, cuda).run_stream(mg, keys[4096:])
+    assert torch.equal(d8, dp)
