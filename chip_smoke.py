@@ -61,6 +61,31 @@ phase) with tenant ids drawn uniformly from a seeded generator
 * fleet-rlbsbf-32x8MB: rlbsbf, k = 2, s = 2^25 per row (no hashmix);
 * fleet-sbf-32x8MB-hetero: sbf on planes, d = 2, per-tenant Max 3 and 2.
 
+Then the "shard" phase: the sharded service (``ShardedDedup``) at one
+NCCL rank (the card is one GPU; NCCL refuses two ranks on one device), the
+group initialised from a file store in a temporary directory and destroyed
+at the phase's end, every exchange through NCCL, over the stream's first
+2^21 records at batch 8192:
+
+* shard-static-rlbsbf-256MB-1rank: static hash routing, rlbsbf on the 256
+  MB plane table, capacity_factor 2 (step width 16384), pipelined and
+  serial — equal bit for bit in verdicts, overflow and the gathered state;
+  overflow 0; one bitset step per batch;
+* shard-elastic-rlbsbf-256MB-32b-1rank: 32 buckets of 8 MB, the monitor on
+  (threshold 1.25, never firing at one rank), bucket width 512 — equal bit
+  for bit to ``FleetDedup`` of 32 x 8 MB tenants over ``range_bucket(key,
+  32)`` (verdicts, overflow, bits, load, position, rng); one bitset step
+  per batch over the bucket axis;
+* shard-elastic-sbf-256MB-32b-1rank: sbf (d = 2 planes) over 32 buckets,
+  the first 2^20 records, pipelined equal to serial; one hashmix and one
+  counter step per batch;
+
+then the three pinned sharded digests (the reference's verdicts on 1, 4
+and 2 devices, reproduced at this one rank). It prints each cell's
+elements/s, host ms per step, launches per step and overflow, the NCCL
+init time and a profiled 4-batch stream of each cell (device busy, NCCL
+and idle shares).
+
 Then the "serve" phase: ``ServeFrontend`` (buckets (64, 256, 1024), four
 batches in flight, 2 ms flush timer, the serving example's ``2 * key``
 scorer) answers 256 closed-loop clients over the stream's first 2^16
@@ -140,6 +165,36 @@ PINNED_DIGESTS = {               # tests/test_sketch_template.py (reference)
     "sbf": "be5220c6e677d339",
     "sbf_d1": "b5702a4fbe9dc5c0",
     "swbf": "4580749bdb028080",
+}
+SHARD_N = 1 << 21                # the shard phase's rlbsbf cells' prefix
+SHARD_SBF_N = 1 << 20            # its sbf cell's prefix
+SHARD_BUCKETS = 32               # elastic buckets: 32 x 8 MB
+SHARD_THRESHOLD = 1.25           # the elastic monitor's max / mean trigger
+SHARD_PROFILE_BATCHES = 4        # batches of each shard cell's profile
+# the reference's sharded verdicts at a small size, SHA-256 of the dup
+# array under JAX's partitionable threefry layout; the elastic one on 4
+# devices, which one rank must reproduce (elastic verdicts do not depend on
+# the device count). tests/test_torch_rebalance.py recomputes them.
+SHARD_DIGEST_CASES = {
+    "static-rlbsbf-1dev": dict(
+        devices=1, variant="rlbsbf", factor=2.0, stream="uniform",
+        kw=dict(memory_bits=1 << 15, batch_size=512)),
+    "elastic-swbf-4dev": dict(
+        devices=4, variant="swbf", factor=8.0, stream="uniform",
+        kw=dict(memory_bits=1 << 15, batch_size=512, window=3, packed=True,
+                rebalance_buckets=8, rebalance_threshold=1.3)),
+    "tenants-sbf-planes-2dev": dict(
+        devices=2, variant="sbf", factor=64.0, stream="tenants",
+        kw=dict(memory_bits=1 << 15, batch_size=64, k=4, layout="planes",
+                n_tenants=8, rebalance_buckets=8, seed=11)),
+}
+SHARD_DIGESTS = {
+    "static-rlbsbf-1dev":
+        "f750f370ffe4189bbc51d87a2af6b72c84c85bc788c822dd5646c333b2475eab",
+    "elastic-swbf-4dev":
+        "a60304f4016c2d55e76bb6e57fb341bc0f02902c5e4061e0bf88e81887c40f1f",
+    "tenants-sbf-planes-2dev":
+        "954adf4b627fe14f6738e1a9d42d6545b3b45792d3c85af9e6f9646680019830",
 }
 BITSET = ("rsbf", "bsbf", "bsbfsd", "rlbsbf")
 COUNTER = ("sbf", "sbf_d1", "swbf", "cms", "hh")
@@ -550,6 +605,41 @@ def phase_digests():
         log(f"[digest] {name}: {got} (pinned {want})")
         if got != want:
             raise AssertionError(f"pinned digest mismatch for {name}")
+
+
+def shard_digest_inputs(case):
+    """A digest case's keys (uint32) and tenant ids (None off the tenant
+    stream), made with numpy from a fixed seed: uniform cases draw 4096
+    keys from a universe of 1024 spread over uint32 (range buckets
+    balanced), the tenant case 512 (key, tenant) pairs whose second half
+    replays the first."""
+    rng = np.random.default_rng(7)
+    if case["stream"] == "tenants":
+        keys = rng.integers(0, 1 << 20, 512).astype(np.uint32)
+        tens = rng.integers(0, 8, 512).astype(np.int32)
+        keys[256:], tens[256:] = keys[:256], tens[:256]
+        return keys, tens
+    universe = rng.integers(0, 1 << 32, 1024, dtype=np.uint64)
+    return universe[rng.integers(0, 1024, 4096)].astype(np.uint32), None
+
+
+def shard_digest(case, device):
+    """The port's verdict digest of a digest case, at the current process
+    group's size: (SHA-256 of the dup array, overflow)."""
+    from repro_torch.core import DedupConfig
+    from repro_torch.dedup import ShardedDedup, ShardedDedupConfig
+    cfg = DedupConfig.for_variant(case["variant"], **case["kw"])
+    sd = ShardedDedup(ShardedDedupConfig(base=cfg,
+                                         capacity_factor=case["factor"]),
+                      device=device, partitionable=True)
+    keys, tens = shard_digest_inputs(case)
+    state = sd.init(cfg.seed)
+    if tens is None:
+        state, dup, ovf = sd.run_stream(state, keys)
+    else:
+        state, dup, ovf = sd.run_tenant_stream(state, keys, tens)
+    return (hashlib.sha256(dup.cpu().numpy().tobytes()).hexdigest(),
+            int(ovf.sum()))
 
 
 def make_stream():
@@ -1087,6 +1177,216 @@ def phase_serve(keys, card):
         torch.cuda.empty_cache()
 
 
+def shard_run(scfg, keys, counters):
+    """A ``ShardedDedup`` of ``scfg`` through ``run_stream`` over ``keys``
+    from a fresh ``init()``, the launch counts set to 0 just before and
+    read just after. -> dict(sd, state, dup, ovf, secs (host clock ending
+    in synchronize), launches)."""
+    import torch
+    from repro_torch.dedup import ShardedDedup
+    sd = ShardedDedup(scfg)
+    state = sd.init()
+    torch.cuda.synchronize()
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    state, dup, ovf = sd.run_stream(state, keys)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    return dict(sd=sd, state=state, dup=dup, ovf=ovf, secs=secs,
+                launches={c.__name__: c.launches for c in counters})
+
+
+def same_state(a, b) -> bool:
+    """Every leaf of two states equal, on the card."""
+    import torch
+    from repro_torch.distributed.sharding import tree_leaves
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        x.shape == y.shape and torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def shard_profile(run, keys, tag, card):
+    """Where a sharded step's time goes: torch.profiler over a
+    SHARD_PROFILE_BATCHES-batch stream continuing the run's state, for the
+    device's busy time, its kernel count and the NCCL kernels' share; the
+    idle share is taken against the run's own unprofiled host ms per
+    step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    n_b = SHARD_PROFILE_BATCHES
+    wall_ms = run["secs"] / (run["dup"].shape[0] // BATCH) * 1e3
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run["sd"].run_stream(run["state"], keys[:n_b * BATCH])
+        torch.cuda.synchronize()
+    rows = [r for r in prof.key_averages() if str(getattr(
+        r, "device_type", "")).endswith("CUDA")
+        and getattr(r, "self_device_time_total", 0) > 0]
+    if not rows:
+        log(f"[profile] {tag}: the profiler recorded no device time: "
+            f"device busy share not measured")
+        return
+    busy = sum(r.self_device_time_total for r in rows) / 1e3 / n_b
+    nccl = sum(r.self_device_time_total for r in rows
+               if "nccl" in r.key.lower()) / 1e3 / n_b
+    n_kernels = sum(r.count for r in rows) / n_b
+    log(f"[profile] {tag}: device busy {busy:.4f} ms per step in "
+        f"{n_kernels:.1f} kernels (NCCL {nccl:.4f} ms) over {n_b} steps; "
+        f"idle share {max(0.0, 1 - busy / wall_ms):.4f} of the cell's "
+        f"unprofiled {wall_ms:.4f} ms per step | {card}")
+
+
+def shard_cell(tag, runs, truth, card, want, extra, checks):
+    """Log a shard cell (``runs``: pipelined, then serial if given) and
+    fail it unless its overflow is 0, its FPR / FNR are in bounds, every
+    run launched ``want`` per step and every ``checks`` value holds."""
+    from repro_torch.dedup.metrics import fpr_fnr
+    run = runs[0]
+    n = run["dup"].shape[0]
+    n_steps = n // BATCH
+    fpr, fnr = fpr_fnr(run["dup"], truth[:n])
+    overflow = int(run["ovf"].sum())
+    per = {k: v / n_steps for k, v in run["launches"].items() if v}
+    serial = ""
+    if len(runs) > 1:
+        secs = runs[1]["secs"]
+        serial = (f"; serial {n / secs:.1f} elements/s, "
+                  f"{secs / n_steps * 1e3:.4f} ms per step")
+    log(f"[{tag}] {n} elements in {run['secs']:.4f} s = "
+        f"{n / run['secs']:.1f} elements/s (host clock, ends in "
+        f"synchronize); {n_steps} steps, {run['secs'] / n_steps * 1e3:.4f} "
+        f"ms per step (host); launches per step {per}; overflow "
+        f"{overflow}; FPR={fpr:.6g} FNR={fnr:.6g}{extra}{serial}; {checks} "
+        f"| {card}")
+    want = {k: n_steps * v for k, v in want.items()}
+    got = [r["launches"] for r in runs]
+    if not (all(checks.values()) and overflow == 0 and 0.0 <= fpr < 0.05
+            and 0.0 <= fnr < 0.5 and all(g == want for g in got)):
+        raise AssertionError(f"{tag} out of bounds (launches {got}, want "
+                             f"{want})")
+
+
+def phase_shard(keys, truth, card):
+    """The sharded service (``ShardedDedup``) at one NCCL rank: the card
+    has one GPU, so the group is world size 1, and every exchange
+    (``all_to_all_single``, ``all_reduce``, ``all_gather``) still runs
+    through NCCL. Three 256 MB cells and the pinned digests; see the
+    module's docstring."""
+    import inspect
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels.fused_template import bitset_step, counter_step
+    from repro_torch.kernels.hashmix import hashmix
+    counters = (hashmix, bitset_step, counter_step)
+    torch.cuda.set_device(0)
+    kw = ({"device_id": torch.device("cuda", 0)} if "device_id" in
+          inspect.signature(dist.init_process_group).parameters else {})
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_nccl_") as tmp:
+        t0 = time.perf_counter()
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                rank=0, world_size=1, **kw)
+        try:
+            probe = torch.ones(1, device="cuda")
+            dist.all_reduce(probe)
+            torch.cuda.synchronize()
+            log(f"[shard] NCCL group of 1 rank (backend "
+                f"{dist.get_backend()}) initialised, with a first "
+                f"all_reduce, in {time.perf_counter() - t0:.3f} s (host "
+                f"clock) | {card}")
+            if int(probe.item()) != 1:
+                raise AssertionError("NCCL all_reduce at 1 rank")
+            shard_cells(keys, truth, card, counters)
+        finally:
+            dist.destroy_process_group()
+
+
+def shard_cells(keys, truth, card, counters):
+    """The shard phase's three cells and its pinned digests, each checked
+    as the module's docstring says."""
+    import torch
+    from repro_torch.core import u32
+    from repro_torch.core.fleet import FleetDedup
+    from repro_torch.core.hashing import range_bucket
+    from repro_torch.dedup import ShardedDedupConfig
+    keys_d = u32.as_words(keys, "cuda")
+
+    def pair(base, n):
+        """Pipelined and serial runs of one config over the first n keys,
+        and whether they agree bit for bit (the gathered states too)."""
+        runs = [shard_run(ShardedDedupConfig(base=base, capacity_factor=2.0,
+                                             pipeline=pipe), keys_d[:n],
+                          counters) for pipe in (True, False)]
+        p, q = runs
+        same = {"dups": torch.equal(p["dup"], q["dup"]),
+                "overflow": torch.equal(p["ovf"], q["ovf"]),
+                "state": same_state(p["sd"].gather_state(p["state"]),
+                                    q["sd"].gather_state(q["state"]))}
+        return runs, {f"pipelined == serial {k}": v for k, v in same.items()}
+
+    def done(tag, run):
+        shard_profile(run, keys_d, tag, card)
+        log(f"[elapsed] {tag} done at {time.perf_counter() - T0:.1f} s")
+
+    bitset = {"hashmix": 0, "bitset_step": 1, "counter_step": 0}
+    cfg = config("rlbsbf", MEMORY_MB, batch_size=BATCH)
+    tag = "shard-static-rlbsbf-256MB-1rank"
+    runs, same = pair(cfg, SHARD_N)
+    sd = runs[0]["sd"]
+    width = sd.n_shards * sd.scfg.capacity(BATCH, sd.n_shards)
+    shard_cell(tag, runs, truth, card, bitset, f"; step width {width}",
+               {**same, "width 2 x batch": width == 2 * BATCH})
+    done(tag, runs[0])
+    del runs
+
+    # 32 buckets at one rank against its fleet oracle over range buckets
+    tag = "shard-elastic-rlbsbf-256MB-32b-1rank"
+    run = shard_run(ShardedDedupConfig(base=dataclasses.replace(
+        cfg, rebalance_buckets=SHARD_BUCKETS,
+        rebalance_threshold=SHARD_THRESHOLD), capacity_factor=2.0),
+        keys_d[:SHARD_N], counters)
+    g = run["sd"].gather_state(run["state"])
+    cap = run["sd"].scfg.bucket_capacity(BATCH, 1)
+    fleet = FleetDedup(dataclasses.replace(
+        cfg, memory_bits=cfg.memory_bits // SHARD_BUCKETS,
+        n_tenants=SHARD_BUCKETS), capacity=cap)
+    k = keys_d[:SHARD_N]
+    fst, fdup, fovf = fleet.run_stream(fleet.init(), k,
+                                       range_bucket(k, SHARD_BUCKETS))
+    checks = {"== FleetDedup dups": torch.equal(run["dup"], fdup),
+              "overflow": torch.equal(run["ovf"][:, 0], fovf),
+              **{f: torch.equal(getattr(g, f)[0], getattr(fst, f))
+                 for f in ("bits", "load", "position", "rng")},
+              "n_rebalances 0": int(g.router.n_rebalances) == 0,
+              "bucket width": cap == -(-2 * BATCH // SHARD_BUCKETS)}
+    shard_cell(tag, [run], truth, card, bitset,
+               f"; {SHARD_BUCKETS} buckets of 8 MB, bucket width {cap}",
+               checks)
+    del g, fst, fleet
+    done(tag, run)
+    del run
+
+    tag = "shard-elastic-sbf-256MB-32b-1rank"
+    scfg = dataclasses.replace(config("sbf", MEMORY_MB, batch_size=BATCH),
+                               rebalance_buckets=SHARD_BUCKETS,
+                               rebalance_threshold=SHARD_THRESHOLD)
+    runs, same = pair(scfg, SHARD_SBF_N)
+    shard_cell(tag, runs, truth, card,
+               {"hashmix": 1, "bitset_step": 0, "counter_step": 1},
+               f"; d={scfg.n_planes} planes, {SHARD_BUCKETS} buckets", same)
+    done(tag, runs[0])
+    del runs
+
+    # the pinned sharded digests, at this one rank
+    for name, case in SHARD_DIGEST_CASES.items():
+        got, overflow = shard_digest(case, "cuda")
+        log(f"[shard-digest] {name}: {got[:16]} (pinned "
+            f"{SHARD_DIGESTS[name][:16]}), overflow {overflow}")
+        if (got, overflow) != (SHARD_DIGESTS[name], 0):
+            raise AssertionError(f"pinned shard digest mismatch for {name}")
+
+
 def fleet_config(name, **kw):
     """A fleet of FLEET_T tenants of 8 MB each for a digest-grid name."""
     cfg = config(name, FLEET_MB, batch_size=BATCH, **kw)
@@ -1622,12 +1922,14 @@ def flush_l2() -> None:
 
 def device_split(fn, n: int, names=None) -> dict:
     """Device ms per call of ``fn(i)`` for i < n, from torch.profiler, by
-    kernel name: each of ``names`` (the kernels whose names hold it), or
-    every device kernel under "all" when ``names`` is None. Empty when the
-    profiler recorded none of them. A trace that holds fewer than ``n``
-    launches of a named kernel lost events (seen on the H100: turns read 0
-    or a third of the others); the run is timed again, up to three times,
-    and logged."""
+    kernel name: each of ``names`` (the kernels whose names hold it, each
+    launched once per call), or every device kernel under "all" when
+    ``names`` is None. Empty when the profiler recorded none of them. A
+    trace that holds fewer than ``n`` launches of a named kernel lost
+    events (seen on the H100: turns read 0 or a third of the others, and
+    with torch 2.11 11 of 16 launches kept in every try); the run is timed
+    again, up to three times, and logged, and a named kernel's time is its
+    mean over the launches the trace kept. "all" divides by ``n``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for attempt in range(3):
@@ -1654,7 +1956,9 @@ def device_split(fn, n: int, names=None) -> dict:
             break
         log(f"[time] the profiler kept {count} of {n} launches of "
             f"{names}: timing the run again")
-    return {x: us / 1e3 / n for x, us in split.items() if us > 0}
+    if names is None:
+        return {x: us / 1e3 / n for x, us in split.items() if us > 0}
+    return {x: us / 1e3 / count[x] for x, us in split.items() if us > 0}
 
 
 def device_ms(fn, n: int, names=None):
@@ -2237,6 +2541,7 @@ def main() -> int:
     del rl_dups, sbf_dups
     stamp("dense8")
     serve_keys = keys[:SERVE_N].copy()
+    shard_keys, shard_truth = keys[:SHARD_N].copy(), truth[:SHARD_N].copy()
     f_keys, f_tenants, f_truth = fleet_stream(keys)
     del keys, truth
     fb, fb_state, fb_launches = phase_fleet_path("rlbsbf", f_keys, f_tenants,
@@ -2245,6 +2550,9 @@ def main() -> int:
                                                  f_truth)
     del f_keys, f_tenants, f_truth
     stamp("fleet paths")
+    phase_shard(shard_keys, shard_truth, card)
+    del shard_keys, shard_truth
+    stamp("shard")
     phase_serve(serve_keys, card)
     stamp("serve")
     times = phase_timings(cfg, state, sbf_cfg, sbf_state, card,

@@ -19,8 +19,9 @@ them, without JAX: a dict key as the key (dicts in sorted key order), a
 list or tuple index as the index, a ``FilterState`` or ``WindowRing`` field
 (or any NamedTuple's) as ``.name``, joined with ``/``; a ``None`` (a
 filter without a ring) is no leaf. A pipeline's ``state_dict()`` gives
-``filter_state/.bits``, ``filter_state/.position``, ... A ``FilterState``'s
-leaves are written in the reference's dtypes (``convert.state_to_numpy``):
+``filter_state/.bits``, ``filter_state/.position``, ...; an elastic
+sharded state adds ``.router/.assign`` and ``.router/.n_rebalances``. A
+``FilterState``'s leaves are written in the reference's dtypes (``convert.state_to_numpy``):
 words as uint32, never the port's int32 bit patterns, so both packages
 write the same names, dtypes, shapes and bytes. bfloat16 leaves are stored
 as their uint16 bits under ``name::bf16``, as in the reference; a
@@ -46,13 +47,15 @@ import numpy as np
 import torch
 
 from ..convert import state_to_numpy
-from ..core.state import FilterState, WindowRing
+from ..core.state import FilterState, RouterState, WindowRing
 
 # the reference's leaf name of each ``state_to_numpy`` leaf
 _STATE_LEAVES = (("bits", ".bits"), ("position", ".position"),
                  ("load", ".load"), ("rng", ".rng"),
                  ("ring_events", ".ring/.events"),
-                 ("ring_slot", ".ring/.slot"))
+                 ("ring_slot", ".ring/.slot"),
+                 ("router_assign", ".router/.assign"),
+                 ("router_n_rebalances", ".router/.n_rebalances"))
 
 
 def _jsonable(x):
@@ -143,16 +146,19 @@ def _unflatten(template, flat: dict, prefix: str = ""):
     if template is None:
         return None
     if isinstance(template, FilterState):
-        ring = None
-        if template.ring is not None:
-            ring = WindowRing(*(_restore_leaf(x, flat, _join(prefix, name))
-                                for x, name in zip(template.ring,
-                                                   (".ring/.events",
-                                                    ".ring/.slot"))))
+        def sub(tree, kind, name):
+            if tree is None:
+                return None
+            return kind(*(_restore_leaf(x, flat,
+                                        _join(prefix, f".{name}/.{f}"))
+                          for x, f in zip(tree, kind._fields)))
+
         return FilterState(*(_restore_leaf(getattr(template, f), flat,
                                            _join(prefix, "." + f))
                              for f in ("bits", "position", "load", "rng")),
-                           ring=ring)
+                           ring=sub(template.ring, WindowRing, "ring"),
+                           router=sub(template.router, RouterState,
+                                      "router"))
     if isinstance(template, dict):
         return {k: _unflatten(v, flat, _join(prefix, str(k)))
                 for k, v in template.items()}

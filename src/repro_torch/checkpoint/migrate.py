@@ -19,24 +19,28 @@ Every leaf of a migrated, exported or imported state is a fresh copy: the
 port's ``run_stream`` and ``process_padded(donate=True)`` update a filter
 in place, which must not reach the source.
 
-The reference's elastic-shard re-meshing (``router_meta``,
-``migrate_sharded_state``) waits for the port of the sharded path (ROADMAP
-[11]).
+The elastic sharded service's re-meshing (DESIGN §4.4): ``router_meta``
+stamps the bucket -> shard table into meta.json and
+``migrate_sharded_state`` re-stacks a gathered elastic state
+(``ShardedDedup.gather_state``) for another shard count.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..core import packed
 from ..core.config import DedupConfig
 from ..core.sketch import get_spec
-from ..core.state import FilterState, WindowRing, bits_dtype, bits_shape
+from ..core.state import (FilterState, WindowRing, bits_dtype, bits_shape,
+                          init_router)
 
 __all__ = ["layout_meta", "migrate_filter_state", "tenant_meta",
-           "check_tenant_meta", "export_tenant", "import_tenant"]
+           "check_tenant_meta", "export_tenant", "import_tenant",
+           "router_meta", "migrate_sharded_state"]
 
 MIGRATE_CHUNK_WORDS = 1 << 20     # 2^25 cells decoded or packed at a time
 
@@ -69,6 +73,21 @@ def _sketch_tag(cfg: DedupConfig) -> str:
     """``family/probe`` of the variant's registered SketchSpec (§3.8)."""
     spec = get_spec(cfg.variant)
     return f"{spec.family}/{spec.probe}"
+
+
+def router_meta(state: FilterState) -> dict:
+    """The elastic router facts a sharded checkpoint carries (DESIGN
+    §4.4): the bucket -> shard table and the rebalance counter, readable
+    from meta.json without loading arrays. Empty for a state without a
+    router."""
+    if state.router is None:
+        return {}
+    assign = state.router.assign.cpu()
+    return {
+        "router_buckets": int(assign.shape[0]),
+        "router_assign": assign.tolist(),
+        "router_n_rebalances": int(state.router.n_rebalances),
+    }
 
 
 def tenant_meta(cfg: DedupConfig, params=None) -> dict:
@@ -172,6 +191,48 @@ def _stacked_tenants(state: FilterState) -> int:
             "axis (core.fleet.init_fleet_state); single-filter and sharded "
             "states have no tenant axis to slice (DESIGN §4.6)")
     return int(state.position.shape[0])
+
+
+def migrate_sharded_state(state: FilterState, dst_shards: int
+                          ) -> FilterState:
+    """Re-stack a gathered ELASTIC sharded state for ``dst_shards`` shards.
+
+    Leaves carry (src_shards, b_r, ...); the router table says which bucket
+    occupies each (shard, slot). Buckets are taken into bucket-id order
+    (undoing every rebalance's placement) and re-stacked as (dst_shards,
+    n_buckets / dst_shards, ...) under the canonical block assignment — the
+    layout ``ShardedDedup.init`` builds, so each rank's ``local_state`` of
+    the result restores into its ``init()``. Bucket contents are untouched
+    and ``n_rebalances`` carries over; every leaf is a fresh copy."""
+    if state.router is None:
+        raise ValueError("migrate_sharded_state needs an elastic state "
+                         "(FilterState.router is None — static-hash sharded "
+                         "and single-device states have no bucket unit)")
+    assign = state.router.assign.cpu().numpy()
+    nb = int(assign.shape[0])
+    if nb % dst_shards:
+        raise ValueError(f"cannot re-mesh {nb} buckets onto {dst_shards} "
+                         f"shards: not divisible")
+    # each bucket's slot within its source owner: its rank among the
+    # owner's buckets in bucket-id order
+    slot_of = np.zeros(nb, np.int64)
+    counts: dict = {}
+    for g in range(nb):
+        slot_of[g] = counts.get(int(assign[g]), 0)
+        counts[int(assign[g])] = slot_of[g] + 1
+    src_b_r = state.position.shape[1]
+    device = state.position.device
+    flat_idx = torch.from_numpy(assign.astype(np.int64) * src_b_r
+                                + slot_of).to(device)
+
+    def leaf(x):
+        flat = x.reshape(-1, *x.shape[2:])
+        return flat.index_select(0, flat_idx).reshape(
+            dst_shards, nb // dst_shards, *x.shape[2:])
+
+    core = _from_leaves([leaf(x) for x in _state_leaves(state)])
+    return core._replace(router=init_router(nb, dst_shards, device)._replace(
+        n_rebalances=state.router.n_rebalances.clone()))
 
 
 def _cells_from_state(state: FilterState, cfg: DedupConfig, row: int,

@@ -7,7 +7,9 @@ framework continues under the other from the same leaves —
      "position": () int32, "load": (k,) int32, "rng": (2,) uint32}
 
 plus, for swbf, ``"ring_events"`` (window, E) int32 and ``"ring_slot"`` ()
-int32 — the reference's ``state.ring.events`` and ``state.ring.slot``.
+int32 — the reference's ``state.ring.events`` and ``state.ring.slot`` —
+and, for an elastic sharded state, ``"router_assign"`` (n_buckets,) and
+``"router_n_rebalances"`` () int32, its ``state.router``.
 ``bits`` is the dense8 layout's (n_rows, s) uint8 cells, the bitset
 family's (k, W) rows or the counter family's (d, 1, W) bit-planes,
 squeezed to (1, W) at d == 1 — as the config's layout says, which
@@ -90,7 +92,8 @@ def state_from_numpy(leaves: dict, cfg: DedupConfig, device=None, *,
 
 
 def state_to_numpy(state: FilterState) -> dict:
-    """numpy leaves of a state, one filter's or a fleet's stacked ones:
+    """numpy leaves of a state, one filter's, a fleet's stacked ones or a
+    sharded service's gathered ones:
     uint8 cells from a dense8 state, uint32 words from a plane state (the
     layout read off the cells' dtype)."""
     def ints(x):
@@ -107,4 +110,7 @@ def state_to_numpy(state: FilterState) -> dict:
     if state.ring is not None:
         leaves["ring_events"] = ints(state.ring.events)
         leaves["ring_slot"] = ints(state.ring.slot)
+    if state.router is not None:
+        leaves["router_assign"] = ints(state.router.assign)
+        leaves["router_n_rebalances"] = ints(state.router.n_rebalances)
     return leaves

@@ -6,16 +6,17 @@ against the JAX package ``repro.core``."""
 from .config import (ALL_VARIANTS, COUNTING_VARIANTS,
                      DedupConfig, VARIANTS, WINDOWED_VARIANTS, k_from_fpr_t,
                      rsbf_k, sbf_optimal_p)
-from .state import (FilterState, WindowRing, init_ring, init_state,
-                    state_memory_bytes)
+from .state import (FilterState, RouterState, WindowRing, init_ring,
+                    init_router, init_state, state_memory_bytes)
 from .batched import BatchResult, intra_batch_seen, make_batched_step
 from .sketch import SKETCHES, SketchSpec, get_spec
 from .engine import Dedup, get_engine, next_pow2
 from . import hashing, packed, prng, u32
 
 __all__ = [
-    "DedupConfig", "FilterState", "WindowRing", "Dedup", "get_engine",
-    "next_pow2", "BatchResult", "init_state", "init_ring",
+    "DedupConfig", "FilterState", "WindowRing", "RouterState", "Dedup",
+    "get_engine", "next_pow2", "BatchResult", "init_state", "init_ring",
+    "init_router",
     "state_memory_bytes", "make_batched_step", "intra_batch_seen",
     "SketchSpec", "SKETCHES", "get_spec", "k_from_fpr_t", "rsbf_k",
     "sbf_optimal_p", "VARIANTS", "WINDOWED_VARIANTS", "COUNTING_VARIANTS",

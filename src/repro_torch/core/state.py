@@ -24,7 +24,8 @@ the (2,) threefry key data (``core.prng``). ``ring`` is swbf's sliding
 window (DESIGN §3.7): the last ``window`` batches' sorted insert-event
 lists and the slot the next batch expires; ``None`` for every other
 variant. All of it lives on the engine's device, so a stream of steps never
-waits on the host.
+waits on the host. ``router`` is the elastic sharded service's bucket ->
+shard table (DESIGN §4.4, ``dedup.sharded``); ``None`` everywhere else.
 
 A tenant fleet (DESIGN §4.6, ``core.fleet``) stacks T such states on a
 leading axis in one ``FilterState``: ``bits`` (T, ...), ``position`` (T,),
@@ -55,23 +56,40 @@ class WindowRing(NamedTuple):
     slot: torch.Tensor
 
 
+class RouterState(NamedTuple):
+    """The elastic sharded path's key-range router table (DESIGN §4.4).
+    The uint32 key space splits into ``n_buckets`` contiguous ranges; bucket
+    ``g`` is a self-contained sub-filter that a load-triggered rebalance
+    moves between ranks whole.
+
+    ``assign``: (n_buckets,) int32 — bucket -> owner shard, replicated on
+    every rank (each must route identically).
+    ``n_rebalances``: () int32 — re-partitions fired so far."""
+    assign: torch.Tensor
+    n_rebalances: torch.Tensor
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class FilterState:
     """The engine's state. It behaves as the reference's pytree does:
-    iterating it yields its leaves, and a ``ring`` that is None is no leaf,
-    so a bitset state is the same four tensors as before the ring existed.
-    ``_replace`` returns a copy with the named fields changed."""
+    iterating it yields its leaves, and a ``ring`` or ``router`` that is
+    None is no leaf, so a bitset state is the same four tensors as before
+    either existed. ``_replace`` returns a copy with the named fields
+    changed."""
     bits: torch.Tensor       # (k, s) uint8 | (k, W) | (d, 1, W) | (1, W)
                              #   int32 words
     position: torch.Tensor   # () int32 — 1-indexed next stream position
     load: torch.Tensor       # (k,) int32 — set bits (nonzero cells)
     rng: torch.Tensor        # (2,) int32 — threefry key data
     ring: Optional[WindowRing] = None   # swbf sliding-window ring (§3.7)
+    router: Optional[RouterState] = None  # elastic shard router (§4.4)
 
     def __iter__(self):
         yield from (self.bits, self.position, self.load, self.rng)
         if self.ring is not None:
             yield self.ring
+        if self.router is not None:
+            yield self.router
 
     def _replace(self, **changes) -> "FilterState":
         return dataclasses.replace(self, **changes)
@@ -114,6 +132,23 @@ def init_ring(cfg: DedupConfig, event_capacity: int | None = None,
     )
 
 
+def init_router(n_buckets: int, n_shards: int, device=None) -> RouterState:
+    """The canonical block assignment on ``device`` (``cuda`` unless the
+    caller passes ``"cpu"``): bucket ``g`` starts on shard ``g //
+    (n_buckets / n_shards)``, so contiguous key ranges stay contiguous per
+    shard until the first load-triggered re-partition (DESIGN §4.4)."""
+    if n_buckets % n_shards:
+        raise ValueError(
+            f"rebalance_buckets {n_buckets} must divide by the shard "
+            f"count {n_shards}")
+    device = resolve_device(device)
+    per = n_buckets // n_shards
+    return RouterState(
+        assign=torch.arange(n_buckets, dtype=torch.int32,
+                            device=device) // per,
+        n_rebalances=torch.zeros((), dtype=torch.int32, device=device))
+
+
 def init_state(cfg: DedupConfig, seed: int | None = None, device=None,
                event_capacity: int | None = None) -> FilterState:
     """An empty filter on ``device`` (``cuda`` unless the caller passes
@@ -137,4 +172,6 @@ def state_memory_bytes(state: FilterState) -> int:
     leaves = [state.bits, state.position, state.load, state.rng]
     if state.ring is not None:
         leaves += list(state.ring)
+    if state.router is not None:
+        leaves += list(state.router)
     return sum(x.numel() * x.element_size() for x in leaves)

@@ -37,7 +37,7 @@ import torch
 from ..core import u32
 from ..core.config import DedupConfig
 from ..core.engine import Dedup
-from ..core.state import FilterState, WindowRing
+from ..core.state import FilterState, RouterState, WindowRing
 from .metrics import StreamMetrics
 
 
@@ -112,10 +112,12 @@ class DedupPipeline:
         st = d["filter_state"]
         ring = (None if st.ring is None else
                 WindowRing(*(x.to(self.device) for x in st.ring)))
+        router = (None if st.router is None else
+                  RouterState(*(x.to(self.device) for x in st.router)))
         self.state = FilterState(st.bits.to(self.device).clone(),
                                  st.position.to(self.device),
                                  st.load.to(self.device),
-                                 st.rng.to(self.device), ring)
+                                 st.rng.to(self.device), ring, router)
 
 
 def unique_gather(ids):

@@ -1,5 +1,5 @@
 """The PyTorch port stands alone: no module of ``src/repro_torch``, not
-``chip_smoke.py`` and not the kernel tests import jax, jaxlib or the JAX
+``chip_smoke.py`` and not the card tests import jax, jaxlib or the JAX
 package ``repro`` — the port has to install and run on a GPU machine that
 has none of them."""
 
@@ -9,9 +9,10 @@ import pathlib
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-# the kernel tests run on a GPU machine that has no jax either
+# the card tests run on a GPU machine that has no jax either
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_kernels_gpu.py"]
+    ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_kernels_gpu.py",
+    ROOT / "tests" / "test_torch_sharded_gpu.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -33,7 +34,8 @@ def test_port_files_found():
             "batched.py", "prng.py", "chip_smoke.py", "variants.py",
             "theory.py", "pipeline.py", "paper_dedup.py",
             "streams.py", "cache.py", "frontend.py", "manager.py",
-            "migrate.py"} <= names
+            "migrate.py", "sharded.py", "sharding.py",
+            "test_torch_sharded_gpu.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
