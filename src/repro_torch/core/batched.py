@@ -51,6 +51,7 @@ from .packed import (clamped_run_counts, count_planes_from_sorted,
                      run_heads_1d)
 from .state import FilterState, WindowRing
 from ..kernels import fused_template as _fused
+from ..kernels.scope import plain_region
 
 
 class BatchResult(NamedTuple):
@@ -451,11 +452,6 @@ def sbf_event_deltas(cfg: DedupConfig, pos: torch.Tensor,
                      dim=-1).values
     if not build_planes:
         return SbfBatchDeltas(None, None, spd, None, sps, None)
-    set_head = run_heads_1d(sps)
-    dec_head, cnt = clamped_run_counts(spd, cfg.sbf_max)
-    count_planes = _per_row(
-        lambda sp, h, c: count_planes_from_sorted(sp, h, c, cfg.n_planes, w),
-        spd, dec_head, cnt)
 
     def set_words(sp, head):
         # head-only single-bit masks are disjoint within a word: the sum is
@@ -466,8 +462,16 @@ def sbf_event_deltas(cfg: DedupConfig, pos: torch.Tensor,
                        torch.where(keep, 1 << (sp & 31), 0))
         return u32.to_i32(acc)
 
-    return SbfBatchDeltas(count_planes, _per_row(set_words, sps, set_head),
-                          spd, dec_head, sps, set_head)
+    with plain_region("counter_step"):
+        set_head = run_heads_1d(sps)
+        dec_head, cnt = clamped_run_counts(spd, cfg.sbf_max)
+        count_planes = _per_row(
+            lambda sp, h, c: count_planes_from_sorted(sp, h, c,
+                                                      cfg.n_planes, w),
+            spd, dec_head, cnt)
+        return SbfBatchDeltas(count_planes,
+                              _per_row(set_words, sps, set_head),
+                              spd, dec_head, sps, set_head)
 
 
 def sbf_planes_3d(bits: torch.Tensor) -> torch.Tensor:
@@ -514,10 +518,11 @@ def count_event_deltas(cfg: DedupConfig, pos: torch.Tensor,
     sp = torch.sort(flat, dim=-1).values
     if not build_planes:
         return CountBatchDeltas(None, sp, None)
-    head, cnt = clamped_run_counts(sp, (1 << d) - 1)
-    return CountBatchDeltas(
-        _per_row(lambda x, h, c: count_planes_from_sorted(x, h, c, d, w),
-                 sp, head, cnt), sp, head)
+    with plain_region("counter_step"):
+        head, cnt = clamped_run_counts(sp, (1 << d) - 1)
+        return CountBatchDeltas(
+            _per_row(lambda x, h, c: count_planes_from_sorted(x, h, c, d, w),
+                     sp, head, cnt), sp, head)
 
 
 def _slot_index(ring: WindowRing) -> torch.Tensor:
@@ -540,10 +545,11 @@ def ring_expire_planes(cfg: DedupConfig, ring: WindowRing,
     if not build_planes:
         return ev, None, None
     d, w = cfg.n_planes, cfg.s_words
-    head, cnt = clamped_run_counts(ev, (1 << d) - 1)
-    return ev, head, _per_row(
-        lambda x, h, c: count_planes_from_sorted(x, h, c, d, w), ev, head,
-        cnt)
+    with plain_region("counter_step"):
+        head, cnt = clamped_run_counts(ev, (1 << d) - 1)
+        return ev, head, _per_row(
+            lambda x, h, c: count_planes_from_sorted(x, h, c, d, w), ev,
+            head, cnt)
 
 
 def ring_push(ring: WindowRing, ev: CountBatchDeltas, window

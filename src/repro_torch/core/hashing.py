@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from . import u32
-from ..kernels import hashmix as _hashmix
+from ..kernels.hashmix import hashmix as _hashmix_kernel
 
 __all__ = ["fmix32", "hash_slots", "hash_positions", "route_hash",
            "range_bucket", "derive_seeds"]
@@ -73,8 +73,8 @@ def hash_positions(keys: torch.Tensor, seeds: torch.Tensor, s: int,
     bit lands inside it — on the card in the same launch."""
     flat = keys.reshape(-1)
     shape = (*keys.shape, seeds.shape[0])
-    return _hashmix.hashmix(flat, seeds, s=s, block_bits=block_bits,
-                            block_seeds=block_seeds).view(shape)
+    return _hashmix_kernel(flat, seeds, s=s, block_bits=block_bits,
+                           block_seeds=block_seeds).view(shape)
 
 
 def route_hash(keys: torch.Tensor, n_shards: int, base_seed: int

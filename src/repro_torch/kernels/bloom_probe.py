@@ -24,7 +24,8 @@ import torch
 
 from ..core import packed
 from . import build
-from . import hashmix as _hashmix
+from .hashmix import check_hash_operands, hashmix_plain, launch_seeds, ptr
+from .scope import plain_region
 
 
 def bloom_probe_plain(words: torch.Tensor, word_idx: torch.Tensor,
@@ -40,7 +41,7 @@ def fused_probe_plain(keys: torch.Tensor, words: torch.Tensor,
                       seeds: torch.Tensor, s: int):
     """-> (dup (B,) bool, hits (B, k) uint8, pos (B, k) int32): the chain
     of plain versions the reference's ``fused_probe`` runs."""
-    pos = _hashmix.hashmix_plain(keys, seeds, s)
+    pos = hashmix_plain(keys, seeds, s)
     hits = bloom_probe_plain(words, *packed.split_pos(pos))
     return (hits == 1).all(dim=1), hits, pos
 
@@ -91,7 +92,8 @@ def bloom_probe(words: torch.Tensor, word_idx: torch.Tensor,
         raise ValueError(f"bloom_probe: words must be (k, W) with k = "
                          f"{word_idx.shape[1]}, got {tuple(words.shape)}")
     if words.device.type == "cpu":
-        return bloom_probe_plain(words, word_idx, bit_mask)
+        with plain_region("bloom_probe"):
+            return bloom_probe_plain(words, word_idx, bit_mask)
     b, k = word_idx.shape
     hits = torch.empty((b, k), dtype=torch.uint8, device=words.device)
     err = _entry("bloom_probe")(words.data_ptr(), word_idx.data_ptr(),
@@ -116,7 +118,7 @@ def fused_probe(keys: torch.Tensor, words: torch.Tensor, seeds: torch.Tensor,
     launch: the hash in registers, all k gathers, the bit tests and the
     AND. ``fused_probe.launches`` counts its kernel launches (bloom_probe's
     count does not move)."""
-    _hashmix.check_hash_operands("fused_probe", keys, seeds, s, 0, None)
+    check_hash_operands("fused_probe", keys, seeds, s, 0, None)
     if keys.dim() != 1 or not keys.is_contiguous():
         raise ValueError(f"fused_probe takes contiguous keys (B,); got "
                          f"{tuple(keys.shape)}")
@@ -130,7 +132,8 @@ def fused_probe(keys: torch.Tensor, words: torch.Tensor, seeds: torch.Tensor,
         raise ValueError(f"fused_probe: words are on {words.device}, keys "
                          f"on {keys.device}")
     if keys.device.type == "cpu":
-        return fused_probe_plain(keys, words, seeds, s)
+        with plain_region("fused_probe"):
+            return fused_probe_plain(keys, words, seeds, s)
     if keys.device.type != "cuda":
         raise ValueError(f"fused_probe runs on cpu or cuda, not "
                          f"{keys.device}")
@@ -138,10 +141,10 @@ def fused_probe(keys: torch.Tensor, words: torch.Tensor, seeds: torch.Tensor,
     hits = torch.empty((b, k), dtype=torch.uint8, device=keys.device)
     dup = torch.empty((b,), dtype=torch.bool, device=keys.device)
     pos = torch.empty((b, k), dtype=torch.int32, device=keys.device)
-    hs, _, dev = _hashmix.launch_seeds(seeds, None, keys.device)
+    hs, _, dev = launch_seeds(seeds, None, keys.device)
     err = _entry("fused_probe")(
         words.data_ptr(), keys.data_ptr(), hits.data_ptr(), dup.data_ptr(),
-        pos.data_ptr(), b, w, hs.data_ptr(), _hashmix.ptr(dev), k, s,
+        pos.data_ptr(), b, w, hs.data_ptr(), ptr(dev), k, s,
         torch.cuda.current_stream(keys.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused_probe kernel launch failed: CUDA error "

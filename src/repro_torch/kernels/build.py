@@ -9,7 +9,11 @@ library (``load``), and ``build_all`` starts every compile at once, one
 
 The library name carries a digest of its source, of every header in
 ``csrc/`` (``hashmix.cuh`` is shared) and of the flags, so an edited source
-or header is rebuilt and an unchanged one is loaded as it is. Fast-math is
+or header is rebuilt and an unchanged one is loaded as it is. What
+``nvcc`` printed (``-Xptxas -v``: registers, spills and shared memory per
+kernel) is kept beside the library under the same name with ``.log``, so
+a library built by an earlier process still has its report
+(``build_log``). Fast-math is
 left off on purpose: the bitset step's decisions divide in float32 and
 must round exactly as the reference does (DESIGN §3.4).
 """
@@ -71,7 +75,9 @@ def _start(name: str):
 
 def _finish(name: str, job) -> None:
     if job is None:
-        build_logs.setdefault(name, "(already built)")
+        saved = _target(name).with_suffix(".log")
+        build_logs.setdefault(name, saved.read_text() if saved.exists()
+                              else "(already built)")
         return
     proc, tmp, out = job
     log, _ = proc.communicate()
@@ -79,6 +85,9 @@ def _finish(name: str, job) -> None:
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+    tmp_log = tmp.with_suffix(".logtmp")
+    tmp_log.write_text(log)
+    os.replace(tmp_log, out.with_suffix(".log"))
     os.replace(tmp, out)
 
 
@@ -89,6 +98,13 @@ def build_all(names=SOURCES) -> dict:
         for n, job in jobs.items():
             _finish(n, job)
     return build_logs
+
+
+def build_log(name: str) -> str:
+    """What ``nvcc`` printed when ``csrc/<name>.cu`` was built, building
+    it first if its library is not current."""
+    build_all((name,))
+    return build_logs[name]
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -51,7 +51,10 @@ from ..core import batched as _batched
 from ..core import packed as _packed
 from ..core import u32
 from . import build
-from . import hashmix as _hashmix
+from .common import COUNTER_TILE, DEFAULT_CHUNK_B, DEFAULT_TILE_W
+from .hashmix import (check_hash_operands, launch_seeds, positions_plain,
+                      ptr)
+from .scope import plain_region
 
 VARIANT_CODES = {"rsbf": 0, "bsbf": 1, "bsbfsd": 2, "rlbsbf": 3}
 # the counter sketches whose decision the kernel computes: a min over the k
@@ -59,7 +62,6 @@ VARIANT_CODES = {"rsbf": 0, "bsbf": 1, "bsbfsd": 2, "rlbsbf": 3}
 # intra-batch join where the spec uses it
 COUNTER_SKETCHES = ("sbf", "swbf", "cms", "hh")
 MAX_PLANES = 32                   # csrc/counter_step.cu::kMaxPlanes
-COUNTER_TILE = 128                # csrc/counter_step.cu::kTile
 INT_MAX = (1 << 31) - 1
 
 
@@ -75,6 +77,35 @@ def _check_tensors(kernel: str, want: dict, device) -> None:
                              f"expected {device}")
         if not t.is_contiguous():
             raise ValueError(f"{kernel}: {name} must be contiguous")
+
+
+def make_fused_step(cfg, spec=None, *, tile_w: int = DEFAULT_TILE_W,
+                    chunk_b: int = DEFAULT_CHUNK_B,
+                    interpret: bool | None = None,
+                    params_aware: bool = False, device=None):
+    """The reference's kernel-step generator, over
+    ``core.batched.make_templated_step``: the step of ``cfg``'s
+    ``SketchSpec`` (or an explicit ``spec``) on ``device`` (``cuda`` unless
+    the caller passes ``"cpu"``), whose fused step is ``bitset_step`` or
+    ``counter_step`` above. ``tile_w``, ``chunk_b`` and ``interpret`` are
+    accepted and change nothing: they were the TPU kernel's W tile, its
+    event chunk and its interpret switch, and the CUDA kernels tile
+    nothing, take their events whole, and run only on the card (the CPU
+    runs the plain versions). ``params_aware=True`` returns the fleet step
+    over the stacked (T, ...) state, ``step(state, keys (T, C), valid (T,
+    C), TenantStepParams)``, where the reference's takes one tenant under
+    ``jax.vmap``. A counter-family spec needs the plane layout, as the
+    reference says."""
+    cfg = cfg.validate()
+    if spec is None:
+        from ..core.sketch import get_spec
+        spec = get_spec(cfg.variant)
+    if spec.family == "counter" and not cfg.is_planes:
+        raise ValueError(
+            f"the fused {cfg.variant} kernel needs the bit-plane layout "
+            f"(cfg.layout='planes'); got {cfg.effective_layout!r}")
+    return _batched.make_templated_step(cfg, spec, device,
+                                        params_aware=params_aware)
 
 
 # ---------------- bitset family ------------------------------------------ //
@@ -119,7 +150,7 @@ def _check(cfg, words, keys, seeds, block_seeds, rnd, valid, seen, i_t,
     k, w = cfg.k, cfg.s_words
     t = words.shape[0] if words.dim() == 3 else -1
     b = valid.shape[1] if valid.dim() == 2 else -1
-    _hashmix.check_hash_operands("bitset_step", keys, seeds, cfg.s,
+    check_hash_operands("bitset_step", keys, seeds, cfg.s,
                                  cfg.block_bits, block_seeds)
     if seeds.shape[0] != k:
         raise ValueError(f"bitset_step: seeds must be ({k},), got "
@@ -157,11 +188,11 @@ def _launch(cfg, words, keys, seeds, block_seeds, rnd, valid, seen, i_t,
             load, dup, ins, del_rows, load_out):
     stream = torch.cuda.current_stream(words.device).cuda_stream
     t, k, w = words.shape
-    hs, hb, dev = _hashmix.launch_seeds(
+    hs, hb, dev = launch_seeds(
         seeds, block_seeds if cfg.block_bits > 0 else None, words.device)
     err = _entry()(words.data_ptr(), w, k, t, valid.shape[1],
-                   keys.data_ptr(), hs.data_ptr(), _hashmix.ptr(hb),
-                   _hashmix.ptr(dev), max(cfg.block_bits, 0),
+                   keys.data_ptr(), hs.data_ptr(), ptr(hb),
+                   ptr(dev), max(cfg.block_bits, 0),
                    rnd.del_pos.data_ptr(),
                    valid.data_ptr(), seen.data_ptr(), i_t.data_ptr(),
                    rnd.u_bern.data_ptr(), rnd.u_aux.data_ptr(),
@@ -205,12 +236,13 @@ def bitset_step(cfg, words, keys, rnd, valid, seen, i_t, load, *, seeds,
     _check(cfg, words, keys, seeds, block_seeds, rnd, valid, seen, i_t,
            load)
     if words.device.type == "cpu":
-        pos = _hashmix.positions_plain(
-            keys.reshape(-1), seeds, cfg.s, cfg.block_bits,
-            block_seeds).view(*keys.shape, cfg.k)
-        new, dup, ins, new_load = bitset_step_plain(
-            cfg, words, pos, rnd, valid, seen, i_t, load)
-        words.copy_(new)
+        with plain_region("bitset_step"):
+            pos = positions_plain(
+                keys.reshape(-1), seeds, cfg.s, cfg.block_bits,
+                block_seeds).view(*keys.shape, cfg.k)
+            new, dup, ins, new_load = bitset_step_plain(
+                cfg, words, pos, rnd, valid, seen, i_t, load)
+            words.copy_(new)
         return dup, ins, new_load
     if words.device.type != "cuda":
         raise ValueError(f"bitset_step runs on cpu or cuda, not "
@@ -431,10 +463,11 @@ def counter_step(cfg, spec, planes, pos, valid, seen, load, ev,
     _check_counter(cfg, spec, planes, pos, valid, seen, load, ev, threshold,
                    max_value)
     if device.type == "cpu":
-        new, dup, new_load = counter_step_plain(
-            cfg, spec, planes, pos, valid, seen, load, ev, threshold,
-            max_value)
-        planes.copy_(new)
+        with plain_region("counter_step"):
+            new, dup, new_load = counter_step_plain(
+                cfg, spec, planes, pos, valid, seen, load, ev, threshold,
+                max_value)
+            planes.copy_(new)
         return dup, new_load
     if device.type != "cuda":
         raise ValueError(f"counter_step runs on cpu or cuda, not {device}")

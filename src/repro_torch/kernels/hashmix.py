@@ -27,6 +27,7 @@ import torch
 
 from ..core import u32
 from . import build
+from .scope import plain_region
 
 M1 = 0x85EBCA6B
 M2 = 0xC2B2AE35
@@ -151,7 +152,8 @@ def hashmix(keys: torch.Tensor, seeds: torch.Tensor, *, s: int,
     if not (keys.is_contiguous() and seeds.is_contiguous()):
         raise ValueError("hashmix takes contiguous tensors")
     if keys.device.type == "cpu":
-        return positions_plain(keys, seeds, s, block_bits, block_seeds)
+        with plain_region("hashmix"):
+            return positions_plain(keys, seeds, s, block_bits, block_seeds)
     if keys.device.type != "cuda":
         raise ValueError(f"hashmix runs on cpu or cuda, not {keys.device}")
     out = torch.empty((keys.shape[0], seeds.shape[0]), dtype=torch.int32,

@@ -23,8 +23,8 @@ from __future__ import annotations
 
 import torch
 
-from . import bloom_probe as _probe
 from .bloom_probe import bloom_probe
+from .bloom_probe import fused_probe as _fused_probe
 from .hashmix import hashmix
 from .scatter_delta import scatter_delta
 
@@ -51,7 +51,7 @@ def fused_probe(keys: torch.Tensor, words: torch.Tensor, seeds: torch.Tensor,
                 s: int):
     """keys (B,) -> (dup (B,) bool, hits (B, k) uint8, pos (B, k) int32),
     one kernel launch on CUDA; ``seeds`` (k,) on any device."""
-    return _probe.fused_probe(keys, words, _host(seeds), s)
+    return _fused_probe(keys, words, _host(seeds), s)
 
 
 def scatter_or(words: torch.Tensor, word_idx: torch.Tensor,

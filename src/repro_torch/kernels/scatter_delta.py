@@ -21,6 +21,7 @@ import torch
 from ..core import packed, u32
 from . import build
 from .bloom_probe import check_operands
+from .scope import plain_region
 
 
 def scatter_delta_plain(word_idx: torch.Tensor, bit_mask: torch.Tensor,
@@ -63,7 +64,8 @@ def scatter_delta(word_idx: torch.Tensor, bit_mask: torch.Tensor, *,
     if w < 1:
         raise ValueError(f"scatter_delta: W must be >= 1, got {w}")
     if word_idx.device.type == "cpu":
-        return scatter_delta_plain(word_idx, bit_mask, w)
+        with plain_region("scatter_delta"):
+            return scatter_delta_plain(word_idx, bit_mask, w)
     b, k = word_idx.shape
     delta = torch.zeros((k, w), dtype=torch.int32, device=word_idx.device)
     err = _entry()(word_idx.data_ptr(), bit_mask.data_ptr(),

@@ -1,7 +1,7 @@
-"""The PyTorch port stands alone: no module of ``src/repro_torch``, not
-``chip_smoke.py`` and not the card tests import jax, jaxlib or the JAX
-package ``repro`` — the port has to install and run on a GPU machine that
-has none of them."""
+"""The PyTorch port stands alone: no module of ``src/repro_torch`` (the
+hot-path linter ``repro_torch.analysis`` included), not ``chip_smoke.py``
+and not the card tests import jax, jaxlib or the JAX package ``repro`` —
+the port has to install and run on a GPU machine that has none of them."""
 
 import ast
 import pathlib
@@ -12,7 +12,8 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 # the card tests run on a GPU machine that has no jax either
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_kernels_gpu.py",
-    ROOT / "tests" / "test_torch_sharded_gpu.py"]
+    ROOT / "tests" / "test_torch_sharded_gpu.py",
+    ROOT / "tests" / "test_torch_analysis_gpu.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -35,7 +36,10 @@ def test_port_files_found():
             "theory.py", "pipeline.py", "paper_dedup.py",
             "streams.py", "cache.py", "frontend.py", "manager.py",
             "migrate.py", "sharded.py", "sharding.py",
-            "test_torch_sharded_gpu.py"} <= names
+            "test_torch_sharded_gpu.py", "source_lint.py", "trace_lint.py",
+            "entrypoints.py", "runner.py", "common.py", "scope.py",
+            "fused_step.py", "fused_counter_step.py", "ref.py",
+            "test_torch_analysis_gpu.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
