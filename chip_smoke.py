@@ -98,6 +98,31 @@ bitset-step launch (fleet) per micro-batch and per replayed batch. It
 prints requests/s, fill, shed and cache-hit rates, client-side p50 / p99
 latency and the idle share of a micro-batch step at bucket 256.
 
+Then the "lm" phase: the port's dense LM (``repro_torch.models``) at
+qwen3-8b's published width (36 layers, d 4096, 32 / 8 heads, vocab
+151936, bf16), weights from the port's seeded init on the card. It checks
+the parameter count (8190735360, the reference's ``param_count()``);
+teacher-forced ``decode_step`` over positions 0 - 63 against ``prefill``
+of B = 4, S = 256 (max |diff| under 2% of max |logit|, bf16); an fp32
+2-layer copy at full width on the card against the same weights on the
+CPU (1e-3 of max |logit|, TF32 off); then serves: ``ServeFrontend``
+(buckets (64, 256, 1024), 4 in flight, 2 ms flush) with the port's LM
+scorer (``make_lm_scorer`` here, the serving benchmark's ``transformer``
+scorer) in front of the benchmark's dedup config (rlbsbf, 2^20 bits,
+dense8), 64 closed-loop clients over 2^12 requests of its mix (70% zipf,
+30% fresh), after an untimed warm-up front end: every request answered,
+the digest equal to ``replay_schedule`` both on the card and on the CPU
+(where the engine runs hashmix's plain version), hashmix at each
+micro-batch width of the run (k = 2, s = 2^19) exactly equal to its plain
+version, every answer bit for bit a value its key was scored to (the
+cache), every value bit for bit equal to rescoring its key in a batch of
+32, one hashmix launch per micro-batch.
+It prints requests/s, p50 / p99, the hit rate, the scorer's time at each
+padded width (device time and idle share at the widths served) with its
+peak memory, and greedy decode at B = 8 and 64 over a 1024-slot cache
+(ms per step, tokens/s, device busy and its costliest kernels) beside the
+weight-read bound.
+
 Then it times each kernel beside its bound and the card's latency floor
 (an empty launch, and 1 - 3 dependent scattered loads per thread; each
 kernel's time, scatter_delta's zero fill included, averaged over the
@@ -131,6 +156,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import ctypes
 import dataclasses
 import functools
@@ -205,6 +231,23 @@ SHARD_DIGESTS = {
     "tenants-sbf-planes-2dev":
         "954adf4b627fe14f6738e1a9d42d6545b3b45792d3c85af9e6f9646680019830",
 }
+# the "lm" phase: qwen3-8b at its published width (lm_archs.py), seeded
+LM_ARCH = "qwen3-8b"
+LM_PARAMS = 8_190_735_360        # the reference's param_count()
+LM_PREFILL = (4, 256)            # B, S of the prefill the decode replays
+LM_TEACHER = 64                  # positions teacher-forced through decode
+LM_CPU = (2, 64)                 # B, S of the fp32 2-layer card-vs-CPU run
+LM_REL_TOL = 0.02                # bf16: |diff| <= 2% of max |logit|
+LM_FP32_TOL = 1e-3               # fp32 card vs CPU, relative to max |logit|
+LM_SERVE_N = 1 << 12             # requests of the LM-scored front end
+LM_CLIENTS = 64                  # its closed-loop clients
+LM_RESCORE = 32                  # the batch the served values are rescored in
+LM_SEQ_LEN = 16                  # the LM scorer's context, as the benchmark's
+LM_MIN_WIDTH = 32                # the scorer's smallest padded miss-batch
+LM_WIDTHS = (32, 64, 128, 256, 512, 1024)   # the scorer's padded widths
+LM_DECODE_B = (8, 64)            # decode batches timed
+LM_DECODE_SEQ = 1024             # their cache length
+LM_DECODE_TOKENS = 128           # greedy tokens per batch
 BITSET = ("rsbf", "bsbf", "bsbfsd", "rlbsbf")
 COUNTER = ("sbf", "sbf_d1", "swbf", "cms", "hh")
 # each step kernel's device kernels, as the profiler names them
@@ -1046,21 +1089,22 @@ def serve_score(batch):
     return np.asarray(batch["key"], np.float64) * 2.0
 
 
-def serve_clients(cfg, keys, tenants):
-    """``ServeFrontend`` under SERVE_CLIENTS closed-loop clients: client c
-    submits records c, c + SERVE_CLIENTS, ... one at a time, each after the
+def serve_clients(cfg, keys, tenants, score=serve_score,
+                  clients=SERVE_CLIENTS):
+    """``ServeFrontend`` under ``clients`` closed-loop clients: client c
+    submits records c, c + clients, ... one at a time, each after the
     previous one's answer, as the serving example's clients do. -> (front
     end, wall seconds, per-request latencies in seconds, results)"""
     import asyncio
     from repro_torch.serve import DEFAULT_BUCKETS, ServeFrontend
-    fe = ServeFrontend(cfg, serve_score, buckets=DEFAULT_BUCKETS,
+    fe = ServeFrontend(cfg, score, buckets=DEFAULT_BUCKETS,
                        max_live_batches=4, flush_timeout=2e-3,
                        record_schedule=True)
     lat = np.zeros(len(keys))
     results = [None] * len(keys)
 
     async def client(c):
-        for i in range(c, len(keys), SERVE_CLIENTS):
+        for i in range(c, len(keys), clients):
             t0 = time.perf_counter()
             results[i] = await fe.submit(int(keys[i]),
                                          tenant=int(tenants[i]))
@@ -1069,7 +1113,7 @@ def serve_clients(cfg, keys, tenants):
     async def drive():
         async with fe:
             t0 = time.perf_counter()
-            await asyncio.gather(*(client(c) for c in range(SERVE_CLIENTS)))
+            await asyncio.gather(*(client(c) for c in range(clients)))
             return time.perf_counter() - t0
 
     secs = asyncio.run(drive())
@@ -1187,6 +1231,350 @@ def phase_serve(keys, card):
         profile_serve_step(ex, keys, card, tag)
         del fe, ex
         torch.cuda.empty_cache()
+
+
+def request_mix(n: int, seed: int) -> np.ndarray:
+    """The serving benchmark's traffic (``benchmarks/serving_qps.py``):
+    (n,) uint32 keys, 70% zipf (a = 1.2) over max(64, n // 8) keys
+    blended with fresh uniform keys, shuffled."""
+    from repro_torch.data.streams import zipf_stream
+    rng = np.random.default_rng(seed)
+    n_z = int(n * 0.7)
+    zk, _ = zipf_stream(n_z, universe=max(64, n // 8), a=1.2, seed=seed)
+    uk = rng.integers(0, 1 << 32, size=n - n_z, dtype=np.uint64
+                      ).astype(np.uint32)
+    keys = np.concatenate([zk, uk])
+    return keys[rng.permutation(n)]
+
+
+def lm_rel_err(got, want) -> float:
+    """max |got - want| over max |want|, in fp32."""
+    want = want.float()
+    return float((got.float() - want).abs().max() / want.abs().max())
+
+
+def lm_scorer_tokens(keys, width: int, vocab: int) -> np.ndarray:
+    """(width, LM_SEQ_LEN) int32 pseudo-tokens of request keys, the rows
+    past ``len(keys)`` padding (key 0): key * (j + 1) * 0x9E3779B97F4A7C15
+    mod 2^64, its high word, mod ``vocab`` (``benchmarks/serving_qps.py``'s
+    mapping)."""
+    mults = (np.arange(1, LM_SEQ_LEN + 1, dtype=np.uint64)
+             * np.uint64(0x9E3779B97F4A7C15))
+    keys_p = np.pad(np.asarray(keys, np.uint64), (0, width - len(keys)))
+    return ((keys_p[:, None] * mults[None, :]) >> np.uint64(32)
+            ).astype(np.int32) % vocab
+
+
+def make_lm_scorer(cfg, params):
+    """The serving benchmark's ``transformer`` scorer over the port's model
+    on the card: a miss-batch of m keys padded to ``max(32,
+    next_pow2(m))`` rows of pseudo-tokens, prefilled; -> the mean of the
+    last position's first 8 logits, (m,) float32 on the host. It runs in
+    the front end's pool thread and takes no lock the dedup step needs."""
+    import torch
+    from repro_torch.core.engine import next_pow2
+    from repro_torch.serve import make_prefill_step
+    prefill_step = make_prefill_step(cfg)
+    device = params["embed"].device
+
+    def scorer(batch: dict) -> np.ndarray:
+        keys = np.asarray(batch["key"], np.uint64)
+        m = keys.shape[0]
+        width = max(LM_MIN_WIDTH, next_pow2(m))
+        tokens = torch.from_numpy(lm_scorer_tokens(keys, width, cfg.vocab))
+        with torch.cuda.device(device):
+            logits = prefill_step(params, tokens.to(device))
+            return logits[:, -1, :8].mean(-1).float().cpu().numpy()[:m]
+
+    return scorer
+
+
+def lm_decode_profile(step, params, cache, tok, b, n=2):
+    """Device busy ms per decode step and its five costliest kernels (ms
+    per step, launches per step), from torch.profiler over n steps."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(n):
+            step(params, cache, tok, torch.full(
+                (b,), LM_DECODE_TOKENS + i, dtype=torch.int32,
+                device="cuda"))
+        torch.cuda.synchronize()
+    rows = [r for r in prof.key_averages()
+            if str(getattr(r, "device_type", "")).endswith("CUDA")
+            and r.self_device_time_total > 0]
+    if not rows:
+        return None, None
+    rows.sort(key=lambda r: -r.self_device_time_total)
+    top = [(r.key[:60], round(r.self_device_time_total / 1e3 / n, 4),
+            r.count / n) for r in rows[:5]]
+    return sum(r.self_device_time_total for r in rows) / 1e3 / n, top
+
+
+def phase_lm(card):
+    """The dense LM on the card at qwen3-8b's published width: the seeded
+    bf16 model (its parameter count), decode against prefill, an fp32
+    2-layer copy against the CPU, the LM scorer behind ``ServeFrontend`` in
+    front of the serving benchmark's dedup config, and greedy decode timed
+    beside its weight-read bound. -> (the front end's kernel launches,
+    hashmix's largest difference from its plain version at the front end's
+    shapes)."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.core import DedupConfig, hashing, u32
+    from repro_torch.core.engine import next_pow2
+    from repro_torch.kernels.fused_template import bitset_step, counter_step
+    from repro_torch.kernels.hashmix import hashmix, hashmix_plain
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serve import (make_decode_step, make_prefill_step,
+                                   replay_schedule)
+    torch.backends.cuda.matmul.allow_tf32 = False   # fp32 is fp32 (step 3)
+    cfg = get_arch(LM_ARCH).cfg
+    rng = np.random.default_rng(SEED + 20)
+    laps = [time.perf_counter()]
+
+    def lap(what):
+        laps.append(time.perf_counter())
+        log(f"[lm] {what}: {laps[-1] - laps[-2]:.1f} s")
+
+    # 1. the model on the card, and its size
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = tfm.init(cfg, SEED)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    w_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    log(f"[lm] {LM_ARCH}: {cfg.n_layers} layers, d {cfg.d_model}, "
+        f"{cfg.n_heads} heads / {cfg.n_kv_heads} KV heads, hd {cfg.hd}, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab}, qk-norm {cfg.qk_norm}, rope "
+        f"theta {cfg.rope_theta:g}, {cfg.dtype}: {n_params} parameters "
+        f"({w_bytes / 1e9:.4f} GB) on {params['embed'].device}, seeded init "
+        f"in {time.perf_counter() - t0:.2f} s")
+    if not (n_params == cfg.param_count() == LM_PARAMS
+            and params["embed"].device.type == "cuda"):
+        raise AssertionError(f"lm: {n_params} parameters, expected "
+                             f"{LM_PARAMS} on cuda")
+    lap("build")
+
+    # 2. decode against prefill (the reference's test_decode_matches_prefill)
+    B, S = LM_PREFILL
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (B, S)).astype(
+        np.int32)).cuda()
+    full = make_prefill_step(cfg)(params, toks)
+    step = make_decode_step(cfg)
+    cache = tfm.init_cache(cfg, B, S)
+    worst = 0.0
+    for t in range(LM_TEACHER):
+        lg, cache = step(params, cache, toks[:, t],
+                         torch.full((B,), t, dtype=torch.int32,
+                                    device="cuda"))
+        worst = max(worst, lm_rel_err(lg, full[:, t]))
+    max_logit = float(full[:, :LM_TEACHER].float().abs().max())
+    finite = bool(torch.isfinite(full).all())
+    log(f"[lm] decode == prefill (B {B}, S {S}, positions 0 - "
+        f"{LM_TEACHER - 1} teacher-forced from an empty cache): max |diff| / "
+        f"max |logit| = {worst:.6g} (max |logit| {max_logit:.4f}; bf16 "
+        f"tolerance {LM_REL_TOL}); prefill logits {tuple(full.shape)} "
+        f"{full.dtype}, finite {finite}")
+    if not (finite and worst <= LM_REL_TOL
+            and tuple(full.shape) == (B, S, cfg.vocab)):
+        raise AssertionError("lm: decode disagrees with prefill")
+    del full, cache, lg
+    lap("decode against prefill")
+
+    # 3. the card against the CPU, fp32, full width at 2 layers
+    c32 = dataclasses.replace(cfg, n_layers=2, dtype=torch.float32)
+    t0 = time.perf_counter()
+    gpu = tfm.init(c32, SEED)
+    cpu = copy.deepcopy(gpu).cpu()
+    t_copy = time.perf_counter() - t0
+    b2, s2 = LM_CPU
+    toks2 = torch.from_numpy(rng.integers(0, cfg.vocab, (b2, s2)).astype(
+        np.int32))
+    t0 = time.perf_counter()
+    want = tfm.prefill(c32, cpu, toks2)
+    t_cpu = time.perf_counter() - t0
+    got = tfm.prefill(c32, gpu, toks2.cuda()).cpu()
+    err32 = lm_rel_err(got, want)
+    log(f"[lm] fp32 card == CPU ({c32.n_layers} layers at full width, "
+        f"{c32.param_count()} parameters, prefill B {b2}, S {s2}, TF32 "
+        f"off): max |diff| / max |logit| = {err32:.6g} (tolerance "
+        f"{LM_FP32_TOL}; max |logit| {float(want.abs().max()):.4f}); "
+        f"init on the card and copy to the host {t_copy:.1f} s, CPU "
+        f"prefill {t_cpu:.1f} s")
+    if not err32 <= LM_FP32_TOL:
+        raise AssertionError("lm: the card's fp32 logits disagree with the "
+                             "CPU's")
+    del cpu, gpu, want, got
+    torch.cuda.empty_cache()
+    lap("fp32 card against the CPU")
+
+    # 4. the LM scorer behind the front end
+    dcfg = DedupConfig.for_variant("rlbsbf", memory_bits=1 << 20,
+                                   batch_size=64)
+    scorer = make_lm_scorer(cfg, params)
+    widths = []
+
+    def score(batch):
+        widths.append(max(LM_MIN_WIDTH, next_pow2(len(batch["key"]))))
+        return scorer(batch)
+
+    # set-up: a front end of its own over other keys (the reference's
+    # untimed warm-up) takes the first-use costs of the dedup step and of
+    # the scorer's widths out of the timed run
+    warm = max(512, LM_SERVE_N // 16)       # as the benchmark warms up
+    serve_clients(dcfg, request_mix(warm, seed=11), np.zeros(warm, np.int32),
+                  score, LM_CLIENTS)
+    widths.clear()
+    keys = request_mix(LM_SERVE_N, seed=7)
+    counters = (hashmix, bitset_step, counter_step)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.launches = 0
+    fe, secs, lat, results = serve_clients(
+        dcfg, keys, np.zeros(LM_SERVE_N, np.int32), score, LM_CLIENTS)
+    launches = {c.__name__: c.launches for c in counters}
+    peak = torch.cuda.max_memory_allocated()
+    ex = fe.executor
+    st = fe.stats()
+    # the replays: on the card through the same kernel, and on the CPU,
+    # where the engine runs hashmix's plain version
+    replayed = replay_schedule(dcfg, ex.schedule)
+    replayed_cpu = replay_schedule(dcfg, ex.schedule, device="cpu")
+    # hashmix at the shapes this path gave it (dcfg's k and s, each
+    # recorded micro-batch width) against its plain version; these launches
+    # come after the path's counts were read
+    seeds = u32.from_numpy_u32(hashing.derive_seeds(dcfg.seed, dcfg.k, 0),
+                               "cpu")
+    hash_err, hash_eq = 0, dcfg.block_bits == 0
+    for w in sorted({w for w, _ in ex.schedule}):
+        first = next(k for ww, k in ex.schedule if ww == w)
+        hk = u32.from_numpy_u32(np.pad(first, (0, w - first.size)), "cuda")
+        got_h = hashmix(hk, seeds, s=dcfg.s)
+        want_h = hashmix_plain(hk, seeds.cuda(), dcfg.s)
+        hash_err = max(hash_err, abs_err(got_h, want_h))
+        hash_eq = hash_eq and torch.equal(got_h, want_h)
+        log(f"[lm] hashmix at this path's shape (B={w}, k={dcfg.k}, "
+            f"s={dcfg.s}): exactly equal to the plain version "
+            f"{torch.equal(got_h, want_h)}")
+    ok = all(r is not None and r.verdict == "ok" for r in results)
+    # the cache: every answer is bit for bit a value the scorer gave its
+    # key, so a key the scorer answered one way is answered identically
+    # every time; two micro-batches in flight together may both miss the
+    # cache on one key and score it twice (counted, as the reference's
+    # front end does the same)
+    scored = {}
+    for k, r in zip(keys.tolist(), results):
+        if not r.cached:
+            scored.setdefault(k, set()).add(float(r.value))
+    cache_ok = all(float(r.value) in scored.get(k, ()) for k, r in
+                   zip(keys.tolist(), results))
+    twice = sum(len(v) > 1 for v in scored.values())
+    distinct = np.fromiter(scored, np.uint32, len(scored))
+    again = np.concatenate([scorer({"key": distinct[i:i + LM_RESCORE]})
+                            for i in range(0, distinct.size, LM_RESCORE)])
+    rescore = max(abs(float(v) - float(a))
+                  for k, a in zip(distinct.tolist(), again)
+                  for v in scored[k])
+    p50, p99 = np.percentile(lat, [50, 99]) * 1e3
+    hist = {w: widths.count(w) for w in sorted(set(widths))}
+    log(f"[lm] serve-lm-{LM_ARCH}-dense8-rlbsbf-1M: ServeFrontend(buckets "
+        f"(64, 256, 1024), 4 in flight, 2 ms flush) over "
+        f"{dcfg.effective_layout} rlbsbf (k={dcfg.k}, s={dcfg.s}), "
+        f"{LM_CLIENTS} closed-loop clients, {LM_SERVE_N} requests of the "
+        f"serving benchmark's mix: {st['completed'] / secs:.1f} requests/s "
+        f"(host clock); p50 {p50:.4f} ms, p99 {p99:.4f} ms per request; "
+        f"{st['batches']} micro-batches, mean fill {st['mean_fill']:.2f}; "
+        f"cache hit rate {st['cache_hit_rate']:.6g}, dup rate "
+        f"{st['dup_rate']:.6g}, {st['scored']} scored; scorer calls by "
+        f"padded width {hist}; peak device memory {peak / 2**30:.3f} GiB "
+        f"({card})")
+    log(f"[lm] served: all answered {ok}; live digest {ex.digest()[:16]} "
+        f"== replay_schedule on the card {replayed[:16]}: "
+        f"{replayed == ex.digest()}, == on the CPU (hashmix's plain "
+        f"version) {replayed_cpu[:16]}: {replayed_cpu == ex.digest()}; "
+        f"every answer bit for bit a value its key was scored to: "
+        f"{cache_ok} ({len(scored)} keys, {twice} of them scored to two "
+        f"values by micro-batches in flight together); rescored in batches "
+        f"of {LM_RESCORE}: max |diff| {rescore:.6g} (must be 0: the same "
+        f"scorer, the same bits); "
+        f"launches {launches} for {ex.n_batches} micro-batches")
+    want_l = {c.__name__: ex.n_batches if c is hashmix else 0
+              for c in counters}
+    if not (ok and cache_ok and hash_eq
+            and replayed == replayed_cpu == ex.digest()
+            and st["completed"] == LM_SERVE_N and launches == want_l
+            and rescore == 0.0):
+        raise AssertionError("lm: the LM-scored front end is out of bounds")
+    del fe, ex, results
+    lap("serving")
+    prefill = make_prefill_step(cfg)
+    for w in LM_WIDTHS:
+        tw = torch.from_numpy(lm_scorer_tokens(
+            rng.integers(0, 1 << 32, w, dtype=np.uint64), w,
+            cfg.vocab)).cuda()
+        prefill(params, tw)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        wall = wall_ms(lambda i: prefill(params, tw), 2)
+        extra = (torch.cuda.max_memory_allocated() - base) / 2**30
+        busy = ""
+        if w in hist:     # profiling ~3000 eager ops costs seconds: the
+            dev = device_ms(lambda i: prefill(params, tw), 1)  # served only
+            busy = (", device time not measured (none in the trace)"
+                    if dev is None else f", device {dev:.4f} ms, idle "
+                    f"share {max(0.0, 1 - dev / wall):.4f}")
+        flops = 2.0 * w * 16 * (n_params - cfg.vocab * cfg.d_model)
+        log(f"[lm] scorer prefill at width {w} ({w * 16} tokens, logits "
+            f"{w * 16 * cfg.vocab * 2 / 2**30:.3f} GiB): {wall:.4f} ms per "
+            f"call by CUDA events{busy}; matmul bound "
+            f"{flops / 989e12 * 1e3:.4f} ms (bf16 989 TFLOP/s); peak memory "
+            f"above the weights {extra:.3f} GiB ({card})")
+        del tw
+        torch.cuda.empty_cache()
+    lap("scorer widths")
+
+    # 5. greedy decode timed against the weight-read bound
+    bound = w_bytes / HBM_BYTES_PER_S * 1e3
+    for b in LM_DECODE_B:
+        cache = tfm.init_cache(cfg, b, LM_DECODE_SEQ)
+        c_bytes = sum(c.numel() * c.element_size() for c in cache.values())
+        tok = torch.from_numpy(rng.integers(0, cfg.vocab, b).astype(
+            np.int32)).cuda()
+        step(params, cache, tok, torch.zeros(b, dtype=torch.int32,
+                                             device="cuda"))
+        cache["kpos"].fill_(-1)                 # the warm step, forgotten
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(LM_DECODE_TOKENS):
+            lg, cache = step(params, cache, tok,
+                             torch.full((b,), t, dtype=torch.int32,
+                                        device="cuda"))
+            tok = lg.argmax(-1).to(torch.int32)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / LM_DECODE_TOKENS * 1e3
+        dev, top = lm_decode_profile(step, params, cache, tok, b, n=1)
+        busy = ("not measured" if dev is None else
+                f"{dev:.4f} ms (idle share {max(0.0, 1 - dev / ms):.4f}); "
+                f"its kernels by device time {top}")
+        log(f"[lm] decode-{LM_ARCH}-b{b}: greedy over a {LM_DECODE_SEQ}-slot "
+            f"cache ({c_bytes / 1e9:.4f} GB), {LM_DECODE_TOKENS} tokens: "
+            f"{ms:.4f} ms per step, {b * 1e3 / ms:.1f} tokens/s; device busy "
+            f"per step {busy}; weight-read bound {bound:.4f} ms "
+            f"({w_bytes / 1e9:.4f} GB at 3.35 TB/s), with the cache read "
+            f"{(w_bytes + c_bytes) / HBM_BYTES_PER_S * 1e3:.4f} ms; "
+            f"{bound / ms:.4f} of the weight-read bound ({card})")
+        if not bool(torch.isfinite(lg).all()):
+            raise AssertionError(f"lm: decode at B {b} is not finite")
+        del cache, lg
+        torch.cuda.empty_cache()
+    lap("decode timing")
+    del params
+    torch.cuda.empty_cache()
+    return launches, hash_err
 
 
 def shard_run(scfg, keys, counters):
@@ -2641,6 +3029,9 @@ def main() -> int:
     stamp("shard")
     phase_serve(serve_keys, card)
     stamp("serve")
+    lm_launches, lm_hash_err = phase_lm(card)
+    err["hashmix"] = max(err["hashmix"], lm_hash_err)
+    stamp("lm")
     times = phase_timings(cfg, state, sbf_cfg, sbf_state, card,
                           ((fb, fb_state), (fc, fc_state)), floor_lib,
                           parent)
@@ -2667,8 +3058,12 @@ def main() -> int:
     # that carries it: the standalone hashmix is the sbf path's (the rlbsbf
     # path's bitset step hashes its keys itself), fused_probe and the
     # standalone bloom_probe the ops path's
+    # hashmix: the sbf path's launches and the LM-scored front end's
+    hashmix_launches = {"hashmix": sbf_launches["hashmix"]
+                        + lm_launches["hashmix"]}
     rows = [
-        ("hashmix", "hashmix.cu", "hashmix.py:46", sbf_launches, "hashmix"),
+        ("hashmix", "hashmix.cu", "hashmix.py:46", hashmix_launches,
+         "hashmix"),
         ("bitset_step", "bitset_step.cu", "fused_template.py:349", launches,
          "bitset_step"),
         ("counter_step", "counter_step.cu", "fused_template.py:131",

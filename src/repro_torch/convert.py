@@ -23,11 +23,20 @@ A tenant fleet's state (DESIGN §4.6, ``core.fleet``) crosses the same way
 with ``fleet=True``: every leaf carries a leading axis of T =
 ``cfg.n_tenants`` — the reference ``FleetDedup``'s stacked leaves, its
 (T, 2) rng key data and its stacked ring included.
+
+An LM's weights cross as the reference's param tree of numpy leaves
+(``jax.tree.map(np.asarray, params)``: ``embed``, ``layers`` with every
+leaf stacked on a leading L axis, ``final_norm``, ``lm_head``) through
+``transformer_params_from_numpy`` / ``transformer_params_to_numpy``, and
+its decode cache (``k``, ``v``, ``kpos``, stacked on L) through
+``decode_cache_from_numpy`` / ``decode_cache_to_numpy``. numpy has no
+bf16 of its own, so a bf16 leaf comes back as float32 (exact widening).
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import TYPE_CHECKING
 
 import numpy as np
 import torch
@@ -36,6 +45,9 @@ from .core import u32
 from .core.config import DedupConfig
 from .core.device import resolve_device
 from .core.state import FilterState, WindowRing, bits_shape
+
+if TYPE_CHECKING:       # the LM converters import the model when called
+    from .models import transformer as tfm
 
 
 def config_from_dict(d: dict) -> DedupConfig:
@@ -114,3 +126,127 @@ def state_to_numpy(state: FilterState) -> dict:
         leaves["router_assign"] = ints(state.router.assign)
         leaves["router_n_rebalances"] = ints(state.router.n_rebalances)
     return leaves
+
+
+# ------------------------------------------------------------- LM weights //
+
+def _tree_paths(cfg) -> dict:
+    """{path in the reference's tree: (name in the port's module, meta
+    parameter)}; a ``layers`` path stands for its stacked (L, ...) leaf."""
+    from .models import transformer as tfm
+    out = {}
+    for name, p in tfm._build(cfg, None, torch.device("meta")
+                              ).named_parameters():
+        parts = name.split(".")
+        if parts[0] == "layers":
+            if parts[1] != "0":
+                continue
+            parts = ["layers"] + parts[2:]
+        out[tuple(parts)] = (name, p)
+    return out
+
+
+def _flatten(tree, prefix=()) -> dict:
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flatten(v, prefix + (k,)))
+        return out
+    return {prefix: tree}
+
+
+def _host_leaf(x) -> np.ndarray:
+    """numpy float32 (or int32) of a tensor; bf16 widened exactly."""
+    x = x.detach().cpu()
+    if x.is_floating_point():
+        x = x.float()
+    return x.numpy().copy()
+
+
+def transformer_params_from_numpy(cfg: tfm.TransformerConfig, tree: dict,
+                                  device=None) -> tfm.Params:
+    """The port's params (``models.transformer``) from the reference's
+    param tree of numpy leaves, each cast to the port's dtype for it
+    (``cfg.dtype``; fp32 norms). Every leaf must be there with the config's
+    shape; any other leaf is refused."""
+    from .models import transformer as tfm
+    device = resolve_device(device)
+    want = _tree_paths(cfg)
+    got = _flatten(tree)
+    if set(got) != set(want):
+        raise ValueError(
+            f"param tree leaves differ from the config's: missing "
+            f"{sorted('/'.join(p) for p in set(want) - set(got))}, unknown "
+            f"{sorted('/'.join(p) for p in set(got) - set(want))}")
+    L = cfg.n_layers
+    params = tfm._build(cfg, None, torch.device("meta"))
+    tensors = {}
+    for path, (name, meta) in want.items():
+        arr = np.asarray(got[path])
+        shape = ((L,) if path[0] == "layers" else ()) + tuple(meta.shape)
+        if arr.shape != shape:
+            raise ValueError(f"{'/'.join(path)}: shape {shape} expected, "
+                             f"got {arr.shape}")
+        if path[0] == "layers":
+            for i in range(L):
+                tensors[name.replace("layers.0.", f"layers.{i}.", 1)] = (
+                    arr[i], meta.dtype)
+        else:
+            tensors[name] = (arr, meta.dtype)
+    for name, (arr, dtype) in tensors.items():
+        *mods, leaf = name.split(".")
+        owner = params
+        for m in mods:
+            owner = owner[int(m)] if m.isdigit() else owner[m]
+        owner[leaf] = torch.from_numpy(np.array(arr, np.float32)).to(
+            device=device, dtype=dtype)
+    return params
+
+
+def transformer_params_to_numpy(cfg: tfm.TransformerConfig, params) -> dict:
+    """The reference's param tree (numpy leaves, ``layers`` stacked on L)
+    of the port's params; bf16 weights come back as float32."""
+    out: dict = {}
+    for path, (name, _) in _tree_paths(cfg).items():
+        if path[0] == "layers":
+            arr = np.stack([
+                _host_leaf(params.get_parameter(
+                    name.replace("layers.0.", f"layers.{i}.", 1)))
+                for i in range(cfg.n_layers)])
+        else:
+            arr = _host_leaf(params.get_parameter(name))
+        node = out
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = arr
+    return out
+
+
+def decode_cache_from_numpy(cfg: tfm.TransformerConfig, cache: dict,
+                            device=None) -> dict:
+    """The port's decode cache from the reference's (``k``, ``v``,
+    ``kpos`` stacked on L), checked against ``cache_spec``."""
+    from .models import transformer as tfm
+    device = resolve_device(device)
+    kpos = np.asarray(cache["kpos"])
+    if kpos.ndim != 3:
+        raise ValueError(f"kpos must be (L, B, S), got {kpos.shape}")
+    spec = tfm.cache_spec(cfg, kpos.shape[1], kpos.shape[2])
+    if set(cache) != set(spec):
+        raise ValueError(f"cache leaves {sorted(spec)} expected, got "
+                         f"{sorted(cache)}")
+    out = {}
+    for name, (shape, dtype) in spec.items():
+        arr = np.asarray(cache[name])
+        if arr.shape != shape:
+            raise ValueError(f"cache {name}: shape {shape} expected, got "
+                             f"{arr.shape}")
+        host = np.array(arr, np.int32 if dtype == torch.int32
+                        else np.float32)
+        out[name] = torch.from_numpy(host).to(device=device, dtype=dtype)
+    return out
+
+
+def decode_cache_to_numpy(cache: dict) -> dict:
+    """numpy leaves of a decode cache (bf16 as float32, kpos int32)."""
+    return {name: _host_leaf(t) for name, t in cache.items()}

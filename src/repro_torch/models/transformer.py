@@ -1,0 +1,312 @@
+"""The dense decoder-only transformer of the port — the counterpart of
+``repro.models.transformer`` for the dense archs (codeqwen1.5, qwen3,
+danube3): GQA attention, qk-norm, RoPE, full or sliding-window masks, the
+flash-chunked prefill, the KV cache and its SWA ring.
+
+Entry points, as in the reference:
+  init(cfg, seed, device)                     -> params (a ``Params`` module)
+  prefill(cfg, params, tokens)                -> logits (B, S, V)   [serve]
+  decode_step(cfg, params, cache, token, pos) -> (logits, cache)    [serve]
+
+The params are one ``nn.Module`` per block under the reference's leaf
+names (``embed``, ``layers.<i>.attn.wq``, ``layers.<i>.ffn.w_gate``,
+``final_norm``, ``lm_head``), each weight in the reference's einsum layout
+(``wq`` is (d, H, hd), ``wo`` (H, hd, d)), so ``repro_torch.convert``
+moves a JAX param tree across with no transposes. The reference's stacked
+``params["layers"]`` under ``lax.scan`` is a ``ModuleList`` walked by a
+Python loop. Serving runs under ``torch.inference_mode()``, so there is no
+remat (``cfg.remat`` is carried, not read). ``decode_step`` writes the
+cache in place (the reference's ``.at[b, slot].set`` on a donated buffer)
+and returns the same dict.
+
+A config with ``use_mla`` or ``n_experts > 0`` raises
+``NotImplementedError``: MoE and MLA are ROADMAP item 14c, and the port
+never runs a dense stack in their place. Training (``forward`` and the
+weighted cross entropy) is item 14b.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..core.device import resolve_device
+from .layers import (Params, apply_rope, attention_scores_mask, fan_in_init,
+                     flash_sdpa, normal_init, rmsnorm, sdpa, swiglu_apply,
+                     swiglu_init)
+
+
+def as_torch_dtype(dtype) -> torch.dtype:
+    """A torch dtype from a torch dtype or anything numpy names (the
+    reference's ``jnp.bfloat16``)."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    out = getattr(torch, np.dtype(dtype).name, None)
+    if not isinstance(out, torch.dtype):
+        raise ValueError(f"no torch dtype for {dtype!r}")
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerConfig:
+    """Field for field the reference's config (``dtype`` a torch dtype; any
+    dtype numpy names is taken), so ``TransformerConfig(**asdict(ref))``
+    crosses whole."""
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: int = 0                      # 0 -> d_model // n_heads
+    attention: str = "full"                # full | swa
+    window: int = 4096
+    qk_norm: bool = False
+    rope_theta: float = 10_000.0
+    # --- MLA (deepseek-v2; ROADMAP 14c) ---
+    use_mla: bool = False
+    q_lora_rank: int = 0
+    kv_lora_rank: int = 512
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_head_dim: int = 128
+    mla_absorb: bool = False
+    # --- MoE (ROADMAP 14c) ---
+    n_experts: int = 0                     # 0 -> dense FFN
+    moe_top_k: int = 2
+    n_shared_experts: int = 0
+    d_ff_expert: int = 0
+    moe_dispatch: str = "einsum"
+    moe_group_size: int = 8192
+    capacity_factor: float = 1.25
+    first_dense_layers: int = 0
+    # --- numerics / execution ---
+    dtype: Any = torch.bfloat16
+    remat: str = "none"                    # training only (ROADMAP 14b)
+    attn_q_block: int = 1024               # flash-chunked attention tiles
+    attn_k_block: int = 1024
+    gqa_expand_kv: bool = False            # expand K/V to H heads pre-attn
+
+    def __post_init__(self):
+        object.__setattr__(self, "dtype", as_torch_dtype(self.dtype))
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def is_moe(self) -> bool:
+        return self.n_experts > 0
+
+    @property
+    def sliding_window(self) -> Optional[int]:
+        return self.window if self.attention == "swa" else None
+
+    def param_count(self) -> int:
+        """Total parameter count, from the param tree built on the ``meta``
+        device (no allocation)."""
+        params = _build(self, None, torch.device("meta"))
+        return sum(p.numel() for p in params.parameters())
+
+
+def _check_dense(cfg: TransformerConfig) -> None:
+    if cfg.use_mla or cfg.is_moe:
+        raise NotImplementedError(
+            f"{cfg.name}: MLA attention and MoE layers are not ported yet "
+            f"(ROADMAP item 14c, 'MoE and MLA'); the port runs no dense "
+            f"stack in their place")
+
+
+# ------------------------------------------------------------- attention -- //
+
+def _attn_init(cfg: TransformerConfig, gen, device) -> Params:
+    d, H, Kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    p = Params(norm=torch.ones((d,), dtype=torch.float32, device=device),
+               wq=fan_in_init(gen, (d, H, hd), cfg.dtype, device),
+               wk=fan_in_init(gen, (d, Kv, hd), cfg.dtype, device),
+               wv=fan_in_init(gen, (d, Kv, hd), cfg.dtype, device),
+               wo=fan_in_init(gen, (H, hd, d), cfg.dtype, device))
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones((hd,), dtype=torch.float32, device=device)
+        p["k_norm"] = torch.ones((hd,), dtype=torch.float32, device=device)
+    return p
+
+
+def _gqa_qkv(p, cfg: TransformerConfig, x, positions):
+    """-> q (B,S,Kv,G,hd), k (B,S,Kv,hd), v (B,S,Kv,hd)."""
+    H, Kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q = torch.einsum("bsd,dhe->bshe", x, p["wq"])         # (B,S,H,hd)
+    k = torch.einsum("bsd,dke->bske", x, p["wk"])
+    v = torch.einsum("bsd,dke->bske", x, p["wv"])
+    if cfg.qk_norm:
+        q = rmsnorm(q, p["q_norm"])
+        k = rmsnorm(k, p["k_norm"])
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    B, S = x.shape[:2]
+    return q.reshape(B, S, Kv, H // Kv, hd), k, v
+
+
+def _expand_kv(cfg: TransformerConfig, q, k, v):
+    """GQA -> MHA view: each KV head replicated across its query group
+    (``cfg.gqa_expand_kv``) — a pure layout change."""
+    B, S, Kv, G, hd = q.shape
+    H = Kv * G
+    idx = torch.arange(H, device=q.device) // G
+    return q.reshape(B, S, H, 1, hd), k[:, :, idx, :], v[:, :, idx, :]
+
+
+def _attn_apply(p, cfg: TransformerConfig, x, positions):
+    """Self-attention over the in-context sequence (prefill) through the
+    flash-chunked path."""
+    B, S = x.shape[:2]
+    q, k, v = _gqa_qkv(p, cfg, x, positions)
+    if cfg.gqa_expand_kv:
+        q, k, v = _expand_kv(cfg, q, k, v)
+    out = flash_sdpa(q, k, v, positions, positions, cfg.sliding_window,
+                     None, cfg.attn_q_block, cfg.attn_k_block)
+    out = out.reshape(B, S, cfg.n_heads, cfg.hd)
+    return torch.einsum("bshe,hed->bsd", out, p["wo"])
+
+
+# ------------------------------------------------------------- layer ----- //
+
+def _layer_init(cfg: TransformerConfig, gen, device) -> Params:
+    return Params(
+        attn=_attn_init(cfg, gen, device),
+        ffn_norm=torch.ones((cfg.d_model,), dtype=torch.float32,
+                            device=device),
+        ffn=swiglu_init(gen, cfg.d_model, cfg.d_ff, cfg.dtype, device))
+
+
+def _layer_apply(p, cfg: TransformerConfig, x, positions):
+    h = rmsnorm(x, p["attn"]["norm"])
+    x = x + _attn_apply(p["attn"], cfg, h, positions)
+    h = rmsnorm(x, p["ffn_norm"])
+    return x + swiglu_apply(p["ffn"], h)
+
+
+# ------------------------------------------------------------- model ----- //
+
+def _build(cfg: TransformerConfig, gen, device) -> Params:
+    _check_dense(cfg)
+    return Params(
+        embed=normal_init(gen, (cfg.vocab, cfg.d_model), cfg.dtype,
+                          device=device),
+        layers=nn.ModuleList(_layer_init(cfg, gen, device)
+                             for _ in range(cfg.n_layers)),
+        final_norm=torch.ones((cfg.d_model,), dtype=torch.float32,
+                              device=device),
+        lm_head=fan_in_init(gen, (cfg.d_model, cfg.vocab), cfg.dtype,
+                            device))
+
+
+def init(cfg: TransformerConfig, seed: int = 0, device=None) -> Params:
+    """Seeded params on ``device`` (``cuda`` unless the caller passes
+    ``device="cpu"``), drawn in a fixed order from one ``torch.Generator``
+    on that device. The draws are the reference's distributions, not its
+    numbers: to hold the two against each other, convert one side's tree
+    (``repro_torch.convert.transformer_params_from_numpy``)."""
+    device = resolve_device(device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(seed))
+    return _build(cfg, gen, device)
+
+
+def _stack_apply(cfg: TransformerConfig, params, x, positions):
+    for lp in params["layers"]:
+        x = _layer_apply(lp, cfg, x, positions)
+    return x
+
+
+# ------------------------------------------------------------- serving --- //
+
+def cache_spec(cfg: TransformerConfig, batch: int, max_seq: int) -> dict:
+    """{leaf: (shape, dtype)} of the decode cache: per layer (stacked on a
+    leading L axis) the keys, values and their positions; an SWA config
+    keeps a ring of ``min(max_seq, window)`` slots."""
+    _check_dense(cfg)
+    L = cfg.n_layers
+    S = min(max_seq, cfg.window) if cfg.attention == "swa" else max_seq
+    return {
+        "k": ((L, batch, S, cfg.n_kv_heads, cfg.hd), cfg.dtype),
+        "v": ((L, batch, S, cfg.n_kv_heads, cfg.hd), cfg.dtype),
+        "kpos": ((L, batch, S), torch.int32),
+    }
+
+
+def init_cache(cfg: TransformerConfig, batch: int, max_seq: int,
+               device=None) -> dict:
+    """Zero keys and values, ``kpos`` = -1 (empty slot)."""
+    device = resolve_device(device)
+    return {name: torch.full(shape, -1 if dtype == torch.int32 else 0,
+                             dtype=dtype, device=device)
+            for name, (shape, dtype) in cache_spec(cfg, batch,
+                                                   max_seq).items()}
+
+
+def _cache_slot(cfg: TransformerConfig, pos):
+    """Ring-buffer slot for SWA; identity otherwise."""
+    if cfg.attention == "swa":
+        return pos % cfg.window
+    return pos
+
+
+def _layer_decode(cfg: TransformerConfig, p, cache_l: dict, x, pos):
+    """One layer of single-token decode; ``cache_l``'s (B, S, ...) leaves
+    are views of the stacked cache, written in place."""
+    B = x.shape[0]
+    positions = pos[:, None]
+    h = rmsnorm(x, p["attn"]["norm"])
+    slot = _cache_slot(cfg, pos).long()                   # (B,)
+    barange = torch.arange(B, device=x.device)
+    kpos_l, k_l, v_l = cache_l["kpos"], cache_l["k"], cache_l["v"]
+    kpos_l[barange, slot] = pos
+    mask = attention_scores_mask(
+        positions, kpos_l, cfg.sliding_window) & (kpos_l >= 0)[:, None, :]
+    q, k, v = _gqa_qkv(p["attn"], cfg, h, positions)
+    k_l[barange, slot] = k[:, 0]
+    v_l[barange, slot] = v[:, 0]
+    if cfg.gqa_expand_kv:
+        q, k_att, v_att = _expand_kv(cfg, q, k_l, v_l)
+        out = sdpa(q, k_att, v_att, mask)
+    else:
+        out = sdpa(q, k_l, v_l, mask)
+    out = out.reshape(B, 1, cfg.n_heads, cfg.hd)
+    x = x + torch.einsum("bshe,hed->bsd", out, p["attn"]["wo"])
+    h2 = rmsnorm(x, p["ffn_norm"])
+    return x + swiglu_apply(p["ffn"], h2)
+
+
+@torch.inference_mode()
+def decode_step(cfg: TransformerConfig, params, cache: dict, token, pos):
+    """One-token decode. token (B,) int32, pos (B,) int32 (the current
+    position), on the params' device. -> (logits (B, V), cache): the cache
+    is written in place and returned."""
+    _check_dense(cfg)
+    x = params["embed"][token][:, None, :]                # (B,1,d)
+    for i, lp in enumerate(params["layers"]):
+        x = _layer_decode(cfg, lp, {n: c[i] for n, c in cache.items()},
+                          x, pos)
+    x = rmsnorm(x, params["final_norm"])
+    return torch.einsum("bsd,dv->bsv", x, params["lm_head"])[:, 0], cache
+
+
+@torch.inference_mode()
+def prefill(cfg: TransformerConfig, params, tokens):
+    """Full forward returning logits; the cache for follow-on decode is
+    written by ``decode_step``, as in the reference.
+    tokens (B, S) -> logits (B, S, V)."""
+    _check_dense(cfg)
+    B, S = tokens.shape
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=tokens.device).expand(B, S)
+    x = params["embed"][tokens]
+    x = _stack_apply(cfg, params, x, positions)
+    x = rmsnorm(x, params["final_norm"])
+    return torch.einsum("bsd,dv->bsv", x, params["lm_head"])

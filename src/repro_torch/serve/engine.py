@@ -1,11 +1,11 @@
-"""Serving with request-level dedup — the port of ``repro.serve.engine``,
-its dedup half (the paper's search-engine / URL-probe application,
-Section 1).
+"""Serving with request-level dedup — the port of ``repro.serve.engine``
+(the paper's search-engine / URL-probe application, Section 1): the LM
+prefill and decode steps over ``repro_torch.models.transformer``, and the
+session.
 
 ``ServeSession`` batches requests, runs the dedup engine on request keys
 first, and only executes the scoring function for requests the response
-cache cannot answer. The reference's LM steps (``make_prefill_step``,
-``make_decode_step``) wait for the port of the models (ROADMAP [14]).
+cache cannot answer.
 
 Contract (DESIGN.md §5): the session delegates to the shared
 ``MicroBatchExecutor`` (``repro_torch.serve.frontend``) — request keys are
@@ -26,7 +26,20 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 
 from ..core.config import DedupConfig
+from ..models import transformer as tfm
 from .frontend import DEFAULT_BUCKETS, MicroBatchExecutor
+
+
+def make_prefill_step(cfg: tfm.TransformerConfig):
+    def prefill_step(params, tokens):
+        return tfm.prefill(cfg, params, tokens)
+    return prefill_step
+
+
+def make_decode_step(cfg: tfm.TransformerConfig):
+    def serve_step(params, cache, token, pos):
+        return tfm.decode_step(cfg, params, cache, token, pos)
+    return serve_step
 
 
 @dataclasses.dataclass

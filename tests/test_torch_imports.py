@@ -13,7 +13,9 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_kernels_gpu.py",
     ROOT / "tests" / "test_torch_sharded_gpu.py",
-    ROOT / "tests" / "test_torch_analysis_gpu.py"]
+    ROOT / "tests" / "test_torch_analysis_gpu.py",
+    ROOT / "tests" / "test_torch_models_gpu.py",
+    ROOT / "tests" / "torch_lm_scorer.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -39,7 +41,9 @@ def test_port_files_found():
             "test_torch_sharded_gpu.py", "source_lint.py", "trace_lint.py",
             "entrypoints.py", "runner.py", "common.py", "scope.py",
             "fused_step.py", "fused_counter_step.py", "ref.py",
-            "test_torch_analysis_gpu.py"} <= names
+            "test_torch_analysis_gpu.py", "layers.py", "transformer.py",
+            "registry.py", "lm_archs.py", "test_torch_models_gpu.py",
+            "torch_lm_scorer.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
