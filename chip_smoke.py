@@ -44,8 +44,9 @@ and no step kernel, their FPR / FNR from ``StreamMetrics.summary()``,
 their dup reports equal bit for bit to the plane paths' on that prefix,
 and each final state migrated to the plane layout on the card
 (``migrate_filter_state``) equal leaf for leaf to the plane path's
-checkpoint at the same record; and the sbf oracle, ``run_stream_oracle`` at the 256 MB table over 4096
-keys, equal to the batch-size-1 engine.
+checkpoint at the same record; and the sbf oracle, ``run_stream_oracle``
+at the 256 MB table over 1024 keys (cut from 4096 to make room for the
+"train" phase), equal to the batch-size-1 engine.
 
 Then the tenant fleets (DESIGN §4.6): 32 tenants of 8 MB each (the paper's
 smallest table per tenant, 256 MiB stacked). Its "fleet" phase holds both
@@ -123,6 +124,33 @@ peak memory, and greedy decode at B = 8 and 64 over a 1024-slot cache
 (ms per step, tokens/s, device busy and its costliest kernels) beside the
 weight-read bound.
 
+Then the "train" phase: dedup-gated LM training
+(``repro_torch.launch.train``). ``build("100m", steps=14, dup_frac=0.3,
+fault_at=11)`` — the reference's deployment training config at its full
+width and depth (10 layers, d 640, vocab 32000, seq 1024, batch 32, fp32,
+106.5M parameters) on the card, each batch of the reference's
+``lm_batches`` through ``DedupPipeline(rlbsbf, 2^20 bits, mode="drop")``
+(dense8: one hashmix launch per call) before AdamW — runs with its
+injected fault: 14 steps, the latest checkpoint at 14, finite losses, one
+restore (to step 10), the dedup weights equal bit for bit to a CPU replay
+of the same calls (hashmix's plain version), FPR / FNR against the
+corpus's own replay truth, one hashmix launch per dedup call. It prints
+the corpus init and per-batch draw seconds, step ms, checkpoint save and
+restore seconds, and a profiled step's device busy time, idle share and
+aten ops. Then hashmix at the trainer's shape (B = 32, k = 2, s = 2^19)
+against its plain version; a 2-layer copy of the config stepped 3 times
+in lockstep from the CPU's fp32 state, in fp32 (TF32 off) and in float64
+on the card and on the CPU (``train_card_vs_cpu``: the fp32 losses within
+1e-4, the float64 card's gradients within 1e-8 of the float64 CPU
+referee's, the fp32 card's within 4x the run's fp32 noise of it, its
+updates within 1e-4 of the lr of float64 AdamW on its own gradients); and
+qwen3-8b's
+``train_4k`` step at its published width (bf16, remat "full", 4
+microbatches of 1 x 4096), its depth cut to 8 of 36 layers so at least 10
+GB of the card stay free, 2 steps with weights from the same dedup stage
+over ``seq_keys`` (a replayed document dropped): finite loss and grad
+norm, step ms, peak memory, device busy time and idle share.
+
 Then it times each kernel beside its bound and the card's latency floor
 (an empty launch, and 1 - 3 dependent scattered loads per thread; each
 kernel's time, scatter_delta's zero fill included, averaged over the
@@ -187,11 +215,13 @@ RESUME_N = 1 << 21               # records a restored checkpoint continues over
 SERVE_N = 1 << 16                # the serve phase's prefix of the stream
 SERVE_CLIENTS = 256              # its closed-loop clients
 SERVE_PROFILE_WIDTH = 256        # the micro-batch bucket it profiles
-ORACLE_N = 4096                  # keys of the sbf oracle on the card
+ORACLE_N = 1024                  # keys of the sbf oracle on the card (cut
+                                 # from 4096 to make room for the train phase)
 FLEET_CAPACITY = 512             # FleetDedup's default: ceil(2·8192 / 32)
 DISTINCT_FRAC = 0.60             # the paper's 60% distinct (Section 6)
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_OPS_PER_S = 67e12           # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12          # H100 SXM bf16 dense tensor cores
 PINNED_DIGESTS = {               # tests/test_sketch_template.py (reference)
     "bsbf": "4e3f72a324d1eb32",
     "bsbfsd": "9936da3ee28dfb25",
@@ -248,6 +278,21 @@ LM_WIDTHS = (32, 64, 128, 256, 512, 1024)   # the scorer's padded widths
 LM_DECODE_B = (8, 64)            # decode batches timed
 LM_DECODE_SEQ = 1024             # their cache length
 LM_DECODE_TOKENS = 128           # greedy tokens per batch
+# the "train" phase: dedup-gated LM training (repro_torch.launch.train)
+TRAIN_PRESET = "100m"            # the reference's deployment training config
+TRAIN_STEPS = 14                 # the reference test's schedule ...
+TRAIN_FAULT_AT = 11              # ... and its injected fault
+TRAIN_DUP_FRAC = 0.3
+TRAIN_CPU = (4, 128)             # B, S of the fp32 2-layer card-vs-CPU steps
+TRAIN_CPU_STEPS = 3
+TRAIN_TOL = 1e-4                 # fp32 card vs CPU: loss, update (x lr)
+TRAIN_REFEREE_FACTOR = 4         # card vs a float64 referee, x fp32 noise
+TRAIN_FP64_TOL = 1e-8            # the float64 card vs the float64 referee
+TRAIN_NOISE = 1e4                # an update is held where |g| > this x noise
+QWEN_TRAIN_LAYERS = 8            # qwen3-8b train_4k: the depth cut (of 36)
+QWEN_TRAIN = (4, 4096)           # its batch (4 microbatches of 1) and seq
+QWEN_TRAIN_STEPS = 2
+FREE_BYTES = 10 * 10**9          # the card left free by the cut depth
 BITSET = ("rsbf", "bsbf", "bsbfsd", "rlbsbf")
 COUNTER = ("sbf", "sbf_d1", "swbf", "cms", "hh")
 # each step kernel's device kernels, as the profiler names them
@@ -1574,6 +1619,519 @@ def phase_lm(card):
     lap("decode timing")
     del params
     torch.cuda.empty_cache()
+    return launches, hash_err
+
+
+class TrainProbe:
+    """What the "train" phase reads off a ``Trainer`` as it runs: each
+    data draw's seconds and record keys, each dedup call's keys and weights
+    (left on the card until the run ends), each checkpoint save and
+    restore with its seconds, in the order they happened."""
+
+    def __init__(self, trainer):
+        self.draws, self.events, self.saves = [], [], []
+        data, process = trainer.data, trainer.dedup.process
+        save, restore = trainer.ckpt.save, trainer.try_restore
+
+        def timed_data():
+            while True:
+                t0 = time.perf_counter()
+                batch = next(data)
+                self.draws.append(time.perf_counter() - t0)
+                yield batch
+
+        def recorded(batch, *a):
+            out = process(batch, *a)
+            self.events.append(("process", batch["key"].copy(),
+                                out.weights))
+            return out
+
+        def timed_save(*a, **kw):
+            t0 = time.perf_counter()
+            out = save(*a, **kw)
+            self.saves.append(time.perf_counter() - t0)
+            return out
+
+        def timed_restore():
+            t0 = time.perf_counter()
+            ok = restore()
+            self.events.append(("restore", trainer.step, ok,
+                                time.perf_counter() - t0))
+            return ok
+
+        trainer.data = timed_data()
+        trainer.dedup.process = recorded
+        trainer.ckpt.save = timed_save
+        trainer.try_restore = timed_restore
+
+    def lineage(self):
+        """[(keys, weights on the host, truth)] of every dedup call, the
+        truth per record: its key seen earlier in the filter's own lineage
+        (a restore to step s forgets what the calls after the s-th saw) or
+        earlier in its batch."""
+        out, seen = [], []                 # seen: one key set per step
+        for ev in self.events:
+            if ev[0] == "restore":
+                del seen[ev[1]:]
+                continue
+            _, keys, w = ev
+            before = set().union(*seen) if seen else set()
+            truth, mine = np.zeros(keys.size, bool), set()
+            for i, k in enumerate(keys.tolist()):
+                truth[i] = k in before or k in mine
+                mine.add(k)
+            seen.append(mine)
+            out.append((keys, w.cpu().numpy(), truth))
+        return out
+
+
+def replay_dedup_on_cpu(cfg, events):
+    """The dedup calls of a run replayed through a CPU ``DedupPipeline``
+    (where the engine runs hashmix's plain version), restoring the state
+    the filter had after the s-th call of its lineage where the run
+    restored step s. -> the weights of each call."""
+    from repro_torch.dedup import DedupPipeline
+    pipe = DedupPipeline(cfg, mode="drop", device="cpu")
+    snaps, out = [], []
+    for ev in events:
+        if ev[0] == "restore":
+            del snaps[ev[1]:]
+            pipe.load_state_dict(snaps[-1])
+            continue
+        out.append(pipe.process({"key": ev[1]}).weights)
+        snaps.append(pipe.state_dict())
+    return [w.numpy() for w in out]
+
+
+def profile_train_step(step_fn, host_ops: bool = True):
+    """(device busy ms, aten ops or None, kernels, the costliest kernels)
+    of one call of ``step_fn`` (a whole train step ending in a host read),
+    from torch.profiler; busy None when the trace holds no device time.
+    ``host_ops=False`` traces the card alone (a step of ~300000 eager ops
+    costs tens of seconds to record on the host)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host_ops
+                                      else [])
+    with profile(activities=acts) as prof:
+        step_fn()
+        torch.cuda.synchronize()
+    rows = prof.key_averages()
+    dev = [r for r in rows if str(getattr(r, "device_type", "")).endswith(
+        "CUDA") and getattr(r, "self_device_time_total", 0) > 0]
+    n_ops = (sum(r.count for r in rows if r.key.startswith("aten::"))
+             if host_ops else None)
+    busy = sum(r.self_device_time_total for r in dev) / 1e3 if dev else None
+    top = [(r.key[:50], round(r.self_device_time_total / 1e3, 4), r.count)
+           for r in sorted(dev, key=lambda r: -r.self_device_time_total)[:4]]
+    return busy, n_ops, sum(r.count for r in dev), top
+
+
+def train_bound_ms(cfg, batch: int, seq: int, peak: float) -> float:
+    """The least time of one train step at ``peak`` operations/s: its
+    matmuls, 6 x (parameters outside the embedding) x tokens, and
+    attention's two products, forward and backward, over the full (S, S)
+    blocks the blocked attention computes (12 x B x layers x heads x S^2 x
+    head_dim); no recompute counted."""
+    n = cfg.param_count() - cfg.vocab * cfg.d_model
+    attn = 12 * batch * cfg.n_layers * cfg.n_heads * seq * seq * cfg.hd
+    return (6 * n * batch * seq + attn) / peak * 1e3
+
+
+def _train_leaves(params, state) -> dict:
+    """{the reference's leaf path: (param, m, v)} of a train state, each
+    stacked as the reference stacks it, float64 on the host."""
+    import torch
+    from repro_torch.models.layers import module_leaves
+    out = {}
+    for lf in module_leaves(params):
+        moments = []
+        for tree in (state.m, state.v):
+            for k in lf.path:
+                tree = tree[k]
+            moments.append(tree.detach().double().cpu())
+        p = torch.stack(lf.tensors) if lf.stacked else lf.tensors[0]
+        out["/".join(lf.path)] = (p.detach().double().cpu(), *moments)
+    return out
+
+
+def _tree_to(tree, device, dtype):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device, dtype) for k, v in tree.items()}
+    return tree.to(device, dtype, copy=True)
+
+
+def train_card_vs_cpu(cfg, batches, accum: int = 1) -> dict:
+    """``make_train_step`` with the training driver's AdamW from one
+    seeded init over ``batches`` [(tokens (B, S+1), weights (B,))], in
+    lockstep: every step starts each run from the state the CPU's fp32 run
+    has reached, and takes one step on the card and on the CPU in fp32
+    (TF32 off) and in float64 on both (the same code on a float64 copy of
+    ``cfg``: its norms, softmax, cross entropy, accumulation buffer and
+    optimizer then run in float64; the CPU's is the referee). Each run's
+    gradients are the ones its step built, after accumulation and
+    clipping, read back from its first moment: g = (m_t - b1 m_{t-1}) /
+    (1 - b1), m_{t-1} being the common start.
+    -> {"loss": max |card - CPU| / |CPU| of the fp32 losses;
+    "fp64": max over the steps and leaves of the float64 card's gradient
+    distance to the referee (|diff| / |referee| in the 2-norm);
+    "grad_norm", "grad/<leaf>": (card's, CPU's) fp32 distance to the
+    referee, the worst step's; "update": the largest |card's param update
+    - referee's| in units of TRAIN_TOL x lr + 2^-22 |param| (fp32's
+    rounding of the param) where |g_referee| exceeds TRAIN_NOISE times the
+    leaf's largest CPU gradient error, with "masked" the share of elements
+    held so; "adam": the same unit for the card's update against the
+    float64 AdamW of the card's own gradients, every element}."""
+    import torch
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import OptimizerConfig, OptState, init_opt_state
+    from repro_torch.train import make_train_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    opt = OptimizerConfig(kind="adamw", lr=1e-3, warmup_steps=20,
+                          total_steps=len(batches))
+    b1, b2 = opt.betas
+    runs = (("card", "cuda", torch.float32), ("card64", "cuda", torch.float64),
+            ("ref", "cpu", torch.float64), ("cpu", "cpu", torch.float32))
+    steps = {}
+    for name, _, dt in runs:
+        c = dataclasses.replace(cfg, dtype=dt)
+        steps[name] = make_train_step(
+            lambda prm, b, w, c=c: tfm.forward(c, prm, b, w)[0], opt, accum,
+            torch.float64 if dt == torch.float64 else None)
+    params = tfm.init(dataclasses.replace(cfg, dtype=torch.float32), SEED,
+                      "cpu")
+    state = init_opt_state(opt, params)
+    out = {"loss": 0.0, "fp64": 0.0, "update": 0.0, "adam": 0.0,
+           "masked": [0, 0]}
+
+    def dist(got, want):
+        return float((got - want).norm() / want.norm().clamp_min(1e-300))
+
+    def worst(key, pair):
+        old = out.get(key, (0.0, 0.0))
+        out[key] = pair if pair[0] > old[0] else old
+
+    for toks, w in batches:
+        start = _train_leaves(params, state)
+        got = {}
+        for name, dev, dt in runs:             # the CPU's fp32 run last
+            p, s = params, state
+            if name != "cpu":
+                p = copy.deepcopy(params).to(dev, dt)
+                s = OptState(state.step.clone(), _tree_to(state.m, dev, dt),
+                             _tree_to(state.v, dev, dt))
+            p, s, met = steps[name](p, s, torch.from_numpy(toks).to(dev),
+                                  torch.from_numpy(w).to(dev, dt))
+            got[name] = (float(met["loss"]), float(met["grad_norm"]),
+                         _train_leaves(p, s))
+            if name == "cpu":
+                params, state = p, s
+        lr = float(met["lr"])
+        t = int(state.step)
+        bc1 = float(1 - torch.pow(torch.tensor(b1, dtype=torch.float32), t))
+        bc2 = float(1 - torch.pow(torch.tensor(b2, dtype=torch.float32), t))
+        (l_card, gn_card, card), (_, _, card64) = got["card"], got["card64"]
+        (l_ref, gn_ref, ref), (l_cpu, gn_cpu, cpu) = got["ref"], got["cpu"]
+        out["loss"] = max(out["loss"], abs(l_card - l_cpu) / abs(l_cpu))
+        worst("grad_norm", (abs(gn_card - gn_ref) / gn_ref,
+                            abs(gn_cpu - gn_ref) / gn_ref))
+        for key, (p0, m0, v0) in start.items():
+            g = {n: (run[key][1] - b1 * m0) / (1 - b1)
+                 for n, run in (("card", card), ("card64", card64),
+                                ("ref", ref), ("cpu", cpu))}
+            out["fp64"] = max(out["fp64"], dist(g["card64"], g["ref"]))
+            worst("grad/" + key, (dist(g["card"], g["ref"]),
+                                  dist(g["cpu"], g["ref"])))
+            unit = TRAIN_TOL * lr + 2.0 ** -22 * p0.abs()
+            step_card = card[key][0] - p0
+            held = g["ref"].abs() > TRAIN_NOISE * (g["cpu"] - g["ref"]
+                                                   ).abs().max()
+            if held.any():
+                err = (step_card - (ref[key][0] - p0)).abs() / unit
+                out["update"] = max(out["update"], float(err[held].max()))
+            out["masked"][0] += int(held.sum())
+            out["masked"][1] += held.numel()
+            # the float64 AdamW of the card's own gradients
+            gc = g["card"]
+            m1 = b1 * m0 + (1 - b1) * gc
+            v1 = b2 * v0 + (1 - b2) * gc * gc
+            delta = (m1 / bc1) / (torch.sqrt(v1 / bc2) + opt.eps)
+            if p0.ndim >= 2:
+                delta = delta + opt.weight_decay * p0
+            out["adam"] = max(out["adam"], float(
+                ((step_card + lr * delta).abs() / unit).max()))
+    out["masked"] = out["masked"][0] / out["masked"][1]
+    return out
+
+
+def train_fp32_noise(res: dict) -> float:
+    """The fp32 noise of this run's gradients: the CPU's largest distance
+    to the referee over the leaves and the grad norm. One leaf's CPU
+    distance is one draw of the rounding, not a bound on it: where
+    attention saturates (the 100m config's init) the fp32 forward itself
+    is ~1e-4 off float64 on either device, and a leaf's or the norm's
+    error lands anywhere up to that noise (a grad norm's errors may cancel
+    on one device and not on the other)."""
+    return max(v[1] for key, v in res.items()
+               if key == "grad_norm" or key.startswith("grad/"))
+
+
+def train_parity_ok(res: dict) -> bool:
+    """The card's train steps agree with the CPU's: the fp32 losses within
+    TRAIN_TOL; in float64 the card's gradients meet the referee's within
+    TRAIN_FP64_TOL (the card computes the referee's function); in fp32 its
+    gradients (each leaf) and grad norms no further from the referee than
+    TRAIN_REFEREE_FACTOR times the run's fp32 noise (``train_fp32_noise``;
+    or TRAIN_TOL, whichever is larger); its param updates within TRAIN_TOL
+    of the lr (plus fp32's rounding of the param) of the referee's
+    wherever the referee's gradient stands above the fp32 noise, and of
+    the float64 AdamW of its own gradients everywhere."""
+    bound = max(TRAIN_TOL, TRAIN_REFEREE_FACTOR * train_fp32_noise(res))
+    return (res["loss"] <= TRAIN_TOL and res["fp64"] <= TRAIN_FP64_TOL
+            and res["update"] <= 1.0 and res["adam"] <= 1.0 and all(
+                v[0] <= bound for key, v in res.items()
+                if key == "grad_norm" or key.startswith("grad/")))
+
+
+def train_parity_text(res: dict) -> str:
+    pairs = [(k, v) for k, v in res.items() if k.startswith("grad/")]
+    worst = max(pairs, key=lambda kv: kv[1][0] / max(kv[1][1], TRAIN_TOL))
+    return (f"loss max |card - CPU| / |CPU| {res['loss']:.6g} (tolerance "
+            f"{TRAIN_TOL}); float64 card against the float64 CPU referee: "
+            f"gradients {res['fp64']:.6g} (tolerance {TRAIN_FP64_TOL}); fp32 "
+            f"against the referee, 2-norm (card, CPU): grad_norm "
+            f"({res['grad_norm'][0]:.6g}, {res['grad_norm'][1]:.6g}), "
+            f"gradients: the card's worst leaf against its CPU's {worst[0]} "
+            f"({worst[1][0]:.6g}, {worst[1][1]:.6g}), the largest card "
+            f"distance {max(v[0] for _, v in pairs):.6g}, CPU "
+            f"{max(v[1] for _, v in pairs):.6g} (bound: {TRAIN_REFEREE_FACTOR}"
+            f" x the fp32 noise {train_fp32_noise(res):.6g}, at least "
+            f"{TRAIN_TOL}); param updates (in units of "
+            f"{TRAIN_TOL} x lr + 2^-22 |param|, <= 1): against the "
+            f"referee's {res['update']:.6g} on the {res['masked']:.4f} of "
+            f"elements whose gradient stands above {TRAIN_NOISE} x the "
+            f"CPU's error, against AdamW of the card's own gradients "
+            f"{res['adam']:.6g}; within bounds: {train_parity_ok(res)}")
+
+def phase_train(card):
+    """Dedup-gated LM training on the card (``repro_torch.launch.train``):
+    the ``100m`` trainer at full width and depth with an injected fault,
+    its dedup weights against a CPU replay and against the corpus's replay
+    truth, hashmix at its shape against the plain version, an fp32 2-layer
+    copy of its config stepped on the card and on the CPU, and qwen3-8b's
+    train_4k step at full width and a cut depth. -> (the trainer's kernel
+    launches, hashmix's largest difference from its plain version)."""
+    import torch
+    from repro_torch.configs import LMArch, get_arch
+    from repro_torch.core import DedupConfig, hashing, u32
+    from repro_torch.data.lm import seq_keys
+    from repro_torch.dedup import DedupPipeline
+    from repro_torch.dedup.metrics import fpr_fnr
+    from repro_torch.kernels.fused_template import bitset_step, counter_step
+    from repro_torch.kernels.hashmix import hashmix, hashmix_plain
+    from repro_torch.launch.train import PRESETS, build, preset_config
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import init_opt_state
+    torch.backends.cuda.matmul.allow_tf32 = False   # fp32 is fp32
+    laps = [time.perf_counter()]
+
+    def lap(what):
+        laps.append(time.perf_counter())
+        log(f"[train] {what}: {laps[-1] - laps[-2]:.1f} s")
+
+    # 1. the 100m trainer, the reference test's schedule at full width
+    p = PRESETS[TRAIN_PRESET]
+    counters = (hashmix, bitset_step, counter_step)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as ckpt:
+        trainer = build(TRAIN_PRESET, TRAIN_STEPS, TRAIN_DUP_FRAC, ckpt,
+                        fault_at=TRAIN_FAULT_AT, seed=SEED)
+        probe = TrainProbe(trainer)
+        n_params = sum(x.numel() for x in trainer.params.parameters())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        summary = trainer.run()
+        t_run = time.perf_counter() - t0
+        launches = {c.__name__: c.launches for c in counters}
+        peak = torch.cuda.max_memory_allocated()
+        latest = trainer.ckpt.latest_step()
+        n_calls = sum(ev[0] == "process" for ev in probe.events)
+        # one more step, profiled (its launches come after the count)
+        batch = next(trainer.data)
+        busy, n_ops, n_k, top = profile_train_step(
+            lambda: float(trainer._one_step(batch)["loss"]))
+    dcfg = trainer.dedup.cfg
+    restores = [ev for ev in probe.events if ev[0] == "restore"]
+    calls = [ev for ev in probe.events if ev[0] == "process"]
+    losses = [h["loss"] for h in trainer.history]
+    steps_ms = sorted(h["dt"] * 1e3 for h in trainer.history)
+    step_ms = steps_ms[len(steps_ms) // 2]
+    draws = probe.draws
+    init_s = draws[0] - float(np.median(draws[1:]))
+    log(f"[train] train-{TRAIN_PRESET}-dedup-rlbsbf-1M: {n_params} "
+        f"parameters ({p['n_layers']} layers, d {p['d_model']}, "
+        f"{p['n_heads']} heads, d_ff {p['d_ff']}, vocab {p['vocab']}, seq "
+        f"{p['seq']}, batch {p['batch']}, fp32, TF32 off), AdamW; dedup "
+        f"{dcfg.variant} {dcfg.effective_layout} (k={dcfg.k}, s={dcfg.s}) "
+        f"mode drop: {summary['steps']} steps in {t_run:.1f} s with a fault "
+        f"at step index {TRAIN_FAULT_AT}; latest checkpoint {latest}; "
+        f"losses {losses[0]:.4f} -> {losses[-1]:.4f}; "
+        f"{summary['stragglers']} stragglers flagged; kernel launches "
+        f"{launches} for {n_calls} dedup calls; peak device memory "
+        f"{peak / 2**30:.3f} GiB ({card})")
+    tokens = p["batch"] * p["seq"]
+    log(f"[train] step ms (host clock ending in the loss read, so in "
+        f"torch.cuda.synchronize's place): median {step_ms:.4f}, min "
+        f"{steps_ms[0]:.4f}, max {steps_ms[-1]:.4f} over "
+        f"{len(steps_ms)} steps; {tokens * 1e3 / step_ms:.1f} tokens/s in "
+        f"the step, {tokens / (step_ms / 1e3 + float(np.median(draws[1:]))):.1f}"
+        f" with the data draw; matmul bound "
+        f"{train_bound_ms(preset_config(TRAIN_PRESET), p['batch'], p['seq'], PEAK_OPS_PER_S):.4f}"
+        f" ms (fp32 at 67 TFLOP/s, TF32 off) ({card})")
+    log(f"[train] data (host, numpy; the reference's BigramCorpus over vocab "
+        f"{p['vocab']}): corpus init {init_s:.2f} s (first draw "
+        f"{draws[0]:.2f} s minus the median draw); "
+        f"{float(np.median(draws[1:])):.4f} s per batch of {p['batch']} x "
+        f"{p['seq'] + 1} tokens (median of {len(draws) - 1})")
+    log(f"[train] checkpoints: saves {[round(s, 3) for s in probe.saves]} s; "
+        f"restores {[(ev[1], ev[2], round(ev[3], 3)) for ev in restores]} "
+        f"(step, restored, s)")
+    if busy is None:
+        log("[train] the profiler recorded no device time: device busy "
+            "share of a step not measured")
+    else:
+        log(f"[train] one step profiled: device busy {busy:.4f} ms in {n_k} "
+            f"kernels, idle share {max(0.0, 1 - busy / step_ms):.4f} of the "
+            f"median unprofiled step; {n_ops} aten ops on the host; "
+            f"costliest kernels (ms, launches) {top} ({card})")
+    # the dedup stage: a CPU replay, and the corpus's own replay truth
+    lineage = probe.lineage()
+    cpu_w = replay_dedup_on_cpu(dcfg, probe.events)
+    w_equal = len(cpu_w) == len(lineage) and all(
+        np.array_equal(a, w) for a, (_, w, _) in zip(cpu_w, lineage))
+    rep = np.concatenate([w == 0 for _, w, _ in lineage])
+    truth = np.concatenate([t for _, _, t in lineage])
+    fpr, fnr = fpr_fnr(rep, truth)
+    log(f"[train] dedup: {int(rep.sum())} of {rep.size} records dropped "
+        f"(weight 0) in {len(lineage)} calls, {int(truth.sum())} true "
+        f"replays in the filter's lineage; FPR {fpr:.6g}, FNR {fnr:.6g}; "
+        f"weights equal to the CPU replay (hashmix's plain version) bit for "
+        f"bit: {w_equal}")
+    ok = (summary["steps"] == TRAIN_STEPS and latest == TRAIN_STEPS
+          and all(np.isfinite(losses)) and len(restores) == 1
+          and restores[0][2] and restores[0][1] == 10 and w_equal
+          and rep.sum() > 0 and fpr <= 0.01 and fnr <= 0.05
+          and launches == {"hashmix": n_calls, "bitset_step": 0,
+                           "counter_step": 0})
+    if not ok:
+        raise AssertionError("train: the 100m trainer is out of bounds")
+    lap("the 100m trainer")
+
+    # 2. hashmix at the trainer's shape against its plain version
+    seeds = u32.from_numpy_u32(hashing.derive_seeds(dcfg.seed, dcfg.k, 0),
+                               "cpu")
+    hk = u32.from_numpy_u32(calls[0][1], "cuda")
+    got_h = hashmix(hk, seeds, s=dcfg.s)
+    want_h = hashmix_plain(hk, seeds.cuda(), dcfg.s)
+    hash_err = abs_err(got_h, want_h)
+    log(f"[train] hashmix at this path's shape (B={hk.shape[0]}, "
+        f"k={dcfg.k}, s={dcfg.s}): exactly equal to the plain version "
+        f"{torch.equal(got_h, want_h)}")
+    if not torch.equal(got_h, want_h) or hk.shape[0] != p["batch"]:
+        raise AssertionError("train: hashmix disagrees with its plain "
+                             "version")
+    del trainer, probe
+    torch.cuda.empty_cache()
+
+    # 3. the card against the CPU: a 2-layer copy of the config in lockstep
+    c2 = dataclasses.replace(preset_config(TRAIN_PRESET), n_layers=2)
+    rng = np.random.default_rng(SEED + 21)
+    b2, s2 = TRAIN_CPU
+    batches = [(rng.integers(0, c2.vocab, (b2, s2 + 1)).astype(np.int32),
+                np.array([1.0, 0.0] + [1.0] * (b2 - 2), np.float32))
+               for _ in range(TRAIN_CPU_STEPS)]
+    t0 = time.perf_counter()
+    res = train_card_vs_cpu(c2, batches)
+    log(f"[train] card == CPU ({c2.n_layers} layers of the "
+        f"{TRAIN_PRESET} config at full width, {c2.param_count()} "
+        f"parameters, {TRAIN_CPU_STEPS} AdamW steps of B {b2}, S {s2} in "
+        f"lockstep, one record weighted 0, fp32 with TF32 off and float64;"
+        f" {time.perf_counter() - t0:.1f} s): "
+        f"{train_parity_text(res)}")
+    if not train_parity_ok(res):
+        raise AssertionError("train: the card's train steps disagree "
+                             "with the CPU's")
+    torch.cuda.empty_cache()
+    lap("fp32 card against the CPU")
+
+    # 4. qwen3-8b's train_4k step at full width, the depth cut
+    arch = get_arch(LM_ARCH)
+    qcfg = dataclasses.replace(arch.cfg, n_layers=QWEN_TRAIN_LAYERS)
+    lm = LMArch(LM_ARCH, qcfg, accum=arch.accum)
+    bq, sq = QWEN_TRAIN
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    qparams = tfm.init(qcfg, SEED)
+    qstate = init_opt_state(lm.opt_config(), qparams)
+    qstep = lm.step("train_4k")
+    n_q = sum(x.numel() for x in qparams.parameters())
+    pipe = DedupPipeline(DedupConfig.for_variant(
+        "rlbsbf", memory_bits=1 << 20, batch_size=bq), mode="drop")
+    rng = np.random.default_rng(SEED + 22)
+    prev, q_ms, q_loss, q_gn, dropped = None, [], [], [], 0
+    for i in range(QWEN_TRAIN_STEPS + 1):
+        toks = rng.integers(0, qcfg.vocab, (bq, sq + 1)).astype(np.int32)
+        if prev is not None:
+            toks[2] = prev[0]                 # a replayed document
+        prev = toks
+        w = pipe.process({"key": seq_keys(toks)}).weights
+        dropped += int((w == 0).sum())
+        tt = torch.from_numpy(toks).cuda()
+        if i == QWEN_TRAIN_STEPS:            # the profiled extra step
+            break
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        qparams, qstate, m = qstep(qparams, qstate, tt, w)
+        q_loss.append(float(m["loss"]))
+        q_gn.append(float(m["grad_norm"]))
+        torch.cuda.synchronize()
+        q_ms.append((time.perf_counter() - t0) * 1e3)
+    peak_q = torch.cuda.max_memory_reserved()
+    total = torch.cuda.get_device_properties(0).total_memory
+    qbusy, _, q_k, q_top = profile_train_step(
+        lambda: float(qstep(qparams, qstate, tt, w)[2]["loss"]),
+        host_ops=False)
+    accum = arch.accum["train_4k"]
+    log(f"[train] train_4k-{LM_ARCH}-{QWEN_TRAIN_LAYERS}L: d "
+        f"{qcfg.d_model}, {qcfg.n_heads} / {qcfg.n_kv_heads} heads, hd "
+        f"{qcfg.hd}, d_ff {qcfg.d_ff}, vocab {qcfg.vocab}, {qcfg.dtype}, "
+        f"remat {qcfg.remat}, {QWEN_TRAIN_LAYERS} of {arch.cfg.n_layers} "
+        f"layers ({n_q} parameters), batch {bq} of seq {sq} in {accum} "
+        f"microbatches; weights from DedupPipeline(rlbsbf 2^20, drop) over "
+        f"seq_keys, {dropped} replayed record(s) dropped: losses "
+        f"{[round(x, 4) for x in q_loss]}, grad norms "
+        f"{[round(x, 4) for x in q_gn]}; step ms {[round(x, 1) for x in q_ms]}"
+        f" (host clock ending in torch.cuda.synchronize), "
+        f"{bq * sq * 1e3 / q_ms[-1]:.1f} tokens/s; matmul bound "
+        f"{train_bound_ms(qcfg, bq, sq, BF16_OPS_PER_S):.4f} ms (bf16 at "
+        f"989 TFLOP/s); peak device "
+        f"memory reserved {peak_q / 2**30:.3f} GiB of "
+        f"{total / 2**30:.3f} GiB ({card})")
+    if qbusy is None:
+        log("[train] qwen3-8b step: device busy share not measured")
+    else:
+        log(f"[train] qwen3-8b step profiled: device busy {qbusy:.4f} ms in "
+            f"{q_k} kernels, idle share {max(0.0, 1 - qbusy / q_ms[-1]):.4f}"
+            f" of the last unprofiled step; costliest kernels (ms, "
+            f"launches) {q_top} ({card})")
+    if not (all(np.isfinite(q_loss)) and all(np.isfinite(q_gn))
+            and dropped >= 1 and total - peak_q >= FREE_BYTES):
+        raise AssertionError("train: qwen3-8b train_4k is out of bounds")
+    del qparams, qstate, qstep
+    torch.cuda.empty_cache()
+    lap("qwen3-8b train_4k")
     return launches, hash_err
 
 
@@ -3032,6 +3590,9 @@ def main() -> int:
     lm_launches, lm_hash_err = phase_lm(card)
     err["hashmix"] = max(err["hashmix"], lm_hash_err)
     stamp("lm")
+    train_launches, train_hash_err = phase_train(card)
+    err["hashmix"] = max(err["hashmix"], train_hash_err)
+    stamp("train")
     times = phase_timings(cfg, state, sbf_cfg, sbf_state, card,
                           ((fb, fb_state), (fc, fc_state)), floor_lib,
                           parent)
@@ -3058,9 +3619,11 @@ def main() -> int:
     # that carries it: the standalone hashmix is the sbf path's (the rlbsbf
     # path's bitset step hashes its keys itself), fused_probe and the
     # standalone bloom_probe the ops path's
-    # hashmix: the sbf path's launches and the LM-scored front end's
+    # hashmix: the sbf path's launches, the LM-scored front end's and the
+    # trainer's dedup stage's
     hashmix_launches = {"hashmix": sbf_launches["hashmix"]
-                        + lm_launches["hashmix"]}
+                        + lm_launches["hashmix"]
+                        + train_launches["hashmix"]}
     rows = [
         ("hashmix", "hashmix.cu", "hashmix.py:46", hashmix_launches,
          "hashmix"),

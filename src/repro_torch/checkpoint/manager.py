@@ -18,9 +18,14 @@ resumes in the other: ``arrays.npz`` of flattened leaves plus
 them, without JAX: a dict key as the key (dicts in sorted key order), a
 list or tuple index as the index, a ``FilterState`` or ``WindowRing`` field
 (or any NamedTuple's) as ``.name``, joined with ``/``; a ``None`` (a
-filter without a ring) is no leaf. A pipeline's ``state_dict()`` gives
-``filter_state/.bits``, ``filter_state/.position``, ...; an elastic
-sharded state adds ``.router/.assign`` and ``.router/.n_rebalances``. A
+filter without a ring) is no leaf. A model's ``Params`` module is the
+reference's param tree: a ``ModuleList`` of layers is written as one
+leaf per parameter name stacked on a leading L axis
+(``params/layers/attn/wq`` is (L, d, H, hd)), and a ``Params`` template
+restores into a new module of the same structure — so a trainer's tree
+``{"params", "opt_state", "dedup"}`` crosses either way. A pipeline's
+``state_dict()`` gives ``filter_state/.bits``, ``filter_state/.position``,
+...; an elastic sharded state adds ``.router/.assign`` and ``.router/.n_rebalances``. A
 ``FilterState``'s leaves are written in the reference's dtypes (``convert.state_to_numpy``):
 words as uint32, never the port's int32 bit patterns, so both packages
 write the same names, dtypes, shapes and bytes. bfloat16 leaves are stored
@@ -45,9 +50,11 @@ from typing import Any, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from ..convert import state_to_numpy
 from ..core.state import FilterState, RouterState, WindowRing
+from ..models.layers import module_leaves, rebuild_params
 
 # the reference's leaf name of each ``state_to_numpy`` leaf
 _STATE_LEAVES = (("bits", ".bits"), ("position", ".position"),
@@ -94,6 +101,11 @@ def _leaves(tree, prefix: str = "") -> Iterator[Tuple[str, Any]]:
         for key, name in _STATE_LEAVES:
             if key in arrs:
                 yield _join(prefix, name), arrs[key]
+    elif isinstance(tree, nn.Module):
+        for lf in module_leaves(tree):
+            parts = [t.detach().cpu() for t in lf.tensors]
+            yield (_join(prefix, "/".join(lf.path)),
+                   torch.stack(parts) if lf.stacked else parts[0])
     elif isinstance(tree, dict):
         for k in sorted(tree):
             yield from _leaves(tree[k], _join(prefix, str(k)))
@@ -159,6 +171,14 @@ def _unflatten(template, flat: dict, prefix: str = ""):
                            ring=sub(template.ring, WindowRing, "ring"),
                            router=sub(template.router, RouterState,
                                       "router"))
+    if isinstance(template, nn.Module):
+        tensors = {}
+        for lf in module_leaves(template):
+            val = _restore_leaf(lf.tensors[0], flat,
+                                _join(prefix, "/".join(lf.path)))
+            parts = val.unbind(0) if lf.stacked else (val,)
+            tensors.update(zip(lf.keys, parts))
+        return rebuild_params(template, tensors)
     if isinstance(template, dict):
         return {k: _unflatten(v, flat, _join(prefix, str(k)))
                 for k, v in template.items()}

@@ -4,8 +4,7 @@ as data — the port's copy of ``repro.configs.lm_archs``. The dense three
 (deepseek-v2-236b, mixtral-8x7b) are registered so ``get_arch`` knows
 them, and their model entry points raise until ROADMAP item 14c.
 
-The ``accum`` factors are the reference's per train cell, carried for the
-training slice (ROADMAP item 14b).
+The ``accum`` factors are the reference's per train cell.
 """
 
 from __future__ import annotations

@@ -1,11 +1,11 @@
 """Architecture registry of the port — the LM part of
 ``repro.configs.registry``: ``LMArch`` with its shape cells, its reduced
-``smoke()`` config and its ``prefill`` / ``decode`` steps, and
-``register`` / ``get_arch`` / ``all_arch_ids``.
+``smoke()`` config, its optimizer and its ``train`` / ``prefill`` /
+``decode`` steps, and ``register`` / ``get_arch`` / ``all_arch_ids``.
 
 The mesh and partition-spec methods wait for the model-spec functions of
-``distributed/sharding.py`` (ROADMAP item 14e), the ``train`` step for
-the training slice (14b), and the GNN and recsys archs for theirs (14d).
+``distributed/sharding.py`` (ROADMAP item 14e), and the GNN and recsys
+archs for their slice (14d).
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ from typing import Callable, Dict, Optional
 import torch
 
 from ..models import transformer as tfm
+from ..optim import OptimizerConfig
 
 
 @dataclasses.dataclass(frozen=True)
@@ -27,9 +28,8 @@ class ShapeCell:
 
 
 class LMArch:
-    """An LM id's config and shape cells. ``accum`` (gradient-accumulation
-    steps per train cell) is the reference's data; nothing reads it until
-    the train step is ported (ROADMAP item 14b)."""
+    """An LM id's config and shape cells; ``accum`` is the reference's
+    gradient-accumulation steps per train cell, which ``step`` reads."""
     family = "lm"
 
     def __init__(self, arch_id: str, cfg: tfm.TransformerConfig,
@@ -52,16 +52,26 @@ class LMArch:
                                    {"seq": 524288, "batch": 1}, skip=skip),
         }
 
+    def opt_config(self) -> OptimizerConfig:
+        return OptimizerConfig(kind="adamw", lr=3e-4)
+
     def step(self, shape: str) -> Callable:
-        """The cell's step: ``prefill_step(params, tokens)`` -> last-token
-        logits (serving emits those), or ``serve_step(params, cache, token,
-        pos)`` -> (logits, cache)."""
+        """The cell's step: ``train_step(params, opt_state, tokens,
+        weights)`` -> (params, opt_state, metrics) with the cell's
+        gradient accumulation; ``prefill_step(params, tokens)`` ->
+        last-token logits (serving emits those); or ``serve_step(params,
+        cache, token, pos)`` -> (logits, cache)."""
         cell = self.shapes[shape]
         cfg = self.cfg
         if cell.kind == "train":
-            raise NotImplementedError(
-                f"{self.arch_id} {shape}: the train step is not ported yet "
-                f"(ROADMAP item 14b, training)")
+            from ..train.steps import make_train_step
+
+            def loss_fn(params, batch, weights):
+                loss, _ = tfm.forward(cfg, params, batch, weights)
+                return loss
+
+            return make_train_step(loss_fn, self.opt_config(),
+                                   accum_steps=self.accum.get(shape, 1))
         if cell.kind == "prefill":
             def prefill_step(params, tokens):
                 return tfm.prefill(cfg, params, tokens)[:, -1]

@@ -29,8 +29,11 @@ An LM's weights cross as the reference's param tree of numpy leaves
 leaf stacked on a leading L axis, ``final_norm``, ``lm_head``) through
 ``transformer_params_from_numpy`` / ``transformer_params_to_numpy``, and
 its decode cache (``k``, ``v``, ``kpos``, stacked on L) through
-``decode_cache_from_numpy`` / ``decode_cache_to_numpy``. numpy has no
-bf16 of its own, so a bf16 leaf comes back as float32 (exact widening).
+``decode_cache_from_numpy`` / ``decode_cache_to_numpy``, and its
+optimizer state (``OptState(step, m, v)``, the moments in the param
+tree's structure, stacked) through ``opt_state_from_numpy`` /
+``opt_state_to_numpy``. numpy has no bf16 of its own, so a bf16 leaf
+comes back as float32 (exact widening).
 """
 
 from __future__ import annotations
@@ -250,3 +253,36 @@ def decode_cache_from_numpy(cfg: tfm.TransformerConfig, cache: dict,
 def decode_cache_to_numpy(cache: dict) -> dict:
     """numpy leaves of a decode cache (bf16 as float32, kpos int32)."""
     return {name: _host_leaf(t) for name, t in cache.items()}
+
+
+def _map_tree(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map_tree(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def opt_state_from_numpy(state, device=None):
+    """The port's ``optim.OptState`` from the reference's, of numpy leaves
+    (``jax.tree.map(np.asarray, opt_state)``: anything with ``step``,
+    ``m`` and ``v``): the moments keep the reference's tree, fp32 on
+    ``device``; the step is a () int32 tensor on the host, where the port
+    keeps it."""
+    from .optim import OptState
+    device = resolve_device(device)
+
+    def moment(a):
+        host = np.array(np.asarray(a), np.float32)
+        return torch.from_numpy(host).to(device)
+
+    return OptState(
+        step=torch.tensor(int(np.asarray(state.step)), dtype=torch.int32),
+        m=_map_tree(state.m, moment), v=_map_tree(state.v, moment))
+
+
+def opt_state_to_numpy(state):
+    """The reference's leaves of the port's optimizer state: an
+    ``OptState`` of an int32 () step and numpy fp32 moment trees."""
+    from .optim import OptState
+    return OptState(step=np.asarray(int(state.step), np.int32),
+                    m=_map_tree(state.m, _host_leaf),
+                    v=_map_tree(state.v, _host_leaf))

@@ -695,13 +695,11 @@ def make_batched_step(cfg: DedupConfig, device=None,
     caller passes ``"cpu"``; ``core.device``), dispatched as the
     reference does: dense8 sbf keeps its own branch (the cross-check, not
     a template instance), everything else is the sketch template on
-    either layout."""
+    either layout. Like the reference's, it reads no ``n_tenants``: a
+    fleet config runs here as one filter (``FleetDedup`` runs it as a
+    fleet, DESIGN §4.6)."""
     cfg = cfg.validate()
     device = resolve_device(device)
-    if cfg.n_tenants > 1:
-        raise NotImplementedError(
-            "n_tenants > 1 is a tenant fleet: run it with "
-            "repro_torch.core.fleet.FleetDedup (DESIGN §4.6)")
     if cfg.variant == "sbf" and not cfg.is_planes:
         return _make_sbf_dense8_step(cfg, device, partitionable)
     return make_templated_step(cfg, device=device,

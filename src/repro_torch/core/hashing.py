@@ -18,11 +18,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import u32
+from . import prng, u32
 from ..kernels.hashmix import hashmix as _hashmix_kernel
 
 __all__ = ["fmix32", "hash_slots", "hash_positions", "route_hash",
-           "range_bucket", "derive_seeds"]
+           "range_bucket", "derive_seeds", "uniform_positions"]
 
 _GOLDEN = np.uint32(0x9E3779B9)
 M1 = 0x85EBCA6B
@@ -98,3 +98,11 @@ def range_bucket(keys: torch.Tensor, n_buckets: int) -> torch.Tensor:
         return (k >> shift).to(torch.int32)
     stride = (1 << 32) // n_buckets + 1
     return torch.clamp(k // stride, max=n_buckets - 1).to(torch.int32)
+
+
+def uniform_positions(rng: torch.Tensor, shape, s: int,
+                      partitionable: bool = True) -> torch.Tensor:
+    """Uniform random bit positions in [0, s), int32 — the reference's
+    ``jax.random.randint(rng, shape, 0, s)`` bit for bit under either
+    threefry layout (``core.prng.randint``)."""
+    return prng.randint(rng, shape, 0, s, partitionable)

@@ -23,7 +23,7 @@ from . import u32
 
 __all__ = ["pack_bits", "unpack_bits", "split_pos", "probe_packed",
            "probe_cell_values", "probe_sorted_packed", "run_heads",
-           "delta_from_sorted_positions", "popcount_words", "popcount",
+           "scatter_or", "scatter_andnot", "delta_from_sorted_positions", "popcount_words", "popcount",
            "pack_cells", "unpack_cells", "planes_nonzero",
            "count_field_chunks", "counts_to_planes", "run_heads_1d",
            "clamped_run_counts", "count_planes_from_sorted",
@@ -91,6 +91,36 @@ def delta_from_sorted_positions(sp: torch.Tensor, w: int) -> torch.Tensor:
     acc = torch.zeros(k * w, dtype=torch.int64, device=sp.device)
     acc.index_add_(0, idx, bit)
     return u32.to_i32(acc).reshape(k, w)
+
+
+def _bit_delta_rows(w: int, w_idx: torch.Tensor, mask: torch.Tensor
+                    ) -> torch.Tensor:
+    """(..., k) word indices and int32 mask words -> the (k, W) int32
+    OR-union of each row's masks. A negative index counts from the end,
+    as in the reference's scatter; one still out of range is dropped."""
+    k = w_idx.shape[-1]
+    idx = w_idx.reshape(-1, k).T.to(torch.int64)               # (k, B)
+    idx = torch.where(idx < 0, idx + w, idx)
+    bit = torch.arange(32, dtype=torch.int64, device=idx.device)
+    on = (u32.to_u64(mask.reshape(-1, k).T)[..., None] >> bit) & 1
+    keep = (on == 1) & ((idx >= 0) & (idx < w))[..., None]
+    sp = torch.where(keep, idx[..., None] * 32 + bit, 32 * w)
+    return delta_from_sorted_positions(
+        torch.sort(sp.reshape(k, -1), dim=-1).values, w)
+
+
+def scatter_or(words: torch.Tensor, w_idx: torch.Tensor,
+               mask: torch.Tensor) -> torch.Tensor:
+    """Set bits: words (k, W); w_idx / mask (..., k), the masks int32 bit
+    patterns. Out-of-range indices drop (the reference's per-element
+    enable masks), unlike ``kernels/ops.py``, which clamps."""
+    return words | _bit_delta_rows(words.shape[1], w_idx, mask)
+
+
+def scatter_andnot(words: torch.Tensor, w_idx: torch.Tensor,
+                   mask: torch.Tensor) -> torch.Tensor:
+    """Clear bits (the same contract as ``scatter_or``)."""
+    return words & ~_bit_delta_rows(words.shape[1], w_idx, mask)
 
 
 def popcount_words(words: torch.Tensor) -> torch.Tensor:

@@ -1,1 +1,6 @@
-"""Synthetic key streams (numpy only)."""
+"""Data plane of the port (numpy only): synthetic key streams and the LM
+training corpus."""
+
+from . import lm, streams
+
+__all__ = ["lm", "streams"]

@@ -180,8 +180,9 @@ class ShardedDedup:
             self.local_cfg = dataclasses.replace(
                 scfg.base, shards=self.n_shards).validate()
         # the slots of a rank step as the fleet step's tenant rows; a fleet
-        # config's tenant count is a routing fact here (run_tenant_stream)
-        step_cfg = dataclasses.replace(self.local_cfg, n_tenants=1)
+        # config's tenant count is a routing fact here (run_tenant_stream),
+        # which the step factories do not read
+        step_cfg = self.local_cfg
         rows = max(1, self.b_r)
         if step_cfg.variant == "sbf" and not step_cfg.is_planes:
             # dense8 sbf has no tenant axis: its slots step one by one

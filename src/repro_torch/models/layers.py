@@ -1,12 +1,14 @@
 """Shared neural-net layers of the port — the counterpart of
-``repro.models.layers`` (the parts the dense LM serving path runs).
+``repro.models.layers`` (the parts the dense LM runs: serving, and its
+training objective ``weighted_xent``).
 
 Conventions, as in the reference:
   * init fns take an explicit ``torch.Generator`` and return a tensor on
     its device; on the ``meta`` device (``gen=None``) they allocate nothing,
     which is how ``TransformerConfig.param_count`` counts a 236B tree;
   * compute dtype is the caller's (bf16 by default), reductions and
-    softmax in fp32;
+    softmax in fp32 — or in the compute dtype where that is wider, so a
+    float64 model is float64 throughout (the referee of an fp32 run);
   * every matmul is an einsum in the reference's own layout and axis
     names, so the converter (``repro_torch.convert``) moves weights across
     with no transposes.
@@ -19,8 +21,9 @@ attention.
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import Optional
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
@@ -28,11 +31,18 @@ from torch import nn
 _NEG = torch.finfo(torch.float32).min
 
 
+def _wide(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in fp32, or in its own dtype where that is wider: the
+    reference's ``astype(jnp.float32)`` for every dtype it trains in."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 class Params(nn.Module):
     """One node of the reference's param tree as a module: tensors become
-    frozen parameters and nodes submodules under the reference's leaf
+    trainable parameters and nodes submodules under the reference's leaf
     names, and ``p["wq"]`` reads as it does in the reference
-    (``state_dict`` keys such as ``layers.0.attn.wq``)."""
+    (``state_dict`` keys such as ``layers.0.attn.wq``). Serving runs under
+    ``torch.inference_mode()``, so it records no graph."""
 
     def __init__(self, **children):
         super().__init__()
@@ -41,8 +51,7 @@ class Params(nn.Module):
 
     def __setitem__(self, name: str, value) -> None:
         if isinstance(value, torch.Tensor):
-            self.register_parameter(
-                name, nn.Parameter(value, requires_grad=False))
+            self.register_parameter(name, nn.Parameter(value))
         elif isinstance(value, nn.Module):
             self.add_module(name, value)
         else:
@@ -51,6 +60,60 @@ class Params(nn.Module):
 
     def __getitem__(self, name: str):
         return getattr(self, name)
+
+
+class Leaf(NamedTuple):
+    """One leaf of the reference's param tree: its path, the port's
+    tensors that make it (one, or one per layer of a leaf the reference
+    stacks on a leading L axis) and their names in the port's module."""
+    path: Tuple[str, ...]
+    tensors: List[torch.Tensor]
+    keys: list
+    stacked: bool
+
+    @property
+    def ref_shape(self) -> tuple:
+        """The leaf's shape in the reference's tree."""
+        lead = (len(self.tensors),) if self.stacked else ()
+        return lead + tuple(self.tensors[0].shape)
+
+
+def _leaves_of(mod: nn.Module, path: tuple, prefix: str):
+    for name, p in mod.named_parameters(recurse=False):
+        yield Leaf(path + (name,), [p], [prefix + name], False)
+    for name, sub in mod.named_children():
+        if isinstance(sub, nn.ModuleList):
+            per = [list(_leaves_of(m, path + (name,), f"{prefix}{name}.{i}."))
+                   for i, m in enumerate(sub)]
+            for group in zip(*per):
+                yield Leaf(group[0].path, [g.tensors[0] for g in group],
+                           [g.keys[0] for g in group], True)
+        else:
+            yield from _leaves_of(sub, path + (name,), f"{prefix}{name}.")
+
+
+def module_leaves(mod: nn.Module) -> List[Leaf]:
+    """The reference's leaves of a ``Params`` tree, in its tree order
+    (sorted keys at every level): a ``ModuleList`` of like modules is one
+    stacked leaf per parameter name, as the reference's scanned
+    ``layers``."""
+    return sorted(_leaves_of(mod, (), ""), key=lambda lf: lf.path)
+
+
+def rebuild_params(template: nn.Module, tensors: dict) -> nn.Module:
+    """A new ``Params`` tree shaped as ``template`` over ``tensors`` (the
+    port's parameter name -> tensor)."""
+    def build(mod, prefix):
+        if isinstance(mod, nn.ModuleList):
+            return nn.ModuleList(build(m, f"{prefix}{i}.")
+                                 for i, m in enumerate(mod))
+        out = Params()
+        for name, _ in mod.named_parameters(recurse=False):
+            out[name] = tensors[prefix + name]
+        for name, sub in mod.named_children():
+            out[name] = build(sub, f"{prefix}{name}.")
+        return out
+    return build(template, "")
 
 
 # ----------------------------------------------------------------- init -- //
@@ -81,22 +144,24 @@ def fan_in_init(gen: Optional[torch.Generator], shape, dtype,
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
             ) -> torch.Tensor:
-    """RMSNorm in fp32, cast back to x.dtype."""
-    xf = x.float()
+    """RMSNorm in fp32 (``_wide``), cast back to x.dtype."""
+    xf = _wide(x)
     var = (xf * xf).mean(-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
-    return (y * scale.float()).to(x.dtype)
+    return (y * _wide(scale)).to(x.dtype)
 
 
 # ----------------------------------------------------------------- rope -- //
 
 
-def rope_freqs(head_dim: int, theta: float = 10_000.0,
-               device=None) -> torch.Tensor:
+def rope_freqs(head_dim: int, theta: float = 10_000.0, device=None,
+               dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The rotation frequencies in ``dtype`` (fp32, as the reference's;
+    a float64 model's in float64, where the rounding of each device's fp32
+    power would be the largest difference between two float64 runs)."""
     # the base stays a Python scalar: a tensor made from it on the card
     # would be a host-to-device copy, a host wait in every layer
-    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
-                        device=device) / head_dim
+    exps = torch.arange(0, head_dim, 2, dtype=dtype, device=device) / head_dim
     return 1.0 / torch.pow(theta, exps)
 
 
@@ -105,12 +170,13 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     """x (..., S, H, D) with positions (..., S) — rotates pairs (even, odd),
     interleaved as the reference does (not the half-split form)."""
     d = x.shape[-1]
-    freqs = rope_freqs(d, theta, x.device)                # (D/2,)
-    angles = positions[..., None].float() * freqs         # (..., S, D/2)
+    wide = torch.promote_types(x.dtype, torch.float32)
+    freqs = rope_freqs(d, theta, x.device, wide)          # (D/2,)
+    angles = positions[..., None].to(wide) * freqs        # (..., S, D/2)
     cos = torch.cos(angles)[..., None, :]                 # (..., S, 1, D/2)
     sin = torch.sin(angles)[..., None, :]
-    x1 = x[..., 0::2].float()
-    x2 = x[..., 1::2].float()
+    x1 = _wide(x[..., 0::2])
+    x2 = _wide(x[..., 1::2])
     o1 = x1 * cos - x2 * sin
     o2 = x1 * sin + x2 * cos
     return torch.stack([o1, o2], dim=-1).reshape(x.shape).to(x.dtype)
@@ -139,7 +205,7 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """
     d = q.shape[-1]
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
-    scores = torch.einsum("bqhgd,bkhd->bhgqk", q, k).float() * scale
+    scores = _wide(torch.einsum("bqhgd,bkhd->bhgqk", q, k)) * scale
     scores = scores.masked_fill(~mask[:, None, None, :, :], _NEG)
     probs = torch.softmax(scores, dim=-1)
     return torch.einsum("bhgqk,bkhd->bqhgd", probs.to(v.dtype), v)
@@ -151,7 +217,8 @@ def flash_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                q_block: int = 1024, k_block: int = 1024) -> torch.Tensor:
     """Block-chunked attention: online softmax over KV blocks, a loop over
     Q blocks (the reference's two ``lax.scan``s). Never materializes more
-    than a (B, Kv, G, q_block, k_block) tile.
+    than a (B, Kv, G, q_block, k_block) tile, and under autograd keeps none
+    of them for the backward pass (each Q block is checkpointed).
 
     q (B, Sq, Kv, G, D); k (B, Sk, Kv, D); v (B, Sk, Kv, Dv); q_pos (B, Sq),
     k_pos (B, Sk) int32 (negative k_pos = invalid/padding). Causal: attends
@@ -176,21 +243,18 @@ def flash_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     v = F.pad(v, (0, 0, 0, 0, 0, pad_k))
     k_pos_p = F.pad(k_pos, (0, pad_k), value=-1)
     nq, nk = (Sq + pad_q) // qb, (Sk + pad_k) // kb
+    wide = torch.promote_types(q.dtype, torch.float32)
 
-    outs = []
-    for i in range(nq):
-        qi = q[:, i * qb:(i + 1) * qb]                    # (B,qb,Kv,G,D)
-        qpi = q_pos_p[:, i * qb:(i + 1) * qb]             # (B,qb)
-        m = torch.full((B, Kv, G, qb), _NEG, dtype=torch.float32,
-                       device=q.device)
-        l = torch.zeros((B, Kv, G, qb), dtype=torch.float32, device=q.device)
-        acc = torch.zeros((B, Kv, G, qb, Dv), dtype=torch.float32,
-                          device=q.device)
+    def q_block(qi, qpi, k, v):
+        """One Q block's online softmax over every KV block."""
+        m = torch.full((B, Kv, G, qb), _NEG, dtype=wide, device=q.device)
+        l = torch.zeros((B, Kv, G, qb), dtype=wide, device=q.device)
+        acc = torch.zeros((B, Kv, G, qb, Dv), dtype=wide, device=q.device)
         for j in range(nk):
             ki = k[:, j * kb:(j + 1) * kb]                # (B,kb,Kv,D)
             vi = v[:, j * kb:(j + 1) * kb]
             kpi = k_pos_p[:, j * kb:(j + 1) * kb]
-            s = torch.einsum("bqhgd,bkhd->bhgqk", qi, ki).float() * scale
+            s = _wide(torch.einsum("bqhgd,bkhd->bhgqk", qi, ki)) * scale
             msk = ((qpi[:, :, None] >= kpi[:, None, :])
                    & (kpi >= 0)[:, None, :])
             if window is not None:
@@ -201,10 +265,22 @@ def flash_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             corr = torch.exp(m - m_new)
             l = l * corr + p.sum(-1)
             acc = acc * corr[..., None] + torch.einsum(
-                "bhgqk,bkhd->bhgqd", p.to(vi.dtype), vi).float()
+                "bhgqk,bkhd->bhgqd", p.to(vi.dtype), vi).to(wide)
             m = m_new
         out = acc / torch.clamp(l, min=1e-30)[..., None]  # (B,Kv,G,qb,Dv)
-        outs.append(out.permute(0, 3, 1, 2, 4))           # (B,qb,Kv,G,Dv)
+        return out.permute(0, 3, 1, 2, 4)                 # (B,qb,Kv,G,Dv)
+
+    # under autograd each Q block is recomputed in the backward pass, so
+    # a layer keeps its Q, K and V, not every (q_block, k_block) score
+    # tile: the same values, in the memory a blocked attention is for
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        from torch.utils.checkpoint import checkpoint
+        run = functools.partial(checkpoint, q_block, use_reentrant=False)
+    else:
+        run = q_block
+    outs = [run(q[:, i * qb:(i + 1) * qb], q_pos_p[:, i * qb:(i + 1) * qb],
+                k, v) for i in range(nq)]
     out = torch.cat(outs, dim=1)
     return out[:, :Sq].to(v.dtype)
 
@@ -223,3 +299,21 @@ def swiglu_init(gen, d_model: int, d_ff: int, dtype, device=None
 def swiglu_apply(p, x: torch.Tensor) -> torch.Tensor:
     g = torch.nn.functional.silu(x @ p["w_gate"])
     return (g * (x @ p["w_up"])) @ p["w_down"]
+
+
+# ------------------------------------------------ weighted cross entropy -- //
+
+
+def weighted_xent(logits: torch.Tensor, labels: torch.Tensor,
+                  weights: torch.Tensor) -> torch.Tensor:
+    """logits (..., V) any float dtype, labels (...,) int, weights (...,) —
+    the mean over weighted tokens, in fp32 (``_wide``). A weight of 0
+    drops a record (the dedup pipeline's "drop" mode); the denominator is
+    max(sum w, 1), so all-zero weights give a loss of 0."""
+    logits = _wide(logits)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.take_along_dim(logits, labels[..., None].long(),
+                                dim=-1)[..., 0]
+    nll = logz - gold
+    w = _wide(weights)
+    return (nll * w).sum() / torch.clamp(w.sum(), min=1.0)

@@ -5,6 +5,7 @@ flash-chunked prefill, the KV cache and its SWA ring.
 
 Entry points, as in the reference:
   init(cfg, seed, device)                     -> params (a ``Params`` module)
+  forward(cfg, params, tokens, weights)       -> (loss, logits)     [train]
   prefill(cfg, params, tokens)                -> logits (B, S, V)   [serve]
   decode_step(cfg, params, cache, token, pos) -> (logits, cache)    [serve]
 
@@ -14,20 +15,24 @@ names (``embed``, ``layers.<i>.attn.wq``, ``layers.<i>.ffn.w_gate``,
 (``wq`` is (d, H, hd), ``wo`` (H, hd, d)), so ``repro_torch.convert``
 moves a JAX param tree across with no transposes. The reference's stacked
 ``params["layers"]`` under ``lax.scan`` is a ``ModuleList`` walked by a
-Python loop. Serving runs under ``torch.inference_mode()``, so there is no
-remat (``cfg.remat`` is carried, not read). ``decode_step`` writes the
-cache in place (the reference's ``.at[b, slot].set`` on a donated buffer)
-and returns the same dict.
+Python loop. ``forward`` is differentiable through autograd; ``cfg.remat``
+maps the reference's ``jax.checkpoint`` per layer onto
+``torch.utils.checkpoint`` (``"full"``: recompute the whole layer;
+``"dots"``: a selective policy that keeps the matmuls with no batch
+dimension, ``dots_with_no_batch_dims_saveable``). Serving runs under
+``torch.inference_mode()``, so it records no graph and never remats.
+``decode_step`` writes the cache in place (the reference's
+``.at[b, slot].set`` on a donated buffer) and returns the same dict.
 
 A config with ``use_mla`` or ``n_experts > 0`` raises
 ``NotImplementedError``: MoE and MLA are ROADMAP item 14c, and the port
-never runs a dense stack in their place. Training (``forward`` and the
-weighted cross entropy) is item 14b.
+never runs a dense stack in their place.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Optional
 
 import numpy as np
@@ -37,7 +42,7 @@ from torch import nn
 from ..core.device import resolve_device
 from .layers import (Params, apply_rope, attention_scores_mask, fan_in_init,
                      flash_sdpa, normal_init, rmsnorm, sdpa, swiglu_apply,
-                     swiglu_init)
+                     swiglu_init, weighted_xent)
 
 
 def as_torch_dtype(dtype) -> torch.dtype:
@@ -87,7 +92,7 @@ class TransformerConfig:
     first_dense_layers: int = 0
     # --- numerics / execution ---
     dtype: Any = torch.bfloat16
-    remat: str = "none"                    # training only (ROADMAP 14b)
+    remat: str = "none"                    # none | full | dots (training)
     attn_q_block: int = 1024               # flash-chunked attention tiles
     attn_k_block: int = 1024
     gqa_expand_kv: bool = False            # expand K/V to H heads pre-attn
@@ -218,10 +223,60 @@ def init(cfg: TransformerConfig, seed: int = 0, device=None) -> Params:
     return _build(cfg, gen, device)
 
 
+def _dots_policy(ctx, op, *args, **kwargs):
+    """``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``: keep
+    the output of a matmul with no batch dimension — a 2-D ``mm``, or an
+    einsum's ``bmm`` over a batch of one (the projections and the FFN) —
+    and recompute everything else (attention's batched products
+    included)."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    aten = torch.ops.aten
+    if op in (aten.mm.default, aten.addmm.default) or (
+            op is aten.bmm.default and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
 def _stack_apply(cfg: TransformerConfig, params, x, positions):
+    """The layers in order; under autograd each one checkpointed as
+    ``cfg.remat`` says (the reference's ``jax.checkpoint`` of the scan
+    body)."""
+    remat = cfg.remat if torch.is_grad_enabled() else "none"
+    if remat not in ("full", "dots"):
+        for lp in params["layers"]:
+            x = _layer_apply(lp, cfg, x, positions)
+        return x
+    from torch.utils.checkpoint import (checkpoint,
+                                        create_selective_checkpoint_contexts)
+    kw = {}
+    if remat == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy)
     for lp in params["layers"]:
-        x = _layer_apply(lp, cfg, x, positions)
+        x = checkpoint(_layer_apply, lp, cfg, x, positions,
+                       use_reentrant=False, **kw)
     return x
+
+
+def forward(cfg: TransformerConfig, params, tokens, weights=None):
+    """Training objective: next-token prediction with per-sequence loss
+    weights (the dedup pipeline's output). tokens (B, S+1) int on the
+    params' device, weights (B,) or None (ones) -> (loss () fp32, logits
+    (B, S, V) in ``cfg.dtype``)."""
+    _check_dense(cfg)
+    inp, labels = tokens[:, :-1], tokens[:, 1:]
+    B, S = inp.shape
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=tokens.device).expand(B, S)
+    x = params["embed"][inp]
+    x = _stack_apply(cfg, params, x, positions)
+    x = rmsnorm(x, params["final_norm"])
+    logits = torch.einsum("bsd,dv->bsv", x, params["lm_head"])
+    if weights is None:
+        weights = torch.ones((B,), dtype=torch.float32,
+                             device=tokens.device)
+    loss = weighted_xent(logits, labels, weights[:, None].expand(B, S))
+    return loss, logits
 
 
 # ------------------------------------------------------------- serving --- //

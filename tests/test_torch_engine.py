@@ -16,10 +16,12 @@ from repro.core import get_engine as jax_engine
 from repro.core import DedupConfig as JConfig
 from repro.data import streams as jstreams
 from repro.dedup.metrics import StreamMetrics, truth_from_stream as jtruth
+from repro.dedup.pipeline import DedupPipeline as JPipeline
 from repro_torch.convert import (config_from_dict, state_from_numpy,
                                  state_to_numpy)
 from repro_torch.core import Dedup, DedupConfig, get_engine, next_pow2
 from repro_torch.data import streams as tstreams
+from repro_torch.dedup import DedupPipeline
 from repro_torch.dedup.metrics import fpr_fnr, truth_from_stream
 
 BITSET = ("rsbf", "bsbf", "bsbfsd", "rlbsbf")
@@ -229,8 +231,42 @@ def test_device_rule_and_refusals():
         eng = Dedup(DedupConfig.for_variant(variant, memory_bits=1 << 12),
                     "cpu")
         assert eng.cfg.is_counter and eng.cfg.is_planes
-    with pytest.raises(NotImplementedError, match="n_tenants"):
-        Dedup(DedupConfig.for_variant("rlbsbf", n_tenants=4, **SMALL), "cpu")
+
+
+@pytest.mark.parametrize("layout", ("dense8", "planes"))
+@pytest.mark.parametrize("variant", ("rlbsbf", "sbf", "bsbf"))
+def test_fleet_config_runs_as_one_filter_as_reference(variant, layout):
+    """``n_tenants = 4`` on the single-filter engine and the pipeline: the
+    reference ignores it and runs one filter, and so does the port — the
+    same dups, words, load and position as the reference, and as the
+    port's own ``n_tenants = 1``."""
+    kw = dict(memory_bits=1 << 12, batch_size=256)
+    if layout == "planes":
+        kw.update(layout="planes") if variant == "sbf" else kw.update(
+            packed=True)
+    keys = _streams()["dup_heavy"]
+    jd = jax_engine(JConfig.for_variant(variant, n_tenants=4, **kw))
+    sj, dj = jd.run_stream(jd.init(), jnp.asarray(keys))
+    states = {}
+    for t in (4, 1):
+        td = Dedup(DedupConfig.for_variant(variant, n_tenants=t, **kw),
+                   "cpu", partitionable=_installed_layout())
+        assert td.cfg.effective_layout == layout
+        st, dup = td.run_stream(td.init(), keys)
+        assert np.array_equal(dup.numpy(), np.asarray(dj)), t
+        assert_same_state(sj, st, (variant, layout, t))
+        states[t] = state_to_numpy(st)
+    for key in ("bits", "load", "position"):
+        assert np.array_equal(states[4][key], states[1][key]), key
+    jp = JPipeline(JConfig.for_variant(variant, n_tenants=4, **kw))
+    tp = DedupPipeline(DedupConfig.for_variant(variant, n_tenants=4, **kw),
+                       device="cpu", partitionable=_installed_layout())
+    for i in range(0, 1024, 256):
+        jb = jp.process({"key": jnp.asarray(keys[i:i + 256])})
+        tb = tp.process({"key": keys[i:i + 256]})
+        assert np.array_equal(tb.dup.numpy(), np.asarray(jb.dup)), i
+        assert np.array_equal(tb.weights.numpy(), np.asarray(jb.weights))
+    assert_same_state(jp.state, tp.state, (variant, layout, "pipeline"))
 
 
 @pytest.mark.parametrize("entry", (
@@ -305,3 +341,64 @@ def test_fpr_fnr_readout_matches_stream_metrics():
     fpr, fnr = fpr_fnr(dup, truth)
     assert (fpr, fnr) == (m.fpr, m.fnr)
     assert 0.0 < fnr < 1.0 and 0.0 <= fpr < 1.0
+
+
+def test_core_exports_every_reference_name():
+    import repro.core as jcore
+    import repro_torch.core as tcore
+    assert set(jcore.__all__) <= set(tcore.__all__)
+    for name in tcore.__all__:
+        assert hasattr(tcore, name), name
+
+
+@pytest.mark.parametrize("variant", ("rlbsbf", "sbf", "cms"))
+def test_core_make_templated_step_matches_reference(variant):
+    """``repro_torch.core.make_templated_step`` — one step of the template
+    on the plane layout, batch for batch against the reference's."""
+    from repro.core import make_templated_step as jstep_of
+    from repro.core import init_state as jinit
+    from repro_torch.core import init_state, make_templated_step
+    kw = dict(memory_bits=1 << 12, batch_size=256)
+    kw.update(packed=True) if variant == "rlbsbf" else kw.update(
+        layout="planes")
+    jcfg = JConfig.for_variant(variant, **kw)
+    tcfg = DedupConfig.for_variant(variant, **kw)
+    jstep = jax.jit(jstep_of(jcfg))
+    tstep = make_templated_step(tcfg, device="cpu",
+                                partitionable=_installed_layout())
+    sj, st = jinit(jcfg), init_state(tcfg, None, "cpu")
+    keys = _streams()["dup_heavy"]
+    valid = np.ones((256,), bool)
+    valid[200:] = False
+    for i in range(0, 1024, 256):
+        sj, rj = jstep(sj, jnp.asarray(keys[i:i + 256]), jnp.asarray(valid))
+        st, rt = tstep(st, torch.from_numpy(keys[i:i + 256].view(np.int32)),
+                       torch.from_numpy(valid))
+        assert np.array_equal(rt.dup.numpy(), np.asarray(rj.dup)), i
+        assert np.array_equal(state_to_numpy(st)["bits"],
+                              np.asarray(sj.bits)), i
+
+
+@pytest.mark.parametrize("variant", ("rlbsbf", "sbf"))
+def test_core_make_scan_step_and_theory_match_reference(variant):
+    """``repro_torch.core.make_scan_step``, the sequential oracle's element
+    step, over 48 keys against the reference's; ``core.theory`` is the
+    port's model module (its curves are held in test_torch_pipeline)."""
+    from repro.core import make_scan_step as jscan
+    from repro.core import init_state as jinit
+    from repro_torch.core import init_state, make_scan_step, theory
+    import repro_torch.core.theory as ttheory
+    assert theory is ttheory
+    cfg = dict(memory_bits=1 << 10)
+    jcfg = JConfig.for_variant(variant, **cfg)
+    tcfg = DedupConfig.for_variant(variant, **cfg)
+    jstep = jax.jit(jscan(jcfg))
+    tstep = make_scan_step(tcfg, _installed_layout())
+    sj, st = jinit(jcfg), init_state(tcfg, None, "cpu")
+    st = st._replace(bits=st.bits.clone())
+    for key in _streams()["dup_heavy"][:48]:
+        sj, dj = jstep(sj, jnp.uint32(key))
+        st, dt = tstep(st, torch.tensor(int(key.view(np.int32)),
+                                        dtype=torch.int32))
+        assert bool(dt) == bool(dj)
+    assert_same_state(sj, st, variant)

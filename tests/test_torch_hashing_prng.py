@@ -187,3 +187,13 @@ def test_draw_randomness_matches_reference(threefry_layout):
         assert np.array_equal(u32.to_numpy_u32(trng), _kd(jrng))
         for a, b in zip(jr, tr):
             assert np.array_equal(np.asarray(a), b.numpy()), variant
+
+
+@pytest.mark.parametrize("s", (1 << 30, 715827882, 1365, 8))
+def test_uniform_positions_matches_reference(s, threefry_layout):
+    jk, tk = jax.random.PRNGKey(0x1D), prng.PRNGKey(0x1D, "cpu")
+    for shape in ((5,), (300, 3), (2, 64, 2)):
+        got = th.uniform_positions(tk, shape, s, threefry_layout)
+        want = np.asarray(jh.uniform_positions(jk, shape, s))
+        assert got.dtype == torch.int32
+        assert np.array_equal(got.numpy(), want), shape

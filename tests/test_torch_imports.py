@@ -15,6 +15,7 @@ FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "tests" / "test_torch_sharded_gpu.py",
     ROOT / "tests" / "test_torch_analysis_gpu.py",
     ROOT / "tests" / "test_torch_models_gpu.py",
+    ROOT / "tests" / "test_torch_train_gpu.py",
     ROOT / "tests" / "torch_lm_scorer.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
@@ -43,7 +44,8 @@ def test_port_files_found():
             "fused_step.py", "fused_counter_step.py", "ref.py",
             "test_torch_analysis_gpu.py", "layers.py", "transformer.py",
             "registry.py", "lm_archs.py", "test_torch_models_gpu.py",
-            "torch_lm_scorer.py"} <= names
+            "torch_lm_scorer.py", "optimizers.py", "steps.py", "trainer.py",
+            "lm.py", "train.py", "test_torch_train_gpu.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -51,3 +53,33 @@ def test_no_jax_or_reference_import(path):
     bad = [(mod, line) for mod, line in _imported_roots(path)
            if mod in FORBIDDEN]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_port_names_the_reference_exports():
+    """Names the reference exports, present in the port (their parity is
+    held in the engine, packed, hashing, optimizer and train tests)."""
+    import importlib
+    want = {
+        "repro_torch.core": ("make_templated_step", "make_scan_step",
+                             "theory", "make_batched_step", "Dedup"),
+        "repro_torch.core.packed": ("scatter_or", "scatter_andnot"),
+        "repro_torch.core.hashing": ("uniform_positions",),
+        "repro_torch.optim": ("OptimizerConfig", "OptState",
+                              "apply_updates", "clip_by_global_norm",
+                              "global_norm", "init_opt_state", "schedule"),
+        "repro_torch.train": ("make_train_step", "StragglerWatchdog",
+                              "Trainer", "TrainerConfig", "remesh"),
+        "repro_torch.data": ("lm", "streams"),
+        "repro_torch.data.lm": ("BigramCorpus", "seq_keys", "lm_batches"),
+        "repro_torch.launch": ("train",),
+        "repro_torch.models.transformer": ("forward",),
+        "repro_torch.models.layers": ("weighted_xent",),
+    }
+    for module, names in want.items():
+        mod = importlib.import_module(module)
+        exported = getattr(mod, "__all__", None)
+        for name in names:
+            assert hasattr(mod, name) or name in (exported or ()), \
+                (module, name)
+            if exported is not None:
+                assert name in exported, (module, name)

@@ -107,3 +107,35 @@ def test_decisions_match_reference(variant, position):
         torch.from_numpy(load), tr)
     for a, g in zip(want, got):
         assert np.array_equal(np.asarray(a), g.numpy())
+
+
+@pytest.mark.parametrize("op", ("scatter_or", "scatter_andnot"))
+def test_scatter_masks_match_reference(op):
+    """The reference's per-element enable-mask scatters: every mask word
+    OR-ed (or cleared) into its row's word; an index past the row drops."""
+    r = np.random.default_rng(5)
+    k, w, b = 3, 40, 500
+    words = r.integers(0, 2 ** 32, (k, w), dtype=np.uint64).astype(np.uint32)
+    idx = r.integers(0, w + 25, (b, k)).astype(np.int32)
+    idx[:, 1] %= w                           # one row: in range only
+    mask = r.integers(0, 2 ** 32, (b, k), dtype=np.uint64).astype(np.uint32)
+    mask[::7] = 0
+    want = getattr(jp, op)(jnp.asarray(words), jnp.asarray(idx),
+                           jnp.asarray(mask))
+    got = getattr(packed, op)(_w(words), torch.from_numpy(idx), _w(mask))
+    assert got.dtype == torch.int32
+    assert np.array_equal(u32.to_numpy_u32(got), np.asarray(want))
+    # the (batch, ..., k) form the reference takes
+    want = getattr(jp, op)(jnp.asarray(words),
+                           jnp.asarray(idx[:480].reshape(4, 120, k)),
+                           jnp.asarray(mask[:480].reshape(4, 120, k)))
+    got = getattr(packed, op)(_w(words), torch.from_numpy(
+        idx[:480].reshape(4, 120, k)), _w(mask[:480].reshape(4, 120, k)))
+    assert np.array_equal(u32.to_numpy_u32(got), np.asarray(want))
+    # a negative index counts from the end (here no two lanes share a word)
+    idx = np.array([[-1, 3, -41], [2, -2, 0]], np.int32)
+    mask = np.array([[1, 2, 4], [8, 16, 32]], np.uint32)
+    want = getattr(jp, op)(jnp.asarray(words), jnp.asarray(idx),
+                           jnp.asarray(mask))
+    got = getattr(packed, op)(_w(words), torch.from_numpy(idx), _w(mask))
+    assert np.array_equal(u32.to_numpy_u32(got), np.asarray(want))
