@@ -12,9 +12,9 @@ Max 1 at 128 MB: its one plane of 2^31 cells would overflow the int32
 sentinel), hashmix (both layouts, k up to 64, the seeds past 32 rows read
 from device memory), bloom_probe, fused_probe and scatter_delta — and
 reproduces the reference's seven pinned digests on CUDA. Then it drives
-three paths over one 2^24-record stream at the paper's 60% distinct
-fraction, batch 8192, each with the launch counts set to 0 just before
-and read just after:
+three paths over one 2^23-record stream (cut from 2^24 to make room for
+the "moe" phase) at the paper's 60% distinct fraction, batch 8192, each
+with the launch counts set to 0 just before and read just after:
 
 * rlbsbf on the 256 MB table (k = 2, s = 2^30 bits per row) on the plane
   layout: the bitset step, which hashes its keys itself (no hashmix
@@ -39,7 +39,7 @@ Then the reference's default path, "dense8": ``DedupPipeline`` over
 ``paper_config(v, 256)`` with the default layout, which is dense8 (one
 byte per bit, per cell for sbf): rlbsbf (a (2, 2^30) uint8 state, 2 GiB)
 and sbf (2^30 cells, 1 GiB) over the stream's first 2^22 records (the
-depth cut from 2^24 for the run's time limit), one hashmix launch per step
+depth cut for the run's time limit), one hashmix launch per step
 and no step kernel, their FPR / FNR from ``StreamMetrics.summary()``,
 their dup reports equal bit for bit to the plane paths' on that prefix,
 and each final state migrated to the plane layout on the card
@@ -120,9 +120,34 @@ cache), every value bit for bit equal to rescoring its key in a batch of
 32, one hashmix launch per micro-batch.
 It prints requests/s, p50 / p99, the hit rate, the scorer's time at each
 padded width (device time and idle share at the widths served) with its
-peak memory, and greedy decode at B = 8 and 64 over a 1024-slot cache
-(ms per step, tokens/s, device busy and its costliest kernels) beside the
-weight-read bound.
+peak memory, and greedy decode at B = 8 (B = 64 cut to make room for
+the "moe" phase) over a 1024-slot cache (ms per step, tokens/s, device
+busy and its costliest kernels) beside the weight-read bound.
+
+Then the "moe" phase: the MoE LMs at their published widths (bf16,
+seeded), one model on the card at a time — mixtral-8x7b (8 experts
+top-2, SWA) at 16 of 32 layers (23482470400 parameters) and
+deepseek-v2-236b (MLA with a 512-wide latent, 160 routed experts top-6
+and 2 shared, a dense first layer) at 8 of 60 (29191377920), their full
+depths counted on the meta device (46702792704 and 235741434880, active
+12879925248 and 21375800320). For each, in fp32 at full width on 2
+layers with TF32 off: the card's prefill (B 2, S 64) against the CPU's;
+teacher-forced ``decode_step`` against ``prefill`` at capacity factor
+n_experts / top_k (no pair can drop, so the two route alike; at the
+published factor a prefill of 1024 tokens drops pairs a decode of 2
+keeps); deepseek's absorbed against its naive decode; one MoE layer's
+einsum dispatch against its sort dispatch at T = 256 — each within 1e-3
+of the max |value|. In bf16 at the cut depth: a prefill of B 4, S 256
+(finite, its shape; the (token, slot) pairs dropped per MoE layer at the
+published capacity and the call's time printed), decode against it
+printed, not gated (in bf16 a near tie in the router, or absorbed MLA's
+rounding, moves the logits), and greedy decode at B = 8 for 32 tokens
+over a 1024-slot cache (ms per step, device busy, aten ops per step)
+beside the weight-read bound (the sort dispatch's grouped einsum reads
+every expert each step). Then deepseek serves behind ``ServeFrontend``
+(``lm_front_end``: 16 closed-loop clients over 2^10 requests, the lm
+phase's checks but the rescoring one, which an MoE scorer would rightly
+fail: its capacity counts its batch mates).
 
 Then the "train" phase: dedup-gated LM training
 (``repro_torch.launch.train``). ``build("100m", steps=14, dup_frac=0.3,
@@ -204,7 +229,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 SEED = 0
 MEMORY_MB = 256                  # the paper's 256 MB table (PAPER_MEMORIES_MB)
 BATCH = 8192                     # DedupConfig.batch_size
-STREAM_N = 1 << 24               # the paper's 695M-1B records, cut for time
+STREAM_N = 1 << 23               # the paper's 695M-1B records, cut for time
 OPS_N = 1 << 21                  # the ops path's prefix of the stream
 FLEET_T = 32                     # tenants of a fleet path
 FLEET_MB = 8                     # per tenant (PAPER_MEMORIES_MB[0])
@@ -275,9 +300,30 @@ LM_RESCORE = 32                  # the batch the served values are rescored in
 LM_SEQ_LEN = 16                  # the LM scorer's context, as the benchmark's
 LM_MIN_WIDTH = 32                # the scorer's smallest padded miss-batch
 LM_WIDTHS = (32, 64, 128, 256, 512, 1024)   # the scorer's padded widths
-LM_DECODE_B = (8, 64)            # decode batches timed
+LM_DECODE_B = (8,)               # decode batches timed (64 cut for time)
 LM_DECODE_SEQ = 1024             # their cache length
-LM_DECODE_TOKENS = 128           # greedy tokens per batch
+LM_DECODE_TOKENS = 64            # greedy tokens per batch (128 cut for time)
+# the "moe" phase: mixtral-8x7b and deepseek-v2-236b at their published
+# widths, bf16, seeded, depth cut (the reference's param_count() of each
+# cut, of the full depth and its active_param_count())
+MOE_ARCHS = {
+    "mixtral-8x7b": dict(layers=16, params=23_482_470_400,
+                         full=46_702_792_704, active=12_879_925_248,
+                         fp32_layers=2, fp32_params=3_164_688_384),
+    # its dense first layer and 7 MoE layers; fp32: the dense layer and 1
+    "deepseek-v2-236b": dict(layers=8, params=29_191_377_920,
+                             full=235_741_434_880, active=21_375_800_320,
+                             fp32_layers=2, fp32_params=5_358_679_040),
+}
+MOE_PREFILL = (4, 256)           # B, S of the bf16 prefill
+MOE_TEACHER = 32                 # its positions teacher-forced through decode
+MOE_CPU = (2, 64)                # B, S of the fp32 2-layer checks
+MOE_DISPATCH_T = 256             # tokens of the einsum-vs-sort check
+MOE_DECODE = (8, 32, 1024)       # greedy decode: B, tokens, cache slots
+MOE_SERVE_ARCH = "deepseek-v2-236b"
+MOE_SERVE_N = 1 << 10            # requests of its LM-scored front end
+MOE_CLIENTS = 16                 # its closed-loop clients
+MOE_WARM = 64                    # requests of the untimed warm-up front end
 # the "train" phase: dedup-gated LM training (repro_torch.launch.train)
 TRAIN_PRESET = "100m"            # the reference's deployment training config
 TRAIN_STEPS = 14                 # the reference test's schedule ...
@@ -743,7 +789,8 @@ def shard_digest(case, device):
 
 
 def make_stream():
-    """The 2^24-record stream every path reads, made once on the host."""
+    """The STREAM_N-record stream every path reads, made once on the
+    host."""
     from repro_torch.data.streams import controlled_distinct_stream
     t0 = time.perf_counter()
     keys, truth = controlled_distinct_stream(STREAM_N, DISTINCT_FRAC,
@@ -1334,6 +1381,117 @@ def make_lm_scorer(cfg, params):
     return scorer
 
 
+def lm_front_end(tag, cfg, params, n, clients, card, warm):
+    """``ServeFrontend`` (buckets (64, 256, 1024), 4 in flight, 2 ms flush)
+    with the LM scorer over ``params`` in front of the serving benchmark's
+    dedup config (rlbsbf, 2^20 bits, dense8, batch 64): an untimed warm-up
+    front end of its own over ``warm`` other keys (the reference's warm-up:
+    it takes the first-use costs of the dedup step and of the scorer's
+    widths out of the timed run), then ``clients`` closed-loop clients
+    over ``n`` requests of the benchmark's mix, the launch counts set to 0
+    just before and read just after. Fails unless every request is
+    answered, the digest equals ``replay_schedule`` on the card and on the
+    CPU (where the engine runs hashmix's plain version), hashmix at each
+    recorded micro-batch width equals its plain version, every answer is
+    bit for bit a value its key was scored to, and hashmix launched once
+    per micro-batch (no step kernel). -> dict(launches, hash_err, scorer,
+    scored: {key: the values it was scored to}, widths: the scorer's
+    padded width per call)"""
+    import torch
+    from repro_torch.core import DedupConfig, hashing, u32
+    from repro_torch.core.engine import next_pow2
+    from repro_torch.kernels.fused_template import bitset_step, counter_step
+    from repro_torch.kernels.hashmix import hashmix, hashmix_plain
+    from repro_torch.serve import replay_schedule
+    dcfg = DedupConfig.for_variant("rlbsbf", memory_bits=1 << 20,
+                                   batch_size=64)
+    scorer = make_lm_scorer(cfg, params)
+    widths = []
+
+    def score(batch):
+        widths.append(max(LM_MIN_WIDTH, next_pow2(len(batch["key"]))))
+        return scorer(batch)
+
+    serve_clients(dcfg, request_mix(warm, seed=11), np.zeros(warm, np.int32),
+                  score, clients)
+    widths.clear()
+    keys = request_mix(n, seed=7)
+    counters = (hashmix, bitset_step, counter_step)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.launches = 0
+    fe, secs, lat, results = serve_clients(
+        dcfg, keys, np.zeros(n, np.int32), score, clients)
+    launches = {c.__name__: c.launches for c in counters}
+    peak = torch.cuda.max_memory_allocated()
+    ex = fe.executor
+    st = fe.stats()
+    # the replays: on the card through the same kernel, and on the CPU,
+    # where the engine runs hashmix's plain version
+    replayed = replay_schedule(dcfg, ex.schedule)
+    replayed_cpu = replay_schedule(dcfg, ex.schedule, device="cpu")
+    # hashmix at the shapes this path gave it (dcfg's k and s, each
+    # recorded micro-batch width) against its plain version; these launches
+    # come after the path's counts were read
+    seeds = u32.from_numpy_u32(hashing.derive_seeds(dcfg.seed, dcfg.k, 0),
+                               "cpu")
+    hash_err, hash_eq = 0, dcfg.block_bits == 0
+    for w in sorted({w for w, _ in ex.schedule}):
+        first = next(k for ww, k in ex.schedule if ww == w)
+        hk = u32.from_numpy_u32(np.pad(first, (0, w - first.size)), "cuda")
+        got_h = hashmix(hk, seeds, s=dcfg.s)
+        want_h = hashmix_plain(hk, seeds.cuda(), dcfg.s)
+        hash_err = max(hash_err, abs_err(got_h, want_h))
+        hash_eq = hash_eq and torch.equal(got_h, want_h)
+        log(f"[{tag}] hashmix at this path's shape (B={w}, k={dcfg.k}, "
+            f"s={dcfg.s}): exactly equal to the plain version "
+            f"{torch.equal(got_h, want_h)}")
+    ok = all(r is not None and r.verdict == "ok" for r in results)
+    # the cache: every answer is bit for bit a value the scorer gave its
+    # key, so a key the scorer answered one way is answered identically
+    # every time; two micro-batches in flight together may both miss the
+    # cache on one key and score it twice (counted, as the reference's
+    # front end does the same)
+    scored = {}
+    for k, r in zip(keys.tolist(), results):
+        if not r.cached:
+            scored.setdefault(k, set()).add(float(r.value))
+    cache_ok = all(float(r.value) in scored.get(k, ()) for k, r in
+                   zip(keys.tolist(), results))
+    twice = sum(len(v) > 1 for v in scored.values())
+    p50, p99 = np.percentile(lat, [50, 99]) * 1e3
+    hist = {w: widths.count(w) for w in sorted(set(widths))}
+    log(f"[{tag}] serve-lm-{cfg.name}-dense8-rlbsbf-1M: ServeFrontend("
+        f"buckets (64, 256, 1024), 4 in flight, 2 ms flush) over "
+        f"{dcfg.effective_layout} rlbsbf (k={dcfg.k}, s={dcfg.s}), "
+        f"{clients} closed-loop clients, {n} requests of the serving "
+        f"benchmark's mix: {st['completed'] / secs:.1f} requests/s (host "
+        f"clock); p50 {p50:.4f} ms, p99 {p99:.4f} ms per request; "
+        f"{st['batches']} micro-batches, mean fill {st['mean_fill']:.2f}; "
+        f"cache hit rate {st['cache_hit_rate']:.6g}, dup rate "
+        f"{st['dup_rate']:.6g}, {st['scored']} scored; scorer calls by "
+        f"padded width {hist}; peak device memory {peak / 2**30:.3f} GiB "
+        f"({card})")
+    log(f"[{tag}] served: all answered {ok}; live digest "
+        f"{ex.digest()[:16]} == replay_schedule on the card "
+        f"{replayed[:16]}: {replayed == ex.digest()}, == on the CPU "
+        f"(hashmix's plain version) {replayed_cpu[:16]}: "
+        f"{replayed_cpu == ex.digest()}; every answer bit for bit a value "
+        f"its key was scored to: {cache_ok} ({len(scored)} keys, {twice} "
+        f"of them scored to two values by micro-batches in flight "
+        f"together); launches {launches} for {ex.n_batches} micro-batches")
+    want_l = {c.__name__: ex.n_batches if c is hashmix else 0
+              for c in counters}
+    if not (ok and cache_ok and hash_eq
+            and replayed == replayed_cpu == ex.digest()
+            and st["completed"] == n and launches == want_l):
+        raise AssertionError(f"{tag}: the LM-scored front end is out of "
+                             f"bounds")
+    return dict(launches=launches, hash_err=hash_err, scorer=scorer,
+                scored=scored, widths=list(widths))
+
+
 def lm_decode_profile(step, params, cache, tok, b, n=2):
     """Device busy ms per decode step and its five costliest kernels (ms
     per step, launches per step), from torch.profiler over n steps."""
@@ -1367,13 +1525,8 @@ def phase_lm(card):
     shapes)."""
     import torch
     from repro_torch.configs import get_arch
-    from repro_torch.core import DedupConfig, hashing, u32
-    from repro_torch.core.engine import next_pow2
-    from repro_torch.kernels.fused_template import bitset_step, counter_step
-    from repro_torch.kernels.hashmix import hashmix, hashmix_plain
     from repro_torch.models import transformer as tfm
-    from repro_torch.serve import (make_decode_step, make_prefill_step,
-                                   replay_schedule)
+    from repro_torch.serve import make_decode_step, make_prefill_step
     torch.backends.cuda.matmul.allow_tf32 = False   # fp32 is fp32 (step 3)
     cfg = get_arch(LM_ARCH).cfg
     rng = np.random.default_rng(SEED + 20)
@@ -1456,104 +1609,23 @@ def phase_lm(card):
     lap("fp32 card against the CPU")
 
     # 4. the LM scorer behind the front end
-    dcfg = DedupConfig.for_variant("rlbsbf", memory_bits=1 << 20,
-                                   batch_size=64)
-    scorer = make_lm_scorer(cfg, params)
-    widths = []
-
-    def score(batch):
-        widths.append(max(LM_MIN_WIDTH, next_pow2(len(batch["key"]))))
-        return scorer(batch)
-
-    # set-up: a front end of its own over other keys (the reference's
-    # untimed warm-up) takes the first-use costs of the dedup step and of
-    # the scorer's widths out of the timed run
-    warm = max(512, LM_SERVE_N // 16)       # as the benchmark warms up
-    serve_clients(dcfg, request_mix(warm, seed=11), np.zeros(warm, np.int32),
-                  score, LM_CLIENTS)
-    widths.clear()
-    keys = request_mix(LM_SERVE_N, seed=7)
-    counters = (hashmix, bitset_step, counter_step)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    for c in counters:
-        c.launches = 0
-    fe, secs, lat, results = serve_clients(
-        dcfg, keys, np.zeros(LM_SERVE_N, np.int32), score, LM_CLIENTS)
-    launches = {c.__name__: c.launches for c in counters}
-    peak = torch.cuda.max_memory_allocated()
-    ex = fe.executor
-    st = fe.stats()
-    # the replays: on the card through the same kernel, and on the CPU,
-    # where the engine runs hashmix's plain version
-    replayed = replay_schedule(dcfg, ex.schedule)
-    replayed_cpu = replay_schedule(dcfg, ex.schedule, device="cpu")
-    # hashmix at the shapes this path gave it (dcfg's k and s, each
-    # recorded micro-batch width) against its plain version; these launches
-    # come after the path's counts were read
-    seeds = u32.from_numpy_u32(hashing.derive_seeds(dcfg.seed, dcfg.k, 0),
-                               "cpu")
-    hash_err, hash_eq = 0, dcfg.block_bits == 0
-    for w in sorted({w for w, _ in ex.schedule}):
-        first = next(k for ww, k in ex.schedule if ww == w)
-        hk = u32.from_numpy_u32(np.pad(first, (0, w - first.size)), "cuda")
-        got_h = hashmix(hk, seeds, s=dcfg.s)
-        want_h = hashmix_plain(hk, seeds.cuda(), dcfg.s)
-        hash_err = max(hash_err, abs_err(got_h, want_h))
-        hash_eq = hash_eq and torch.equal(got_h, want_h)
-        log(f"[lm] hashmix at this path's shape (B={w}, k={dcfg.k}, "
-            f"s={dcfg.s}): exactly equal to the plain version "
-            f"{torch.equal(got_h, want_h)}")
-    ok = all(r is not None and r.verdict == "ok" for r in results)
-    # the cache: every answer is bit for bit a value the scorer gave its
-    # key, so a key the scorer answered one way is answered identically
-    # every time; two micro-batches in flight together may both miss the
-    # cache on one key and score it twice (counted, as the reference's
-    # front end does the same)
-    scored = {}
-    for k, r in zip(keys.tolist(), results):
-        if not r.cached:
-            scored.setdefault(k, set()).add(float(r.value))
-    cache_ok = all(float(r.value) in scored.get(k, ()) for k, r in
-                   zip(keys.tolist(), results))
-    twice = sum(len(v) > 1 for v in scored.values())
+    fe = lm_front_end("lm", cfg, params, LM_SERVE_N, LM_CLIENTS, card,
+                      warm=max(512, LM_SERVE_N // 16))
+    launches, hash_err, scorer, scored = (fe["launches"], fe["hash_err"],
+                                          fe["scorer"], fe["scored"])
+    hist = {w: fe["widths"].count(w) for w in sorted(set(fe["widths"]))}
     distinct = np.fromiter(scored, np.uint32, len(scored))
     again = np.concatenate([scorer({"key": distinct[i:i + LM_RESCORE]})
                             for i in range(0, distinct.size, LM_RESCORE)])
     rescore = max(abs(float(v) - float(a))
                   for k, a in zip(distinct.tolist(), again)
                   for v in scored[k])
-    p50, p99 = np.percentile(lat, [50, 99]) * 1e3
-    hist = {w: widths.count(w) for w in sorted(set(widths))}
-    log(f"[lm] serve-lm-{LM_ARCH}-dense8-rlbsbf-1M: ServeFrontend(buckets "
-        f"(64, 256, 1024), 4 in flight, 2 ms flush) over "
-        f"{dcfg.effective_layout} rlbsbf (k={dcfg.k}, s={dcfg.s}), "
-        f"{LM_CLIENTS} closed-loop clients, {LM_SERVE_N} requests of the "
-        f"serving benchmark's mix: {st['completed'] / secs:.1f} requests/s "
-        f"(host clock); p50 {p50:.4f} ms, p99 {p99:.4f} ms per request; "
-        f"{st['batches']} micro-batches, mean fill {st['mean_fill']:.2f}; "
-        f"cache hit rate {st['cache_hit_rate']:.6g}, dup rate "
-        f"{st['dup_rate']:.6g}, {st['scored']} scored; scorer calls by "
-        f"padded width {hist}; peak device memory {peak / 2**30:.3f} GiB "
-        f"({card})")
-    log(f"[lm] served: all answered {ok}; live digest {ex.digest()[:16]} "
-        f"== replay_schedule on the card {replayed[:16]}: "
-        f"{replayed == ex.digest()}, == on the CPU (hashmix's plain "
-        f"version) {replayed_cpu[:16]}: {replayed_cpu == ex.digest()}; "
-        f"every answer bit for bit a value its key was scored to: "
-        f"{cache_ok} ({len(scored)} keys, {twice} of them scored to two "
-        f"values by micro-batches in flight together); rescored in batches "
-        f"of {LM_RESCORE}: max |diff| {rescore:.6g} (must be 0: the same "
-        f"scorer, the same bits); "
-        f"launches {launches} for {ex.n_batches} micro-batches")
-    want_l = {c.__name__: ex.n_batches if c is hashmix else 0
-              for c in counters}
-    if not (ok and cache_ok and hash_eq
-            and replayed == replayed_cpu == ex.digest()
-            and st["completed"] == LM_SERVE_N and launches == want_l
-            and rescore == 0.0):
-        raise AssertionError("lm: the LM-scored front end is out of bounds")
-    del fe, ex, results
+    log(f"[lm] served values rescored in batches of {LM_RESCORE}: max "
+        f"|diff| {rescore:.6g} (must be 0: the same scorer, the same bits)")
+    if rescore != 0.0:
+        raise AssertionError("lm: a served value differs from rescoring "
+                             "its key")
+    del fe
     lap("serving")
     prefill = make_prefill_step(cfg)
     for w in LM_WIDTHS:
@@ -1617,9 +1689,276 @@ def phase_lm(card):
         del cache, lg
         torch.cuda.empty_cache()
     lap("decode timing")
-    del params
+    del params, scorer      # the scorer holds the params
     torch.cuda.empty_cache()
     return launches, hash_err
+
+
+@contextlib.contextmanager
+def recorded_routes():
+    """Records the expert ids of every MoE dispatch inside the block: one
+    (ids (n_groups, T, k) on the card, capacity, n_experts) per call, by
+    wrapping ``models.moe._route`` for the block's length (no host
+    read)."""
+    from repro_torch.models import moe
+    calls, route = [], moe._route
+
+    def recording(params, x, cfg):
+        ids, w = route(params, x, cfg)
+        calls.append((ids, moe._capacity(x.shape[-2], cfg), cfg.n_experts))
+        return ids, w
+
+    moe._route = recording
+    try:
+        yield calls
+    finally:
+        moe._route = route
+
+
+def dropped_pairs(calls) -> list:
+    """The (token, slot) pairs past their expert's capacity, per recorded
+    dispatch."""
+    import torch
+    out = []
+    for ids, cap, n_experts in calls:
+        flat = ids.reshape(ids.shape[0], -1)
+        load = torch.zeros((flat.shape[0], n_experts), dtype=torch.int64,
+                           device=flat.device).scatter_add_(
+            1, flat, torch.ones_like(flat))
+        out.append(int((load - cap).clamp(min=0).sum()))
+    return out
+
+
+def host_available_gb() -> float:
+    """The host's available memory in GB (``MemAvailable``)."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024 / 1e9
+    return float("nan")
+
+
+def moe_fp32_checks(arch_id, cfg, spec, rng, card):
+    """fp32 at full width, ``fp32_layers`` layers, TF32 off: the card's
+    prefill against the CPU's on the same weights; on the card
+    teacher-forced ``decode_step`` against ``prefill`` at capacity factor
+    n_experts / top_k (no pair can drop at any T, so the two route alike),
+    both MLA decode forms against each other; one MoE layer's einsum
+    dispatch against its sort dispatch at T = MOE_DISPATCH_T, nothing
+    dropped. Each within LM_FP32_TOL of the max |value|."""
+    import torch
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tfm
+    c32 = dataclasses.replace(cfg, n_layers=spec["fp32_layers"],
+                              dtype=torch.float32)
+    log(f"[moe] {arch_id} fp32: host memory available "
+        f"{host_available_gb():.1f} GB before a "
+        f"{spec['fp32_params'] * 4 / 1e9:.1f} GB copy to the host")
+    t0 = time.perf_counter()
+    gpu = tfm.init(c32, SEED)
+    n32 = sum(p.numel() for p in gpu.parameters())
+    cpu = copy.deepcopy(gpu).cpu()
+    t_copy = time.perf_counter() - t0
+    b, s = MOE_CPU
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (b, s)).astype(
+        np.int32))
+    t0 = time.perf_counter()
+    want = tfm.prefill(c32, cpu, toks)
+    t_cpu = time.perf_counter() - t0
+    del cpu
+    tc = toks.cuda()
+    err_cpu = lm_rel_err(tfm.prefill(c32, gpu, tc).cpu(), want)
+    del want
+    lossless = dataclasses.replace(
+        c32, capacity_factor=cfg.n_experts / cfg.moe_top_k)
+    full = tfm.prefill(lossless, gpu, tc)
+    forms = (True, False) if cfg.use_mla else (cfg.mla_absorb,)
+    caches = {a: tfm.init_cache(lossless, b, s) for a in forms}
+    err_dec = dict.fromkeys(forms, 0.0)
+    err_forms = 0.0
+    for t in range(s):
+        pos = torch.full((b,), t, dtype=torch.int32, device="cuda")
+        lg = {}
+        for a in forms:
+            lg[a], _ = tfm.decode_step(
+                dataclasses.replace(lossless, mla_absorb=a), gpu, caches[a],
+                tc[:, t], pos)
+            err_dec[a] = max(err_dec[a], lm_rel_err(lg[a], full[:, t]))
+        if len(forms) == 2:
+            err_forms = max(err_forms, lm_rel_err(lg[False], lg[True]))
+    del full, caches, lg
+    mcfg = lossless.moe_cfg
+    x = torch.from_numpy(rng.standard_normal(
+        (MOE_DISPATCH_T, cfg.d_model)).astype(np.float32)).cuda()
+    with torch.inference_mode(), recorded_routes() as calls:
+        layer = gpu["layers"][0]["moe"]
+        by_einsum = moe.moe_apply(layer, x, mcfg._replace(dispatch="einsum"))
+        by_sort = moe.moe_apply(layer, x, mcfg._replace(dispatch="sort"))
+    drops = dropped_pairs(calls)
+    err_disp = lm_rel_err(by_einsum, by_sort)
+    forms_txt = (f"; absorbed == naive decode {err_forms:.6g}"
+                 if len(forms) == 2 else "")
+    log(f"[moe] {arch_id} fp32 at full width, {c32.n_layers} layers "
+        f"({n32} parameters; {c32.first_dense_layers} dense), TF32 off, "
+        f"max |diff| / max |value|: card == CPU prefill (B {b}, S {s}) "
+        f"{err_cpu:.6g}; decode == prefill at capacity factor "
+        f"{lossless.capacity_factor:g} "
+        + ", ".join(f"({'absorbed' if a else 'naive'}) {err_dec[a]:.6g}"
+                    for a in forms)
+        + f"{forms_txt}; einsum == sort dispatch (T {MOE_DISPATCH_T}, "
+        f"capacity {moe._capacity(MOE_DISPATCH_T, mcfg)}, pairs dropped "
+        f"{drops}) {err_disp:.6g}; tolerance {LM_FP32_TOL}; init and copy "
+        f"to the host {t_copy:.1f} s, CPU prefill {t_cpu:.1f} s ({card})")
+    if not (n32 == spec["fp32_params"] and max(
+            err_cpu, err_disp, err_forms, *err_dec.values()) <= LM_FP32_TOL
+            and drops == [0, 0]):
+        raise AssertionError(f"moe: {arch_id}'s fp32 checks are out of "
+                             f"bounds")
+    del gpu, by_einsum, by_sort, x
+    torch.cuda.empty_cache()
+
+
+def phase_moe(card):
+    """The MoE LMs on the card at their published widths, bf16, seeded,
+    depth cut (``MOE_ARCHS``), one model on the card at a time: the
+    parameter counts (the cut ones on the card, full depth on the meta
+    device); the fp32 checks (``moe_fp32_checks``); a prefill of B 4, S 256
+    (finite, its shape, the pairs dropped per MoE layer at the published
+    capacity), decode against it (printed, not gated: in bf16 a near tie
+    in the router may pick other experts on either path), and greedy
+    decode timed beside its weight-read bound; then deepseek behind
+    ``ServeFrontend`` (``lm_front_end``). -> (the front end's kernel
+    launches, hashmix's largest difference from its plain version at the
+    front end's shapes)."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serve import make_decode_step, make_prefill_step
+    torch.backends.cuda.matmul.allow_tf32 = False   # fp32 is fp32
+    rng = np.random.default_rng(SEED + 22)
+    served = None
+    held = torch.cuda.memory_allocated()
+    for arch_id, spec in MOE_ARCHS.items():
+        t_arch = time.perf_counter()
+        cfg = get_arch(arch_id).cfg
+        moe_fp32_checks(arch_id, cfg, spec, rng, card)
+        t_fp32 = time.perf_counter() - t_arch
+        cut = dataclasses.replace(cfg, n_layers=spec["layers"])
+        counts = (cfg.param_count(), cfg.active_param_count(),
+                  cut.param_count())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params = tfm.init(cut, SEED)
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in params.parameters())
+        w_bytes = sum(p.numel() * p.element_size()
+                      for p in params.parameters())
+        attn = (f"MLA latent {cfg.kv_lora_rank}" if cfg.use_mla
+                else f"GQA {cfg.n_kv_heads} KV heads")
+        log(f"[moe] {arch_id}: {cut.n_layers} of {cfg.n_layers} layers "
+            f"({cut.first_dense_layers} dense), d {cfg.d_model}, "
+            f"{cfg.n_heads} heads, {cfg.n_experts} experts top-"
+            f"{cfg.moe_top_k} (+{cfg.n_shared_experts} shared) of d_ff "
+            f"{cfg.d_ff_expert}, {attn}, "
+            f"{cfg.attention}, {cfg.moe_dispatch} dispatch, vocab "
+            f"{cfg.vocab}, {cut.dtype}: {n_params} parameters "
+            f"({w_bytes / 1e9:.4f} GB) on {params['embed'].device}, seeded "
+            f"init {t_init:.2f} s; full depth on the meta device "
+            f"{counts[0]} parameters, {counts[1]} active")
+        if not (n_params == counts[2] == spec["params"]
+                and counts[:2] == (spec["full"], spec["active"])
+                and params["embed"].device.type == "cuda"):
+            raise AssertionError(f"moe: {arch_id}'s parameter counts")
+
+        B, S = MOE_PREFILL
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab, (B, S)).astype(
+            np.int32)).cuda()
+        prefill = make_prefill_step(cut)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with recorded_routes() as calls:
+            full = prefill(params, toks)
+        drops = dropped_pairs(calls)
+        peak = torch.cuda.max_memory_allocated()
+        pre_ms = wall_ms(lambda i: prefill(params, toks), 2)
+        finite = bool(torch.isfinite(full).all())
+        step = make_decode_step(cut)
+        cache = tfm.init_cache(cut, B, S)
+        worst = 0.0
+        for t in range(MOE_TEACHER):
+            lg, _ = step(params, cache, toks[:, t], torch.full(
+                (B,), t, dtype=torch.int32, device="cuda"))
+            worst = max(worst, lm_rel_err(lg, full[:, t]))
+        pairs = B * S * cfg.moe_top_k
+        log(f"[moe] {arch_id} prefill (B {B}, S {S}): logits "
+            f"{tuple(full.shape)} {full.dtype}, finite {finite}; "
+            f"{pre_ms:.4f} ms per call by CUDA events; peak device memory "
+            f"{peak / 2**30:.3f} GiB; (token, slot) pairs dropped per MoE "
+            f"layer at capacity factor {cfg.capacity_factor:g} (capacity "
+            f"{calls[0][1]} of {pairs} pairs over {cfg.n_experts} experts):"
+            f" {drops}, {sum(drops) / (pairs * len(drops)):.6f} of all; "
+            f"bf16 decode vs prefill over positions 0 - {MOE_TEACHER - 1} "
+            f"(printed, not gated): max |diff| / max |logit| {worst:.6g} "
+            f"({card})")
+        if not (finite and tuple(full.shape) == (B, S, cfg.vocab)
+                and len(drops) == cut.n_layers - cut.first_dense_layers):
+            raise AssertionError(f"moe: {arch_id}'s bf16 prefill")
+        del full, cache, lg
+
+        b, n_tok, slots = MOE_DECODE
+        cache = tfm.init_cache(cut, b, slots)
+        c_bytes = sum(c.numel() * c.element_size() for c in cache.values())
+        tok = torch.from_numpy(rng.integers(0, cfg.vocab, b).astype(
+            np.int32)).cuda()
+        step(params, cache, tok, torch.zeros(b, dtype=torch.int32,
+                                             device="cuda"))
+        cache["kpos"].fill_(-1)                 # the warm step, forgotten
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(n_tok):
+            lg, _ = step(params, cache, tok, torch.full(
+                (b,), t, dtype=torch.int32, device="cuda"))
+            tok = lg.argmax(-1).to(torch.int32)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / n_tok * 1e3
+        busy, n_ops, n_kern, top = profile_train_step(lambda: step(
+            params, cache, tok, torch.full((b,), n_tok, dtype=torch.int32,
+                                           device="cuda")))
+        bound = w_bytes / HBM_BYTES_PER_S * 1e3
+        dev = ("not measured" if busy is None else
+               f"{busy:.4f} ms (idle share {max(0.0, 1 - busy / ms):.4f}; "
+               f"{n_kern} kernels; the costliest {top})")
+        log(f"[moe] decode-{arch_id}-{cut.n_layers}L-b{b}: greedy over a "
+            f"{slots}-slot cache ({c_bytes / 1e9:.4f} GB), {n_tok} tokens: "
+            f"{ms:.4f} ms per step, {b * 1e3 / ms:.1f} tokens/s; device "
+            f"busy per step {dev}; {n_ops} aten ops per step; weight-read "
+            f"bound {bound:.4f} ms ({w_bytes / 1e9:.4f} GB at 3.35 TB/s: "
+            f"the sort dispatch's grouped einsum reads every expert), "
+            f"{bound / ms:.4f} of it ({card})")
+        if not bool(torch.isfinite(lg).all()):
+            raise AssertionError(f"moe: {arch_id}'s decode is not finite")
+        del cache, lg
+        torch.cuda.empty_cache()
+        if arch_id == MOE_SERVE_ARCH:
+            log(f"[moe] {arch_id} served: no rescoring check: an MoE "
+                f"layer's capacity counts the tokens routed together, so a "
+                f"key's score depends on its batch mates, as in the "
+                f"reference")
+            fe = lm_front_end("moe", cut, params, MOE_SERVE_N, MOE_CLIENTS,
+                              card, warm=MOE_WARM)
+            served = fe["launches"], fe["hash_err"]
+            del fe                  # its scorer holds the params
+        del params
+        torch.cuda.empty_cache()
+        log(f"[moe] {arch_id}: {time.perf_counter() - t_arch:.1f} s "
+            f"(fp32 checks {t_fp32:.1f} s); device memory allocated "
+            f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB, "
+            f"{held / 2**30:.3f} GiB before the phase")
+    # the models are gone: the next phase has the card the phase found
+    if torch.cuda.memory_allocated() > held + 2**30:
+        raise AssertionError("moe: a model outlived the phase")
+    return served
 
 
 class TrainProbe:
@@ -3590,6 +3929,9 @@ def main() -> int:
     lm_launches, lm_hash_err = phase_lm(card)
     err["hashmix"] = max(err["hashmix"], lm_hash_err)
     stamp("lm")
+    moe_launches, moe_hash_err = phase_moe(card)
+    err["hashmix"] = max(err["hashmix"], moe_hash_err)
+    stamp("moe")
     train_launches, train_hash_err = phase_train(card)
     err["hashmix"] = max(err["hashmix"], train_hash_err)
     stamp("train")
@@ -3619,10 +3961,11 @@ def main() -> int:
     # that carries it: the standalone hashmix is the sbf path's (the rlbsbf
     # path's bitset step hashes its keys itself), fused_probe and the
     # standalone bloom_probe the ops path's
-    # hashmix: the sbf path's launches, the LM-scored front end's and the
-    # trainer's dedup stage's
+    # hashmix: the sbf path's launches, the two LM-scored front ends' and
+    # the trainer's dedup stage's
     hashmix_launches = {"hashmix": sbf_launches["hashmix"]
                         + lm_launches["hashmix"]
+                        + moe_launches["hashmix"]
                         + train_launches["hashmix"]}
     rows = [
         ("hashmix", "hashmix.cu", "hashmix.py:46", hashmix_launches,

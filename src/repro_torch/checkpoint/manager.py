@@ -21,7 +21,9 @@ list or tuple index as the index, a ``FilterState`` or ``WindowRing`` field
 filter without a ring) is no leaf. A model's ``Params`` module is the
 reference's param tree: a ``ModuleList`` of layers is written as one
 leaf per parameter name stacked on a leading L axis
-(``params/layers/attn/wq`` is (L, d, H, hd)), and a ``Params`` template
+(``params/layers/attn/wq`` is (L, d, H, hd)), a ``LayerList`` (the
+reference's Python list ``dense_layers``) as one leaf per layer and name
+(``params/dense_layers/0/attn/norm``), and a ``Params`` template
 restores into a new module of the same structure — so a trainer's tree
 ``{"params", "opt_state", "dedup"}`` crosses either way. A pipeline's
 ``state_dict()`` gives ``filter_state/.bits``, ``filter_state/.position``,
@@ -104,7 +106,7 @@ def _leaves(tree, prefix: str = "") -> Iterator[Tuple[str, Any]]:
     elif isinstance(tree, nn.Module):
         for lf in module_leaves(tree):
             parts = [t.detach().cpu() for t in lf.tensors]
-            yield (_join(prefix, "/".join(lf.path)),
+            yield (_join(prefix, "/".join(map(str, lf.path))),
                    torch.stack(parts) if lf.stacked else parts[0])
     elif isinstance(tree, dict):
         for k in sorted(tree):
@@ -175,7 +177,7 @@ def _unflatten(template, flat: dict, prefix: str = ""):
         tensors = {}
         for lf in module_leaves(template):
             val = _restore_leaf(lf.tensors[0], flat,
-                                _join(prefix, "/".join(lf.path)))
+                                _join(prefix, "/".join(map(str, lf.path))))
             parts = val.unbind(0) if lf.stacked else (val,)
             tensors.update(zip(lf.keys, parts))
         return rebuild_params(template, tensors)

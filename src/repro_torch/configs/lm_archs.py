@@ -1,8 +1,7 @@
 """The five assigned LM transformer architectures (exact public configs),
-as data — the port's copy of ``repro.configs.lm_archs``. The dense three
-(codeqwen1.5-7b, qwen3-8b, h2o-danube-3-4b) run; the MoE / MLA two
-(deepseek-v2-236b, mixtral-8x7b) are registered so ``get_arch`` knows
-them, and their model entry points raise until ROADMAP item 14c.
+as data — the port's copy of ``repro.configs.lm_archs``: the dense three
+(codeqwen1.5-7b, qwen3-8b, h2o-danube-3-4b) and the MoE two
+(mixtral-8x7b; deepseek-v2-236b with MLA).
 
 The ``accum`` factors are the reference's per train cell.
 """

@@ -26,9 +26,12 @@ with ``fleet=True``: every leaf carries a leading axis of T =
 
 An LM's weights cross as the reference's param tree of numpy leaves
 (``jax.tree.map(np.asarray, params)``: ``embed``, ``layers`` with every
-leaf stacked on a leading L axis, ``final_norm``, ``lm_head``) through
+leaf stacked on a leading axis of n_layers - first_dense_layers,
+``final_norm``, ``lm_head``, and where there are dense first layers
+``dense_layers``, a Python list of unstacked layers) through
 ``transformer_params_from_numpy`` / ``transformer_params_to_numpy``, and
-its decode cache (``k``, ``v``, ``kpos``, stacked on L) through
+its decode cache (``k``, ``v`` or MLA's ``ckv``, ``kpe``, and ``kpos``,
+stacked on all n_layers) through
 ``decode_cache_from_numpy`` / ``decode_cache_to_numpy``, and its
 optimizer state (``OptState(step, m, v)``, the moments in the param
 tree's structure, stacked) through ``opt_state_from_numpy`` /
@@ -133,29 +136,19 @@ def state_to_numpy(state: FilterState) -> dict:
 
 # ------------------------------------------------------------- LM weights //
 
-def _tree_paths(cfg) -> dict:
-    """{path in the reference's tree: (name in the port's module, meta
-    parameter)}; a ``layers`` path stands for its stacked (L, ...) leaf."""
-    from .models import transformer as tfm
-    out = {}
-    for name, p in tfm._build(cfg, None, torch.device("meta")
-                              ).named_parameters():
-        parts = name.split(".")
-        if parts[0] == "layers":
-            if parts[1] != "0":
-                continue
-            parts = ["layers"] + parts[2:]
-        out[tuple(parts)] = (name, p)
-    return out
-
-
 def _flatten(tree, prefix=()) -> dict:
+    """{path: leaf} of a tree of dicts and lists (a list's index an int,
+    as in ``layers.module_leaves``)."""
     if isinstance(tree, dict):
-        out = {}
-        for k, v in tree.items():
-            out.update(_flatten(v, prefix + (k,)))
-        return out
-    return {prefix: tree}
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {prefix: tree}
+    out = {}
+    for k, v in items:
+        out.update(_flatten(v, prefix + (k,)))
+    return out
 
 
 def _host_leaf(x) -> np.ndarray:
@@ -166,69 +159,56 @@ def _host_leaf(x) -> np.ndarray:
     return x.numpy().copy()
 
 
+def _path_name(path) -> str:
+    return "/".join(map(str, path))
+
+
 def transformer_params_from_numpy(cfg: tfm.TransformerConfig, tree: dict,
                                   device=None) -> tfm.Params:
     """The port's params (``models.transformer``) from the reference's
     param tree of numpy leaves, each cast to the port's dtype for it
-    (``cfg.dtype``; fp32 norms). Every leaf must be there with the config's
-    shape; any other leaf is refused."""
+    (``cfg.dtype``; fp32 norms and router). Every leaf must be there with
+    the config's shape; any other leaf is refused."""
     from .models import transformer as tfm
+    from .models.layers import module_leaves, rebuild_params
     device = resolve_device(device)
-    want = _tree_paths(cfg)
+    template = tfm._build(cfg, None, torch.device("meta"))
+    want = {lf.path: lf for lf in module_leaves(template)}
     got = _flatten(tree)
     if set(got) != set(want):
         raise ValueError(
             f"param tree leaves differ from the config's: missing "
-            f"{sorted('/'.join(p) for p in set(want) - set(got))}, unknown "
-            f"{sorted('/'.join(p) for p in set(got) - set(want))}")
-    L = cfg.n_layers
-    params = tfm._build(cfg, None, torch.device("meta"))
+            f"{sorted(map(_path_name, set(want) - set(got)))}, unknown "
+            f"{sorted(map(_path_name, set(got) - set(want)))}")
     tensors = {}
-    for path, (name, meta) in want.items():
+    for path, lf in want.items():
         arr = np.asarray(got[path])
-        shape = ((L,) if path[0] == "layers" else ()) + tuple(meta.shape)
-        if arr.shape != shape:
-            raise ValueError(f"{'/'.join(path)}: shape {shape} expected, "
-                             f"got {arr.shape}")
-        if path[0] == "layers":
-            for i in range(L):
-                tensors[name.replace("layers.0.", f"layers.{i}.", 1)] = (
-                    arr[i], meta.dtype)
-        else:
-            tensors[name] = (arr, meta.dtype)
-    for name, (arr, dtype) in tensors.items():
-        *mods, leaf = name.split(".")
-        owner = params
-        for m in mods:
-            owner = owner[int(m)] if m.isdigit() else owner[m]
-        owner[leaf] = torch.from_numpy(np.array(arr, np.float32)).to(
-            device=device, dtype=dtype)
-    return params
+        if arr.shape != lf.ref_shape:
+            raise ValueError(f"{_path_name(path)}: shape {lf.ref_shape} "
+                             f"expected, got {arr.shape}")
+        parts = arr if lf.stacked else [arr]
+        for key, meta, part in zip(lf.keys, lf.tensors, parts):
+            tensors[key] = torch.from_numpy(np.array(part, np.float32)).to(
+                device=device, dtype=meta.dtype)
+    return rebuild_params(template, tensors)
 
 
 def transformer_params_to_numpy(cfg: tfm.TransformerConfig, params) -> dict:
-    """The reference's param tree (numpy leaves, ``layers`` stacked on L)
-    of the port's params; bf16 weights come back as float32."""
-    out: dict = {}
-    for path, (name, _) in _tree_paths(cfg).items():
-        if path[0] == "layers":
-            arr = np.stack([
-                _host_leaf(params.get_parameter(
-                    name.replace("layers.0.", f"layers.{i}.", 1)))
-                for i in range(cfg.n_layers)])
-        else:
-            arr = _host_leaf(params.get_parameter(name))
-        node = out
-        for p in path[:-1]:
-            node = node.setdefault(p, {})
-        node[path[-1]] = arr
-    return out
+    """The reference's param tree (numpy leaves, ``layers`` stacked,
+    ``dense_layers`` a list) of the port's params; bf16 weights come back
+    as float32."""
+    from .models.layers import module_leaves, ref_tree
+    return ref_tree(
+        (lf.path, np.stack([_host_leaf(t) for t in lf.tensors])
+         if lf.stacked else _host_leaf(lf.tensors[0]))
+        for lf in module_leaves(params))
 
 
 def decode_cache_from_numpy(cfg: tfm.TransformerConfig, cache: dict,
                             device=None) -> dict:
-    """The port's decode cache from the reference's (``k``, ``v``,
-    ``kpos`` stacked on L), checked against ``cache_spec``."""
+    """The port's decode cache from the reference's (``k``, ``v`` or
+    ``ckv``, ``kpe``, and ``kpos``, stacked on L), checked against
+    ``cache_spec``."""
     from .models import transformer as tfm
     device = resolve_device(device)
     kpos = np.asarray(cache["kpos"])
@@ -258,6 +238,8 @@ def decode_cache_to_numpy(cache: dict) -> dict:
 def _map_tree(tree, fn):
     if isinstance(tree, dict):
         return {k: _map_tree(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map_tree(v, fn) for v in tree]
     return fn(tree)
 
 

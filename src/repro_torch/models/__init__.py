@@ -1,6 +1,8 @@
-"""Model families of the port. The dense decoder (``transformer``) serves
-on the card; MoE, MLA, GNN and recsys wait for their own slices."""
+"""Model families of the port. The decoder-only transformer
+(``transformer``: dense, MoE and MLA stacks, the five LM archs) and its
+MoE FFN (``moe``) serve on the card; GNN and recsys wait for their own
+slice."""
 
-from . import layers, transformer
+from . import layers, moe, transformer
 
-__all__ = ["layers", "transformer"]
+__all__ = ["layers", "moe", "transformer"]

@@ -1,5 +1,5 @@
 """Shared neural-net layers of the port — the counterpart of
-``repro.models.layers`` (the parts the dense LM runs: serving, and its
+``repro.models.layers`` (the parts the LMs run: serving, and the
 training objective ``weighted_xent``).
 
 Conventions, as in the reference:
@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import List, NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -62,11 +62,19 @@ class Params(nn.Module):
         return getattr(self, name)
 
 
+class LayerList(nn.ModuleList):
+    """Layers the reference keeps in a Python list (deepseek's
+    ``dense_layers``), not stacked: each layer's parameters are leaves of
+    their own under its index (``dense_layers/0/attn/norm``), where a
+    plain ``ModuleList`` is one stacked leaf per name."""
+
+
 class Leaf(NamedTuple):
-    """One leaf of the reference's param tree: its path, the port's
-    tensors that make it (one, or one per layer of a leaf the reference
-    stacks on a leading L axis) and their names in the port's module."""
-    path: Tuple[str, ...]
+    """One leaf of the reference's param tree: its path (a list's index
+    an int), the port's tensors that make it (one, or one per layer of a
+    leaf the reference stacks on a leading L axis) and their names in the
+    port's module."""
+    path: Tuple[Union[str, int], ...]
     tensors: List[torch.Tensor]
     keys: list
     stacked: bool
@@ -82,7 +90,11 @@ def _leaves_of(mod: nn.Module, path: tuple, prefix: str):
     for name, p in mod.named_parameters(recurse=False):
         yield Leaf(path + (name,), [p], [prefix + name], False)
     for name, sub in mod.named_children():
-        if isinstance(sub, nn.ModuleList):
+        if isinstance(sub, LayerList):
+            for i, m in enumerate(sub):
+                yield from _leaves_of(m, path + (name, i),
+                                      f"{prefix}{name}.{i}.")
+        elif isinstance(sub, nn.ModuleList):
             per = [list(_leaves_of(m, path + (name,), f"{prefix}{name}.{i}."))
                    for i, m in enumerate(sub)]
             for group in zip(*per):
@@ -94,10 +106,31 @@ def _leaves_of(mod: nn.Module, path: tuple, prefix: str):
 
 def module_leaves(mod: nn.Module) -> List[Leaf]:
     """The reference's leaves of a ``Params`` tree, in its tree order
-    (sorted keys at every level): a ``ModuleList`` of like modules is one
-    stacked leaf per parameter name, as the reference's scanned
-    ``layers``."""
+    (sorted keys at every level, a list's items in order): a
+    ``ModuleList`` of like modules is one stacked leaf per parameter
+    name, as the reference's scanned ``layers``; a ``LayerList`` is its
+    Python list of unstacked layers."""
     return sorted(_leaves_of(mod, (), ""), key=lambda lf: lf.path)
+
+
+def ref_tree(items) -> dict:
+    """The reference's nested tree of (path, value) pairs: dicts, and a
+    list where the keys are a list's indices (``dense_layers``)."""
+    out: dict = {}
+    for path, value in items:
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = value
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        if node and all(isinstance(k, int) for k in node):
+            return [lists(node[i]) for i in range(len(node))]
+        return {k: lists(v) for k, v in node.items()}
+
+    return lists(out)
 
 
 def rebuild_params(template: nn.Module, tensors: dict) -> nn.Module:
@@ -105,8 +138,8 @@ def rebuild_params(template: nn.Module, tensors: dict) -> nn.Module:
     port's parameter name -> tensor)."""
     def build(mod, prefix):
         if isinstance(mod, nn.ModuleList):
-            return nn.ModuleList(build(m, f"{prefix}{i}.")
-                                 for i, m in enumerate(mod))
+            return type(mod)(build(m, f"{prefix}{i}.")
+                             for i, m in enumerate(mod))
         out = Params()
         for name, _ in mod.named_parameters(recurse=False):
             out[name] = tensors[prefix + name]

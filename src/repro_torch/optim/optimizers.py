@@ -6,7 +6,8 @@ keeps its moments in the param dtype and rounds differently).
 What they take, and the reference's tree they keep:
 
   * ``params`` — the port's ``Params`` module tree (``models.layers``; a
-    ``ModuleList`` holds what the reference stacks on a leading L axis).
+    ``ModuleList`` holds what the reference stacks on a leading L axis,
+    a ``LayerList`` what it keeps in a Python list).
     Updated in place (the reference returns a new tree from donated
     buffers) and returned.
   * ``grads`` — {parameter name (``named_parameters``): gradient}. Any
@@ -23,10 +24,11 @@ What they take, and the reference's tree they keep:
     nothing from the card.
 
 Weight decay follows the reference's rule ``p.ndim >= 2`` on ITS leaf: a
-stacked (L, d) norm scale is decayed, the model's (d,) ``final_norm`` is
-not — decided by the reference's rank, never by the port's per-layer (d,)
-tensor. No quotient is written ``scalar / tensor``: torch evaluates that
-as a reciprocal and a product, not the reference's quotient.
+stacked (L, d) norm scale is decayed; the model's (d,) ``final_norm`` and
+the norms of deepseek's unstacked ``dense_layers`` are not — decided by
+the reference's rank, never by the port's per-layer (d,) tensor. No
+quotient is written ``scalar / tensor``: torch evaluates that as a
+reciprocal and a product, not the reference's quotient.
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ from typing import List, NamedTuple
 
 import torch
 
-from ..models.layers import Leaf, module_leaves
+from ..models.layers import Leaf, module_leaves, ref_tree
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,16 +67,6 @@ def _wide(dtype: torch.dtype) -> torch.dtype:
     return torch.promote_types(dtype, torch.float32)
 
 
-def _tree_from(leaves: List[Leaf], make) -> dict:
-    out: dict = {}
-    for lf in leaves:
-        node = out
-        for k in lf.path[:-1]:
-            node = node.setdefault(k, {})
-        node[lf.path[-1]] = make(lf)
-    return out
-
-
 def _views(tree, lf: Leaf) -> List[torch.Tensor]:
     """The per-tensor pieces of a state leaf: a stacked leaf's layer
     views, or the leaf itself."""
@@ -92,9 +84,9 @@ def init_opt_state(cfg: OptimizerConfig, params) -> OptState:
         return torch.zeros(lf.ref_shape if shape is None else shape,
                            dtype=_wide(t.dtype), device=t.device)
 
-    m = _tree_from(leaves, zeros)
-    v = _tree_from(leaves, zeros if cfg.kind == "adamw" else
-                   lambda lf: zeros(lf, ()))
+    m = ref_tree((lf.path, zeros(lf)) for lf in leaves)
+    v = ref_tree((lf.path, zeros(lf) if cfg.kind == "adamw" else
+                  zeros(lf, ())) for lf in leaves)
     return OptState(step=torch.zeros((), dtype=torch.int32), m=m, v=v)
 
 

@@ -26,17 +26,20 @@ from repro.configs.registry import LMArch as JLMArch
 from repro.models import layers as JL
 from repro.models import transformer as JT
 from repro.optim import OptimizerConfig as JOptConfig
+from repro.optim import apply_updates as j_apply_updates
 from repro.optim import init_opt_state as j_init_opt
 from repro.train.steps import make_train_step as j_make_train_step
 from repro_torch import convert
 from repro_torch.configs import LMArch
 from repro_torch.models import layers as TL
 from repro_torch.models import transformer as TT
-from repro_torch.models.layers import rebuild_params
-from repro_torch.optim import OptimizerConfig, init_opt_state
+from repro_torch.models.layers import module_leaves, rebuild_params
+from repro_torch.optim import (OptimizerConfig, apply_updates,
+                               init_opt_state)
 from repro_torch.train import make_train_step
 
 DENSE = ("qwen3-8b", "codeqwen1.5-7b", "h2o-danube-3-4b")
+MOE = ("mixtral-8x7b", "deepseek-v2-236b")
 B, S = 4, 40          # S past the smoke configs' 32-wide attention blocks
 WEIGHTS = np.array([1.0, 0.0, 0.5, 1.0], np.float32)   # one record dropped
 
@@ -59,8 +62,8 @@ def model(arch_id):
     and a dead weight are in the tree."""
     rc = j_get_arch(arch_id).smoke()
     rp = JT.init(rc, jax.random.PRNGKey(0))
-    rp["layers"]["ffn"]["w_up"] = rp["layers"]["ffn"]["w_up"].at[:, :, :3
-                                                               ].set(0.0)
+    ffn = rp["layers"]["moe" if rc.is_moe else "ffn"]
+    ffn["w_up"] = ffn["w_up"].at[..., :3].set(0.0)
     rp["lm_head"] = rp["lm_head"].at[:, :7].set(0.0)
     tc = TT.TransformerConfig(**dataclasses.asdict(rc))
     toks = np.random.default_rng(1).integers(0, rc.vocab, (B, S + 1)
@@ -116,10 +119,12 @@ def ref_forward(arch_id):
     return float(l), np.asarray(logits), jax.tree.map(np.asarray, g)
 
 
-@pytest.mark.parametrize("arch_id", DENSE)
+@pytest.mark.parametrize("arch_id", DENSE + MOE)
 def test_forward_and_grads_match_reference(arch_id):
     """Loss and logits within 1e-5, every gradient leaf within 1e-4 of
-    its max |g| — the zeroed leaves' gradients included."""
+    its max |g| — the zeroed leaves' gradients included; for the MoE
+    configs the router's and the experts', and deepseek's MLA and its
+    unstacked dense first layer."""
     _, rp, tc, toks = model(arch_id)
     want_l, want_logits, want_g = ref_forward(arch_id)
     params = port_params(tc, rp)
@@ -230,20 +235,25 @@ def test_make_train_step_refuses_a_ragged_split():
         step(params, init_opt_state(OptimizerConfig(), params), t(toks))
 
 
-@pytest.mark.parametrize("arch_id", ("qwen3-8b", "h2o-danube-3-4b"))
+@pytest.mark.parametrize("arch_id", ("qwen3-8b", "h2o-danube-3-4b") + MOE)
 def test_lm_arch_train_step_matches_reference(arch_id):
     """``LMArch(...).step("train_4k")`` at the smoke config — the
-    reference's optimizer and its accumulation factor (4 / 2) — one step
-    against the reference's."""
+    reference's optimizer and its accumulation factor (4 / 2 / 4 / 8) —
+    one step against the reference's. The batch is B rows, or one row
+    per microbatch where the factor is larger (deepseek's 8)."""
     rc, rp, tc, toks = model(arch_id)
-    jarch = JLMArch(arch_id, rc, accum=j_get_arch(arch_id).accum)
-    tarch = LMArch(arch_id, tc, accum=dict(j_get_arch(arch_id).accum))
+    accum = j_get_arch(arch_id).accum
+    n = max(B, accum["train_4k"])
+    toks = np.resize(toks, (n, S + 1))
+    weights = np.resize(WEIGHTS, n)
+    jarch = JLMArch(arch_id, rc, accum=accum)
+    tarch = LMArch(arch_id, tc, accum=dict(accum))
     jp, tp = rp, port_params(tc, rp)
     js = j_init_opt(jarch.opt_config(), jp)
     ts = init_opt_state(tarch.opt_config(), tp)
     jp, js, jm = jax.jit(jarch.step("train_4k"))(
-        jp, js, jnp.asarray(toks), jnp.asarray(WEIGHTS))
-    tp, ts, tm = tarch.step("train_4k")(tp, ts, t(toks), t(WEIGHTS))
+        jp, js, jnp.asarray(toks), jnp.asarray(weights))
+    tp, ts, tm = tarch.step("train_4k")(tp, ts, t(toks), t(weights))
     assert abs(float(tm["loss"]) - float(jm["loss"])) <= \
         1e-5 * abs(float(jm["loss"]))
     assert abs(float(tm["grad_norm"]) - float(jm["grad_norm"])) <= \
@@ -252,6 +262,43 @@ def test_lm_arch_train_step_matches_reference(arch_id):
     for path, want in jax.tree_util.tree_flatten_with_path(jp)[0]:
         have = dict(jax.tree_util.tree_flatten_with_path(got)[0])[path]
         assert rel_err(have, want) <= 1e-4, jax.tree_util.keystr(path)
+
+
+def test_dense_layers_are_unstacked_leaves():
+    """deepseek's dense first layer is a list item of the reference's
+    tree: ``module_leaves`` gives its parameters as unstacked leaves
+    (``dense_layers/0/...``), so AdamW leaves its (d,) norms undecayed
+    while the stacked (L, d) norms of ``layers`` decay — with zero
+    gradients one step moves exactly the decayed leaves, as the
+    reference's step does."""
+    rc, rp, tc, toks = model("deepseek-v2-236b")
+    params = port_params(tc, rp)
+    leaves = {lf.path: lf for lf in module_leaves(params)}
+    dense = {p: lf for p, lf in leaves.items() if p[0] == "dense_layers"}
+    assert dense and all(p[1] == 0 and not lf.stacked
+                         for p, lf in dense.items())
+    assert dense["dense_layers", 0, "attn", "norm"].ref_shape == (64,)
+    assert leaves["layers", "attn", "norm"].ref_shape == (1, 64)
+    assert [lf.path for lf in module_leaves(params)] == [
+        tuple(getattr(k, "key", getattr(k, "idx", None)) for k in path)
+        for path, _ in jax.tree_util.tree_flatten_with_path(rp)[0]]
+    cfg = OptimizerConfig(lr=1e-2, warmup_steps=0)
+    jp, _ = j_apply_updates(JOptConfig(**dataclasses.asdict(cfg)), rp,
+                            jax.tree.map(jnp.zeros_like, rp),
+                            j_init_opt(JOptConfig(), rp))[:2]
+    before = convert.transformer_params_to_numpy(tc, params)
+    grads = {n: torch.zeros_like(p) for n, p in params.named_parameters()}
+    apply_updates(cfg, params, grads, init_opt_state(cfg, params))
+    after = convert.transformer_params_to_numpy(tc, params)
+    np.testing.assert_array_equal(
+        after["dense_layers"][0]["attn"]["norm"], np.ones(64, np.float32))
+    assert (after["layers"]["attn"]["norm"] < 1).all()
+    for path, want in jax.tree_util.tree_flatten_with_path(jp)[0]:
+        have = dict(jax.tree_util.tree_flatten_with_path(after)[0])[path]
+        old = dict(jax.tree_util.tree_flatten_with_path(before)[0])[path]
+        assert np.array_equal(have, old) == np.array_equal(
+            np.asarray(want), old), jax.tree_util.keystr(path)
+        assert rel_err(have, want) <= 1e-6, jax.tree_util.keystr(path)
 
 
 def fp32_distances_from_float64(seeds=range(4)):

@@ -1,5 +1,6 @@
-"""The port's dense transformer (``repro_torch.models``) against the
-reference's (``repro.models``) on the CPU, from one set of weights: the
+"""The port's transformer (``repro_torch.models``), dense, MoE and MLA,
+against the reference's (``repro.models``) on the CPU, from one set of
+weights: the
 reference's seeded param tree crosses through
 ``repro_torch.convert.transformer_params_from_numpy``, inputs are made
 with numpy from a seed. Everything runs in fp32, the reference's own smoke
@@ -29,6 +30,7 @@ from repro_torch.models import transformer as TT
 
 DENSE = ("qwen3-8b", "codeqwen1.5-7b", "h2o-danube-3-4b")
 MOE_MLA = ("mixtral-8x7b", "deepseek-v2-236b")
+ALL = DENSE + MOE_MLA
 B, S = 2, 40          # S > the smoke configs' 32-wide attention blocks, and
                       # past danube's window of 16 twice over
 
@@ -139,7 +141,7 @@ def test_swiglu_matches_reference():
 
 # -------------------------------------------------------------- model --- //
 
-@pytest.mark.parametrize("arch_id", DENSE)
+@pytest.mark.parametrize("arch_id", ALL)
 def test_prefill_matches_reference(arch_id):
     rc, rp, tc, tp, toks = model(arch_id)
     want = np.asarray(JT.prefill(rc, rp, jnp.asarray(toks)))
@@ -148,11 +150,12 @@ def test_prefill_matches_reference(arch_id):
     np.testing.assert_allclose(got, want, atol=1e-4)
 
 
-@pytest.mark.parametrize("arch_id", DENSE)
+@pytest.mark.parametrize("arch_id", ALL)
 def test_decode_matches_reference(arch_id):
     """Teacher-forced decode from an empty cache: the logits at every
     position and the cache leaves (danube's SWA ring of 16 slots wraps
-    twice) equal the reference's."""
+    twice; deepseek's MLA latent, absorbed decode) equal the
+    reference's."""
     rc, rp, tc, tp, toks = model(arch_id)
     step = jax.jit(functools.partial(JT.decode_step, rc))
     rcache = JT.init_cache(rc, B, S)
@@ -166,16 +169,24 @@ def test_decode_matches_reference(arch_id):
         np.testing.assert_allclose(tl.numpy(), np.asarray(rl), atol=1e-4,
                                    err_msg=f"{arch_id} position {s}")
     got = convert.decode_cache_to_numpy(tcache)
-    for n in ("k", "v"):
-        np.testing.assert_allclose(got[n], np.asarray(rcache[n]), atol=1e-4)
+    assert set(got) == set(rcache)
+    for n in got:
+        if n != "kpos":
+            np.testing.assert_allclose(got[n], np.asarray(rcache[n]),
+                                       atol=1e-4)
     np.testing.assert_array_equal(got["kpos"], np.asarray(rcache["kpos"]))
 
 
-@pytest.mark.parametrize("arch_id", DENSE)
-def test_decode_matches_prefill(arch_id):
+@pytest.mark.parametrize("arch_id, absorb", [(a, None) for a in ALL] + [
+    ("deepseek-v2-236b", False)])
+def test_decode_matches_prefill(arch_id, absorb):
     """Inside the port: teacher-forced decode logits == prefill logits
-    position by position (the cache write and read, the SWA ring)."""
+    position by position (the cache write and read, the SWA ring, MLA's
+    latent cache in both decode forms; at the smoke configs no MoE pair
+    drops at either T)."""
     _, _, tc, tp, toks = model(arch_id)
+    if absorb is not None:
+        tc = dataclasses.replace(tc, mla_absorb=absorb)
     full = TT.prefill(tc, tp, t(toks))
     cache = TT.init_cache(tc, B, S, "cpu")
     for s in range(S):
@@ -201,38 +212,39 @@ def test_gqa_expand_kv_equivalence():
         np.testing.assert_allclose(o1.numpy(), o2.numpy(), atol=1e-5)
 
 
-@pytest.mark.parametrize("arch_id", DENSE)
+@pytest.mark.parametrize("arch_id", ALL)
 def test_param_count_matches_reference(arch_id):
-    """At full width, counted on the meta device (nothing allocated)."""
-    assert (get_arch(arch_id).cfg.param_count()
-            == j_get_arch(arch_id).cfg.param_count())
+    """At full width, counted on the meta device (nothing allocated); the
+    active count too."""
+    ours, ref = get_arch(arch_id).cfg, j_get_arch(arch_id).cfg
+    assert ours.param_count() == ref.param_count()
+    assert ours.active_param_count() == ref.active_param_count()
 
 
 def test_qwen3_full_width_param_count():
     assert get_arch("qwen3-8b").cfg.param_count() == 8_190_735_360
 
 
-@pytest.mark.parametrize("arch_id", MOE_MLA)
-def test_moe_and_mla_refused(arch_id):
-    """No dense stack behind an MoE or MLA config: every entry raises."""
-    cfg = get_arch(arch_id).smoke()
-    calls = (lambda: TT.init(cfg, 0, "cpu"), cfg.param_count,
-             lambda: TT.init_cache(cfg, 1, 4, "cpu"),
-             lambda: TT.prefill(cfg, None,
-                                torch.zeros((1, 4), dtype=torch.int32)),
-             lambda: TT.decode_step(cfg, None, {}, None, None))
-    for call in calls:
-        with pytest.raises(NotImplementedError, match="14c"):
-            call()
+@pytest.mark.parametrize("arch_id, total, active, cut, at_cut", [
+    ("mixtral-8x7b", 46_702_792_704, 12_879_925_248, 16, 23_482_470_400),
+    ("deepseek-v2-236b", 235_741_434_880, 21_375_800_320, 8,
+     29_191_377_920)])
+def test_moe_full_width_param_counts(arch_id, total, active, cut, at_cut):
+    """The published totals and active counts at full depth, and at the
+    depth the card runs (deepseek's dense first layer kept)."""
+    cfg = get_arch(arch_id).cfg
+    assert (cfg.param_count(), cfg.active_param_count()) == (total, active)
+    assert dataclasses.replace(cfg, n_layers=cut).param_count() == at_cut
 
 
 # ------------------------------------------------ init, convert, configs //
 
-@pytest.mark.parametrize("arch_id", DENSE)
+@pytest.mark.parametrize("arch_id", ALL)
 def test_init_tree_matches_reference_shapes(arch_id):
     """The port's seeded params, as the reference's tree: the same leaves,
-    shapes and dtypes as ``jax.eval_shape(init)``; the same seed gives the
-    same weights, another seed others; fp32 norms start at one."""
+    shapes and dtypes as ``jax.eval_shape(init)`` (deepseek's
+    ``dense_layers`` a list); the same seed gives the same weights,
+    another seed others; fp32 norms and router, the norms at one."""
     rc = j_get_arch(arch_id).smoke()
     tc = port_cfg(rc)
     want = jax.eval_shape(lambda k: JT.init(rc, k), jax.random.PRNGKey(0))
@@ -244,7 +256,8 @@ def test_init_tree_matches_reference_shapes(arch_id):
         assert a.shape == w.shape
     for name, p in p0.named_parameters():
         assert p.requires_grad                  # trainable, as the reference
-        assert p.dtype == (torch.float32 if "norm" in name else tc.dtype)
+        assert p.dtype == (torch.float32 if "norm" in name
+                           or "router" in name else tc.dtype)
         if "norm" in name:
             assert torch.equal(p, torch.ones_like(p))
     again = TT.init(tc, 0, "cpu")
@@ -259,19 +272,31 @@ def test_init_tree_matches_reference_shapes(arch_id):
             < 0.1 * std
 
 
-def test_params_round_trip_and_refusals():
-    rc, rp, tc, tp, _ = model("qwen3-8b")
+@pytest.mark.parametrize("arch_id", ALL)
+def test_params_round_trip_and_refusals(arch_id):
+    """The reference's tree crosses and comes back with its structure
+    (deepseek's ``dense_layers`` a list of unstacked layers) bit for bit;
+    a wrong shape and an unknown leaf are refused by name."""
+    rc, rp, tc, tp, _ = model(arch_id)
     tree = jax.tree.map(np.asarray, rp)
     back = convert.transformer_params_to_numpy(tc, tp)
+    assert jax.tree.structure(back) == jax.tree.structure(tree)
     for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(tree)):
         np.testing.assert_array_equal(a, b)
+    assert isinstance(back.get("dense_layers", []), list)
+    assert len(back.get("dense_layers", [])) == rc.first_dense_layers
     bad = jax.tree.map(lambda x: x, tree)
-    bad["layers"]["attn"]["wq"] = bad["layers"]["attn"]["wq"][:, :-1]
-    with pytest.raises(ValueError, match="attn/wq"):
+    bad["layers"]["attn"]["wo"] = bad["layers"]["attn"]["wo"][:, :-1]
+    with pytest.raises(ValueError, match="attn/wo"):
         convert.transformer_params_from_numpy(tc, bad, "cpu")
     extra = dict(tree, bias=np.zeros(3, np.float32))
     with pytest.raises(ValueError, match="bias"):
         convert.transformer_params_from_numpy(tc, extra, "cpu")
+    if rc.first_dense_layers:
+        bad = jax.tree.map(lambda x: x, tree)
+        bad["dense_layers"][0]["ffn"]["w_up"] = np.zeros(3, np.float32)
+        with pytest.raises(ValueError, match="dense_layers/0/ffn/w_up"):
+            convert.transformer_params_from_numpy(tc, bad, "cpu")
 
 
 def test_bf16_params_cross_as_float32():
@@ -290,15 +315,21 @@ def test_bf16_params_cross_as_float32():
         np.testing.assert_array_equal(a, b.astype(np.float32))
 
 
-def test_cache_round_trip_and_refusals():
-    rc, rp, tc, tp, toks = model("h2o-danube-3-4b")
+@pytest.mark.parametrize("arch_id", ("h2o-danube-3-4b", "deepseek-v2-236b"))
+def test_cache_round_trip_and_refusals(arch_id):
+    """The reference's cache (danube's SWA ring; deepseek's MLA latent
+    over all layers, the dense first one included) crosses, comes back bit
+    for bit and continues to the reference's logits."""
+    rc, rp, tc, tp, toks = model(arch_id)
     step = jax.jit(functools.partial(JT.decode_step, rc))
     rcache = JT.init_cache(rc, B, S)
     for s in range(20):
         _, rcache = step(rp, rcache, toks[:, s], np.full((B,), s, np.int32))
     host = jax.tree.map(np.asarray, rcache)
     tcache = convert.decode_cache_from_numpy(tc, host, "cpu")
-    assert tcache["k"].shape[2] == 16         # the ring, not max_seq
+    lead = next(iter(tcache.values())).shape
+    assert lead[0] == rc.n_layers
+    assert lead[2] == (16 if rc.attention == "swa" else S)   # the ring
     back = convert.decode_cache_to_numpy(tcache)
     for n in host:
         np.testing.assert_array_equal(back[n], host[n])
@@ -307,9 +338,10 @@ def test_cache_round_trip_and_refusals():
     rl, _ = step(rp, rcache, toks[:, 20], pos)
     tl, _ = TT.decode_step(tc, tp, tcache, t(toks[:, 20]), t(pos))
     np.testing.assert_allclose(tl.numpy(), np.asarray(rl), atol=1e-4)
-    with pytest.raises(ValueError, match="cache k"):
+    leaf = "ckv" if rc.use_mla else "k"
+    with pytest.raises(ValueError, match=f"cache {leaf}"):
         convert.decode_cache_from_numpy(
-            tc, dict(host, k=host["k"][:, :, :, :1]), "cpu")
+            tc, dict(host, **{leaf: host[leaf][:, :, :, :1]}), "cpu")
 
 
 def test_registry_matches_reference():
@@ -334,9 +366,12 @@ def test_registry_matches_reference():
         get_arch("no-such-arch")
 
 
-def test_registry_steps():
-    _, _, tc, tp, toks = model("qwen3-8b")
-    arch = LMArch("qwen3-8b", tc)              # at the smoke width
+@pytest.mark.parametrize("arch_id", ("qwen3-8b",) + MOE_MLA)
+def test_registry_steps(arch_id):
+    """The prefill and decode cells' steps at the smoke width (the train
+    cell's is held in test_torch_train.py)."""
+    _, _, tc, tp, toks = model(arch_id)
+    arch = LMArch(arch_id, tc)                 # at the smoke width
     last = arch.step("prefill_32k")(tp, t(toks))
     np.testing.assert_array_equal(last.numpy(),
                                   TT.prefill(tc, tp, t(toks))[:, -1].numpy())
@@ -361,6 +396,7 @@ def test_config_crosses_whole():
                 assert got == want, (a, f.name)
         assert (ours.hd, ours.sliding_window, ours.is_moe) == \
             (ref.hd, ref.sliding_window, ref.is_moe)
+        assert tuple(ours.moe_cfg) == tuple(ref.moe_cfg)
 
 
 def test_entry_points_run_on_the_card_unless_told(monkeypatch):
