@@ -12,8 +12,10 @@ Max 1 at 128 MB: its one plane of 2^31 cells would overflow the int32
 sentinel), hashmix (both layouts, k up to 64, the seeds past 32 rows read
 from device memory), bloom_probe, fused_probe and scatter_delta — and
 reproduces the reference's seven pinned digests on CUDA. Then it drives
-three paths over one 2^23-record stream (cut from 2^24 to make room for
-the "moe" phase) at the paper's 60% distinct fraction, batch 8192, each
+three paths over one 3 x 2^21-record stream (cut from 2^24 to 2^23 to
+make room for the "moe" phase, then to 3 x 2^21, the least the
+checkpoint resume below needs, for the "graph_recsys" phase) at the
+paper's 60% distinct fraction, batch 8192, each
 with the launch counts set to 0 just before and read just after:
 
 * rlbsbf on the 256 MB table (k = 2, s = 2^30 bits per row) on the plane
@@ -45,8 +47,9 @@ their dup reports equal bit for bit to the plane paths' on that prefix,
 and each final state migrated to the plane layout on the card
 (``migrate_filter_state``) equal leaf for leaf to the plane path's
 checkpoint at the same record; and the sbf oracle, ``run_stream_oracle``
-at the 256 MB table over 1024 keys (cut from 4096 to make room for the
-"train" phase), equal to the batch-size-1 engine.
+at the 256 MB table over 512 keys (cut from 4096 to make room for the
+"train" phase, then from 1024 for the "graph_recsys" phase), equal to
+the batch-size-1 engine.
 
 Then the tenant fleets (DESIGN §4.6): 32 tenants of 8 MB each (the paper's
 smallest table per tenant, 256 MiB stacked). Its "fleet" phase holds both
@@ -66,7 +69,7 @@ Then the "shard" phase: the sharded service (``ShardedDedup``) at one
 NCCL rank (the card is one GPU; NCCL refuses two ranks on one device), the
 group initialised from a file store in a temporary directory and destroyed
 at the phase's end, every exchange through NCCL, over the stream's first
-2^21 records at batch 8192:
+2^20 records (2^21 until the "graph_recsys" phase came) at batch 8192:
 
 * shard-static-rlbsbf-256MB-1rank: static hash routing, rlbsbf on the 256
   MB plane table, capacity_factor 2 (step width 16384), pipelined and
@@ -78,7 +81,7 @@ at the phase's end, every exchange through NCCL, over the stream's first
   32)`` (verdicts, overflow, bits, load, position, rng); one bitset step
   per batch over the bucket axis;
 * shard-elastic-sbf-256MB-32b-1rank: sbf (d = 2 planes) over 32 buckets,
-  the first 2^20 records, pipelined equal to serial; one hashmix and one
+  the first 2^19 records, pipelined equal to serial; one hashmix and one
   counter step per batch;
 
 then the three pinned sharded digests (the reference's verdicts on 1, 4
@@ -110,7 +113,8 @@ CPU (1e-3 of max |logit|, TF32 off); then serves: ``ServeFrontend``
 (buckets (64, 256, 1024), 4 in flight, 2 ms flush) with the port's LM
 scorer (``make_lm_scorer`` here, the serving benchmark's ``transformer``
 scorer) in front of the benchmark's dedup config (rlbsbf, 2^20 bits,
-dense8), 64 closed-loop clients over 2^12 requests of its mix (70% zipf,
+dense8), 64 closed-loop clients over 2^11 requests (2^12 until the
+"graph_recsys" phase came) of its mix (70% zipf,
 30% fresh), after an untimed warm-up front end: every request answered,
 the digest equal to ``replay_schedule`` both on the card and on the CPU
 (where the engine runs hashmix's plain version), hashmix at each
@@ -163,7 +167,8 @@ corpus's own replay truth, one hashmix launch per dedup call. It prints
 the corpus init and per-batch draw seconds, step ms, checkpoint save and
 restore seconds, and a profiled step's device busy time, idle share and
 aten ops. Then hashmix at the trainer's shape (B = 32, k = 2, s = 2^19)
-against its plain version; a 2-layer copy of the config stepped 3 times
+against its plain version; a 2-layer copy of the config stepped 2 times
+(3 until the "graph_recsys" phase came)
 in lockstep from the CPU's fp32 state, in fp32 (TF32 off) and in float64
 on the card and on the CPU (``train_card_vs_cpu``: the fp32 losses within
 1e-4, the float64 card's gradients within 1e-8 of the float64 CPU
@@ -176,11 +181,41 @@ GB of the card stay free, 2 steps with weights from the same dedup stage
 over ``seq_keys`` (a replayed document dropped): finite loss and grad
 norm, step ms, peak memory, device busy time and idle share.
 
+Then the "graph_recsys" phase: GNN and recsys (``repro_torch.models.gnn``
+and ``.recsys``), fp32 with TF32 off, weights from the port's seeded init.
+First MeshGraphNet's and the four rankers' smoke configs on the card
+against the CPU, two AdamW steps in lockstep (``model_card_vs_cpu``:
+forward and loss within 1e-5 of the max |value|, each gradient within
+1e-4 of its max |g|, each param after the step within 1e-5 of its max
+|value| plus 1e-2 x the lr). Then MeshGraphNet at its published width (15
+layers, d 128, remat "full"): minibatch_lg, 3 steps (and a profiled
+fourth) on ``NeighborSampler`` samples (1024 seeds, fanout (15, 10), 602
+features) of a host CSR graph of the reference's 232965 nodes and
+114615892 edges, padded to 172032 nodes and edges (the real edge count
+within 1% of 168960); full_graph_sm (2708 nodes, 10556 edges, 1433
+features) and molecule (128 graphs of 30 nodes and 64 edges) one step
+each. Then DLRM-RM2 at full width (26 tables, 3018362177 parameters,
+12.07 GB) at train_batch (B 65536), 4 AdamW steps and a profiled fifth,
+each batch a ``CTRStream`` draw (10% replayed clicks) through
+``DedupPipeline(paper_config("rlbsbf", 256, batch_size=65536),
+mode="drop")`` keyed on the stream's ``key``, whose weights are the loss
+weights: finite loss and grad norm, weights 0 exactly where ``dup``,
+FPR <= 0.01 and FNR <= 0.05 against the keys' exact repeats, one hashmix
+launch per batch and hashmix at the path's shape equal to its plain
+version. Then the four rankers' serve_p99 (B 512) at full width, one model
+on the card at a time, and DLRM's serve_bulk (B 262144) and
+retrieval_cand (1 query x 10^6 candidates): finite logits, the top 100
+equal to a stable descending sort of the card's own scores, and
+``dedup_gather`` equal to the plain gather within 1e-6 of the max
+|logit|. Each cell prints its step or call ms, a profiled step's device
+busy time, idle share and aten ops, its peak memory and its bound.
+
 Then it times each kernel beside its bound and the card's latency floor
 (an empty launch, and 1 - 3 dependent scattered loads per thread; each
 kernel's time, scatter_delta's zero fill included, averaged over the
 launches the profiler kept), and profiles a step of each engine and fleet
-path and of the two dense8 steps. Last the "lint" phase: the hot-path
+path and of the two dense8 steps (over 8 steps; 16 until the
+"graph_recsys" phase came). Last the "lint" phase: the hot-path
 linter (``repro_torch.analysis``) on the card — each kernel's registers,
 spills and shared memory per block from its ``ptxas -v`` report, then
 ``run_lint(device="cuda")`` over the linter's whole entry matrix (each
@@ -229,7 +264,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 SEED = 0
 MEMORY_MB = 256                  # the paper's 256 MB table (PAPER_MEMORIES_MB)
 BATCH = 8192                     # DedupConfig.batch_size
-STREAM_N = 1 << 23               # the paper's 695M-1B records, cut for time
+STREAM_N = 3 << 21               # the paper's 695M-1B records, cut for time
 OPS_N = 1 << 21                  # the ops path's prefix of the stream
 FLEET_T = 32                     # tenants of a fleet path
 FLEET_MB = 8                     # per tenant (PAPER_MEMORIES_MB[0])
@@ -240,8 +275,8 @@ RESUME_N = 1 << 21               # records a restored checkpoint continues over
 SERVE_N = 1 << 16                # the serve phase's prefix of the stream
 SERVE_CLIENTS = 256              # its closed-loop clients
 SERVE_PROFILE_WIDTH = 256        # the micro-batch bucket it profiles
-ORACLE_N = 1024                  # keys of the sbf oracle on the card (cut
-                                 # from 4096 to make room for the train phase)
+ORACLE_N = 512                   # keys of the sbf oracle on the card (cut
+                                 # from 4096, then 1024, for time)
 FLEET_CAPACITY = 512             # FleetDedup's default: ceil(2·8192 / 32)
 DISTINCT_FRAC = 0.60             # the paper's 60% distinct (Section 6)
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
@@ -256,11 +291,13 @@ PINNED_DIGESTS = {               # tests/test_sketch_template.py (reference)
     "sbf_d1": "b5702a4fbe9dc5c0",
     "swbf": "4580749bdb028080",
 }
-SHARD_N = 1 << 21                # the shard phase's rlbsbf cells' prefix
-SHARD_SBF_N = 1 << 20            # its sbf cell's prefix
+SHARD_N = 1 << 20                # the shard phase's rlbsbf cells' prefix
+SHARD_SBF_N = 1 << 19            # its sbf cell's prefix
 SHARD_BUCKETS = 32               # elastic buckets: 32 x 8 MB
 SHARD_THRESHOLD = 1.25           # the elastic monitor's max / mean trigger
 SHARD_PROFILE_BATCHES = 4        # batches of each shard cell's profile
+PROFILE_STEPS = 8                # steps of each path's profile (16 until
+                                 # the graph_recsys phase came)
 # the reference's sharded verdicts at a small size, SHA-256 of the dup
 # array under JAX's partitionable threefry layout; the elastic one on 4
 # devices, which one rank must reproduce (elastic verdicts do not depend on
@@ -294,7 +331,7 @@ LM_TEACHER = 64                  # positions teacher-forced through decode
 LM_CPU = (2, 64)                 # B, S of the fp32 2-layer card-vs-CPU run
 LM_REL_TOL = 0.02                # bf16: |diff| <= 2% of max |logit|
 LM_FP32_TOL = 1e-3               # fp32 card vs CPU, relative to max |logit|
-LM_SERVE_N = 1 << 12             # requests of the LM-scored front end
+LM_SERVE_N = 1 << 11             # requests of the LM-scored front end
 LM_CLIENTS = 64                  # its closed-loop clients
 LM_RESCORE = 32                  # the batch the served values are rescored in
 LM_SEQ_LEN = 16                  # the LM scorer's context, as the benchmark's
@@ -330,7 +367,7 @@ TRAIN_STEPS = 14                 # the reference test's schedule ...
 TRAIN_FAULT_AT = 11              # ... and its injected fault
 TRAIN_DUP_FRAC = 0.3
 TRAIN_CPU = (4, 128)             # B, S of the fp32 2-layer card-vs-CPU steps
-TRAIN_CPU_STEPS = 3
+TRAIN_CPU_STEPS = 2
 TRAIN_TOL = 1e-4                 # fp32 card vs CPU: loss, update (x lr)
 TRAIN_REFEREE_FACTOR = 4         # card vs a float64 referee, x fp32 noise
 TRAIN_FP64_TOL = 1e-8            # the float64 card vs the float64 referee
@@ -339,6 +376,21 @@ QWEN_TRAIN_LAYERS = 8            # qwen3-8b train_4k: the depth cut (of 36)
 QWEN_TRAIN = (4, 4096)           # its batch (4 microbatches of 1) and seq
 QWEN_TRAIN_STEPS = 2
 FREE_BYTES = 10 * 10**9          # the card left free by the cut depth
+# the "graph_recsys" phase: MeshGraphNet and the four recsys rankers at
+# their published widths (gnn_archs.py, recsys_archs.py), fp32, seeded
+GNN_ARCH = "meshgraphnet"
+GNN_LG_STEPS = 3                 # minibatch_lg steps timed (one more profiled)
+REC_ARCHS = ("wide-deep", "xdeepfm", "dlrm-rm2", "dcn-v2")
+DLRM_ARCH = "dlrm-rm2"
+DLRM_STEPS = 4                   # train_batch steps timed (one more profiled)
+DLRM_DUP_FRAC = 0.1              # CTRStream's replayed (fraud) records
+DLRM_FREE = 70 * 10**9           # card memory free before its train state
+REC_SERVE_CALLS = 20             # calls per serving cell timed
+GR_CPU_STEPS = 2                 # card-vs-CPU AdamW steps at smoke configs
+GR_FWD_TOL = 1e-5                # card vs CPU: forward and loss, of max |v|
+GR_GRAD_TOL = 1e-4               # card vs CPU: each gradient, of max |g|
+GR_UPDATE_LR = 1e-2              # ... params after AdamW: + this x lr
+GR_GATHER_TOL = 1e-6             # dedup_gather vs plain, of max |logit|
 BITSET = ("rsbf", "bsbf", "bsbfsd", "rlbsbf")
 COUNTER = ("sbf", "sbf_d1", "swbf", "cms", "hh")
 # each step kernel's device kernels, as the profiler names them
@@ -2097,6 +2149,8 @@ def _train_leaves(params, state) -> dict:
 def _tree_to(tree, device, dtype):
     if isinstance(tree, dict):
         return {k: _tree_to(v, device, dtype) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, device, dtype) for v in tree]
     return tree.to(device, dtype, copy=True)
 
 
@@ -2471,6 +2525,503 @@ def phase_train(card):
     del qparams, qstate, qstep
     torch.cuda.empty_cache()
     lap("qwen3-8b train_4k")
+    return launches, hash_err
+
+
+def host_graph(n_nodes: int, n_edges: int, d_feat: int, d_out: int, seed):
+    """A random graph in host CSR (``CSRGraph``): each edge's target and
+    source uniform over the nodes, random normal features and targets —
+    the CSR that ``CSRGraph.from_edges`` makes of ``random_graph``'s edges,
+    built from the targets' counts rather than a stable sort of 10^8
+    edges (a node's sources are uniform draws either way)."""
+    from repro_torch.data.graphs import CSRGraph
+    rng = np.random.default_rng(seed)
+    counts = np.bincount(rng.integers(0, n_nodes, n_edges, dtype=np.int32),
+                         minlength=n_nodes)
+    indptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
+    return CSRGraph(
+        indptr=indptr,
+        indices=rng.integers(0, n_nodes, n_edges, dtype=np.int32),
+        feats=rng.standard_normal((n_nodes, d_feat), dtype=np.float32),
+        targets=rng.standard_normal((n_nodes, d_out), dtype=np.float32))
+
+
+def gnn_step_flops(cfg, n: int, e: int) -> float:
+    """fp32 operations of one MeshGraphNet train step over N nodes and E
+    edges: its matmuls (2 per multiply-add) forward, the blocks' forward
+    again where remat is "full", and two products per matmul backward."""
+    d, h = cfg.d_hidden, cfg.mlp_layers
+
+    def mlp(d_in, d_out):        # [d_in] + [d] * h + [d_out]
+        return d_in * d + (h - 1) * d * d + d * d_out
+
+    block = e * mlp(3 * d, d) + n * mlp(2 * d, d)
+    fwd = (n * mlp(cfg.d_node_in, d) + e * mlp(cfg.d_edge_in, d)
+           + cfg.n_layers * block + n * mlp(d, cfg.d_out))
+    remat = cfg.n_layers * block if cfg.remat == "full" else 0
+    return 2.0 * (3 * fwd + remat)
+
+
+def rec_forward_flops(cfg, b: int) -> float:
+    """fp32 operations of one recsys forward at batch ``b``: its MLPs and
+    its interaction (CIN's outer products and contractions, DLRM's
+    (F+1)^2 dots, DCN-v2's cross layers), 2 per multiply-add."""
+    def mlp(dims):
+        return sum(a * c for a, c in zip(dims[:-1], dims[1:]))
+
+    f, d = cfg.n_sparse, cfg.embed_dim
+    d0 = cfg.d_sparse + cfg.n_dense
+    if cfg.interaction == "concat":
+        macs = mlp([d0, *cfg.mlp_dims, 1])
+    elif cfg.interaction == "cin":
+        dims = [f, *cfg.cin_dims]
+        macs = mlp([d0, *cfg.mlp_dims, 1]) + sum(
+            h * f * d + o * h * f * d for h, o in zip(dims[:-1], dims[1:]))
+    elif cfg.interaction == "dot":
+        n_f = f + 1
+        macs = (mlp([cfg.n_dense, *cfg.bot_mlp_dims]) + n_f * n_f * d
+                + mlp([n_f * (n_f - 1) // 2 + cfg.bot_mlp_dims[-1],
+                       *cfg.mlp_dims]))
+    else:
+        macs = (cfg.n_cross_layers * d0 * d0 + mlp([d0, *cfg.mlp_dims])
+                + d0 + cfg.mlp_dims[-1])
+    return 2.0 * b * macs
+
+
+def rec_serve_bytes(cfg, params, b: int) -> float:
+    """Bytes one recsys forward at batch ``b`` must move: its ids and
+    dense features read, one embedding row read per id, every weight
+    outside the tables (and the wide tower's one column per cross) read
+    once, the logits written."""
+    ids = b * cfg.n_sparse * cfg.multi_hot
+    dense = sum(p.numel() for n, p in params.named_parameters()
+                if not n.startswith("tables.") and n != "wide")
+    wide = b * (cfg.n_sparse - 1) if cfg.interaction == "concat" else 0
+    return 4.0 * (ids + b * cfg.n_dense + ids * cfg.embed_dim + dense
+                  + wide + b)
+
+
+def model_card_vs_cpu(family: str, cfg, batches) -> dict:
+    """A MeshGraphNet (``family`` "gnn") or recsys ("recsys") model at
+    ``cfg`` from one seeded CPU init, stepped over ``batches`` [(numpy
+    batch, weights (B,) or None)] on the card and on the CPU in lockstep:
+    each step starts both from the CPU's state, fp32 with TF32 off, with
+    the archs' AdamW (lr 1e-3, weight_decay 0). -> {"forward", "loss":
+    the largest max |card - CPU| / max |CPU| over the steps; "grad": the
+    same for the worst parameter's gradient, named in "grad_at"; "update":
+    the largest max |card - CPU| of a parameter after the step, in units
+    of GR_FWD_TOL x max |CPU param| + GR_UPDATE_LR x lr}."""
+    import torch
+    from repro_torch.models import gnn, recsys
+    from repro_torch.models.layers import tensor_batch
+    from repro_torch.optim import (OptimizerConfig, OptState, apply_updates,
+                                   init_opt_state)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mod = gnn if family == "gnn" else recsys
+    opt = OptimizerConfig(kind="adamw", lr=1e-3, weight_decay=0.0)
+    params = mod.init(cfg, SEED, "cpu")
+    state = init_opt_state(opt, params)
+    out = {"forward": 0.0, "loss": 0.0, "grad": 0.0, "grad_at": "",
+           "update": 0.0}
+
+    def rel(got, want):
+        want = want.detach().cpu()
+        return float((got.detach().cpu() - want).abs().max()
+                     / want.abs().max().clamp_min(1e-30))
+
+    for batch, w in batches:
+        got = {}
+        for dev in ("cuda", "cpu"):          # the CPU's run last: it goes on
+            p, s = params, state
+            if dev == "cuda":
+                p = copy.deepcopy(params).to(dev)
+                s = OptState(state.step.clone(),
+                             _tree_to(state.m, dev, torch.float32),
+                             _tree_to(state.v, dev, torch.float32))
+            tb = tensor_batch(batch, dev)
+            tw = None if w is None else torch.from_numpy(w).to(dev)
+            with torch.no_grad():
+                fwd = mod.forward(cfg, p, tb)
+            loss = mod.loss_fn(cfg, p, tb, tw)
+            names = [n for n, _ in p.named_parameters()]
+            grads = dict(zip(names, torch.autograd.grad(
+                loss, list(p.parameters()))))
+            p, s, met = apply_updates(opt, p, grads, s)
+            got[dev] = (fwd, loss, grads, dict(p.named_parameters()),
+                        float(met["lr"]))
+            if dev == "cpu":
+                params, state = p, s
+        (f_g, l_g, g_g, p_g, _), (f_c, l_c, g_c, p_c, lr) = (got["cuda"],
+                                                            got["cpu"])
+        out["forward"] = max(out["forward"], rel(f_g, f_c))
+        out["loss"] = max(out["loss"], rel(l_g, l_c))
+        for name, want in g_c.items():
+            err = rel(g_g[name], want)
+            if err >= out["grad"]:
+                out["grad"], out["grad_at"] = err, name
+            unit = GR_FWD_TOL * float(p_c[name].detach().abs().max()) \
+                + GR_UPDATE_LR * lr
+            out["update"] = max(out["update"], float(
+                (p_g[name].detach().cpu() - p_c[name].detach()).abs().max())
+                / unit)
+    return out
+
+
+def model_parity_ok(res: dict) -> bool:
+    """The card agrees with the CPU: forward and loss within GR_FWD_TOL of
+    the max |value|, each parameter's gradient within GR_GRAD_TOL of its
+    max |g|, and each parameter after the AdamW step within GR_FWD_TOL of
+    its max |value| plus GR_UPDATE_LR x the lr (where a gradient is near
+    AdamW's eps, g / (|g| + eps) turns on its last digits)."""
+    return (res["forward"] <= GR_FWD_TOL and res["loss"] <= GR_FWD_TOL
+            and res["grad"] <= GR_GRAD_TOL and res["update"] <= 1.0)
+
+
+def model_parity_text(res: dict) -> str:
+    return (f"forward {res['forward']:.6g}, loss {res['loss']:.6g} (of max "
+            f"|value|, tolerance {GR_FWD_TOL}); gradients {res['grad']:.6g} "
+            f"at {res['grad_at']} (tolerance {GR_GRAD_TOL}); params after "
+            f"AdamW {res['update']:.6g} (in units of {GR_FWD_TOL} x max "
+            f"|param| + {GR_UPDATE_LR} x lr, <= 1); within bounds: "
+            f"{model_parity_ok(res)}")
+
+
+def smoke_batches(family: str, cfg, n: int = GR_CPU_STEPS) -> list:
+    """``n`` seeded small batches of a smoke config, each with the dedup
+    stage's weights (the second record dropped): MeshGraphNet's a
+    ``random_graph`` and then ``NeighborSampler`` subgraphs, recsys' a
+    ``CTRStream`` batch of 64 with replays."""
+    from repro_torch.data import graphs, recsys_data
+    out = []
+    if family == "gnn":
+        g = graphs.random_graph(300, 3000, cfg.d_node_in, seed=SEED + 30)
+        csr = graphs.CSRGraph.from_edges(300, g["src"], g["dst"],
+                                         g["nodes"], g["targets"])
+        samp = graphs.NeighborSampler(csr, (5, 3), 8, seed=SEED + 31)
+        for i in range(n):
+            b = (graphs.random_graph(40, 120, cfg.d_node_in, seed=SEED + i)
+                 if i == 0 else samp.sample())
+            w = np.ones(b["nodes"].shape[0], np.float32)
+            w[1] = 0.0
+            out.append((b, w))
+        return out
+    stream = recsys_data.CTRStream(cfg.n_dense, cfg.vocab_sizes,
+                                   multi_hot=cfg.multi_hot, dup_frac=0.25,
+                                   seed=SEED + 32)
+    for _ in range(n):
+        b = stream.batch(64)
+        w = np.ones(64, np.float32)
+        w[1] = 0.0
+        out.append(({k: b[k] for k in ("dense", "sparse_ids", "labels")},
+                    w))
+    return out
+
+
+def phase_graph_recsys(card):
+    """GNN and recsys on the card (ROADMAP item 14d): the card against the
+    CPU at the five smoke configs; MeshGraphNet's minibatch_lg,
+    full_graph_sm and molecule train steps at full width; DLRM-RM2's
+    train_batch steps behind the click-fraud dedup stage; the four
+    rankers' serve_p99, and DLRM's serve_bulk and retrieval_cand.
+    -> (the dedup stage's kernel launches, hashmix's largest difference
+    from its plain version)."""
+    import torch
+    from repro_torch.configs import get_arch, pad_graph, paper_config
+    from repro_torch.core import hashing, u32
+    from repro_torch.data.graphs import NeighborSampler, molecule_batch, \
+        random_graph
+    from repro_torch.data.recsys_data import CTRStream, candidates_matrix
+    from repro_torch.dedup import DedupPipeline
+    from repro_torch.dedup.metrics import fpr_fnr
+    from repro_torch.kernels.fused_template import bitset_step, counter_step
+    from repro_torch.kernels.hashmix import hashmix, hashmix_plain
+    from repro_torch.models import recsys
+    from repro_torch.models.layers import tensor_batch
+    from repro_torch.optim import init_opt_state
+    torch.backends.cuda.matmul.allow_tf32 = False   # fp32 is fp32
+    laps = [time.perf_counter()]
+
+    def lap(what):
+        laps.append(time.perf_counter())
+        log(f"[graph_recsys] {what}: {laps[-1] - laps[-2]:.1f} s")
+
+    def profiled(tag, fn, ms):
+        busy, n_ops, n_k, top = profile_train_step(fn)
+        if busy is None:
+            log(f"[graph_recsys] {tag}: the profiler recorded no device "
+                f"time: device busy share not measured")
+        else:
+            log(f"[graph_recsys] {tag} profiled: device busy {busy:.4f} ms "
+                f"in {n_k} kernels, idle share {max(0.0, 1 - busy / ms):.4f}"
+                f" of {ms:.4f} ms; {n_ops} aten ops; costliest kernels (ms,"
+                f" launches) {top} ({card})")
+
+    # 1. the card against the CPU at the smoke configs, in lockstep
+    for aid in (GNN_ARCH,) + REC_ARCHS:
+        arch = get_arch(aid)
+        cfg = arch.smoke()
+        res = model_card_vs_cpu(arch.family, cfg,
+                                smoke_batches(arch.family, cfg))
+        log(f"[graph_recsys] card == CPU, {aid} smoke config, "
+            f"{GR_CPU_STEPS} AdamW steps in lockstep (fp32, TF32 off): "
+            f"{model_parity_text(res)}")
+        if not model_parity_ok(res):
+            raise AssertionError(f"graph_recsys: {aid} on the card "
+                                 f"disagrees with the CPU")
+    lap("card against the CPU")
+
+    # 2. MeshGraphNet at full width
+    garch = get_arch(GNN_ARCH)
+    gd = garch.shapes["minibatch_lg"].dims
+    t0 = time.perf_counter()
+    host = host_graph(gd["graph_nodes"], gd["graph_edges"], gd["d_feat"],
+                      garch.base_cfg.d_out, SEED + 40)
+    t_graph = time.perf_counter() - t0
+    sampler = NeighborSampler(host, gd["fanout"], gd["batch_nodes"],
+                              seed=SEED + 41)
+    cells = {
+        "minibatch_lg": (GNN_LG_STEPS, None),
+        "full_graph_sm": (1, lambda: random_graph(2708, 10556, 1433,
+                                                  seed=SEED + 42)),
+        "molecule": (1, lambda: molecule_batch(128, 30, 64, 16,
+                                               seed=SEED + 43)),
+    }
+    samples = []
+    for shape, (n_steps, make) in cells.items():
+        cfg = garch.cfg_for(shape)
+        n, e = garch.padded(shape)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        params = garch.params(shape, SEED)
+        state = init_opt_state(garch.opt_config(), params)
+        step = garch.step(shape)
+        n_params = sum(p.numel() for p in params.parameters())
+        ms, losses, gns, real = [], [], [], []
+        for i in range(n_steps + 1):            # the last one profiled
+            t0 = time.perf_counter()
+            raw = sampler.sample() if make is None else make()
+            if make is None:
+                samples.append(time.perf_counter() - t0)
+            real.append((int(raw["edge_mask"].sum()),
+                         int(raw["src"].shape[0])))
+            batch = tensor_batch(pad_graph(raw, n, e))
+            if i == n_steps:
+                break
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, state, m = step(params, state, batch)
+            losses.append(float(m["loss"]))
+            gns.append(float(m["grad_norm"]))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated()
+        bound = gnn_step_flops(cfg, n, e) / PEAK_OPS_PER_S * 1e3
+        log(f"[graph_recsys] {shape}-{GNN_ARCH}: {cfg.n_layers} layers, d "
+            f"{cfg.d_hidden}, mlp_layers {cfg.mlp_layers}, d_feat "
+            f"{cfg.d_node_in}, remat {cfg.remat}, fp32 ({n_params} "
+            f"parameters); padded to {n} nodes and {e} edges, real edges "
+            f"{[r[0] for r in real]}; losses {[round(x, 6) for x in losses]}"
+            f", grad norms {[round(x, 6) for x in gns]}; step ms "
+            f"{[round(x, 4) for x in ms]} (host clock ending in the loss "
+            f"read); matmul bound {bound:.4f} ms (fp32 at 67 TFLOP/s, TF32 "
+            f"off, remat counted); peak device memory {peak / 2**30:.3f} "
+            f"GiB ({card})")
+        profiled(f"{shape}-{GNN_ARCH} step",
+                 lambda: float(step(params, state, batch)[2]["loss"]),
+                 float(np.median(ms)))
+        if not (all(np.isfinite(losses)) and all(np.isfinite(gns))):
+            raise AssertionError(f"graph_recsys: {shape} is out of bounds")
+        if make is None:
+            want = gd["batch_nodes"] * sum(int(np.prod(gd["fanout"][:i + 1]))
+                                           for i in range(len(gd["fanout"])))
+            if not all(abs(r[0] - want) <= 0.01 * want for r in real):
+                raise AssertionError("graph_recsys: the sampler's edges "
+                                     "are off their bound")
+        del params, state, step, batch
+        torch.cuda.empty_cache()
+    log(f"[graph_recsys] minibatch_lg host graph: {gd['graph_nodes']} nodes"
+        f", {gd['graph_edges']} edges, {gd['d_feat']} features, built in "
+        f"{t_graph:.2f} s; NeighborSampler (1024 seeds, fanout "
+        f"{gd['fanout']}) {[round(x, 3) for x in samples]} s per sample")
+    del host, sampler
+    lap("MeshGraphNet")
+
+    # 3. DLRM-RM2's train_batch behind the click-fraud dedup stage
+    rarch = get_arch(DLRM_ARCH)
+    cfg = rarch.cfg
+    bsz = rarch.shapes["train_batch"].dims["batch"]
+    free = torch.cuda.mem_get_info()[0]
+    if free < DLRM_FREE:
+        raise AssertionError(f"graph_recsys: {free / 1e9:.1f} GB free on "
+                             f"the card, {DLRM_FREE / 1e9:.0f} needed")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params = recsys.init(cfg, SEED)
+    state = init_opt_state(rarch.opt_config(), params)
+    step = rarch.step("train_batch")
+    n_params = sum(p.numel() for p in params.parameters())
+    stream = CTRStream(cfg.n_dense, cfg.vocab_sizes, dup_frac=DLRM_DUP_FRAC,
+                       seed=SEED + 50)
+    dcfg = paper_config("rlbsbf", MEMORY_MB, batch_size=bsz)
+    pipe = DedupPipeline(dcfg, mode="drop")
+    counters = (hashmix, bitset_step, counter_step)
+    for c in counters:
+        c.launches = 0
+    draws, ms, losses, gns, keys, reps, w_ok = [], [], [], [], [], [], True
+    for i in range(DLRM_STEPS + 1):             # the last one profiled
+        t0 = time.perf_counter()
+        raw = stream.batch(bsz)
+        draws.append(time.perf_counter() - t0)
+        res = pipe.process({"key": raw["key"]})
+        dup = res.dup.cpu().numpy()
+        w_ok &= bool(torch.equal(res.weights == 0, res.dup))
+        keys.append(raw["key"])
+        reps.append(dup)
+        batch = tensor_batch({k: raw[k] for k in ("dense", "sparse_ids",
+                                                  "labels")})
+        if i == DLRM_STEPS:
+            break
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch, res.weights)
+        losses.append(float(m["loss"]))
+        gns.append(float(m["grad_norm"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    launches = {c.__name__: c.launches for c in counters}
+    peak = torch.cuda.max_memory_allocated()
+    all_keys = np.concatenate(keys)
+    truth = np.ones(all_keys.size, bool)
+    truth[np.unique(all_keys, return_index=True)[1]] = False
+    rep = np.concatenate(reps)
+    fpr, fnr = fpr_fnr(rep, truth)
+    n_tab = sum(p.numel() for n, p in params.named_parameters()
+                if n.startswith("tables."))
+    # AdamW reads p, g, m, v and writes p, m, v; the dense table gradient
+    # is filled with zeros first
+    nbytes = 4.0 * (7 * n_params + n_tab)
+    flops = 3 * rec_forward_flops(cfg, bsz)
+    bound = max(nbytes / HBM_BYTES_PER_S, flops / PEAK_OPS_PER_S) * 1e3
+    log(f"[graph_recsys] train_batch-{DLRM_ARCH}-dedup-rlbsbf-256MB: "
+        f"{n_params} parameters ({n_tab} in {cfg.n_sparse} tables of "
+        f"{cfg.embed_dim}, fp32), AdamW, batch {bsz}; CTRStream "
+        f"(dup_frac {DLRM_DUP_FRAC}) through DedupPipeline({dcfg.variant} "
+        f"{dcfg.effective_layout}, k={dcfg.k}, s={dcfg.s}, drop): "
+        f"{int(rep.sum())} of {rep.size} records dropped, {int(truth.sum())}"
+        f" repeated keys; FPR {fpr:.6g}, FNR {fnr:.6g}; weights 0 exactly "
+        f"where dup: {w_ok}; kernel launches {launches} for "
+        f"{len(keys)} batches; losses {[round(x, 6) for x in losses]}, grad "
+        f"norms {[round(x, 6) for x in gns]}; step ms "
+        f"{[round(x, 4) for x in ms]} (host clock ending in the loss read);"
+        f" bound {bound:.4f} ms ({nbytes / 1e9:.2f} GB of AdamW and the "
+        f"gradient's fill at 3.35 TB/s; {flops / 1e12:.4f} TFLOP); CTR "
+        f"draw {[round(x, 4) for x in draws]} s per batch (host); peak "
+        f"device memory {peak / 2**30:.3f} GiB ({card})")
+    profiled(f"train_batch-{DLRM_ARCH} step",
+             lambda: float(step(params, state, batch, res.weights)[2][
+                 "loss"]), float(np.median(ms)))
+    seeds = u32.from_numpy_u32(hashing.derive_seeds(dcfg.seed, dcfg.k, 0),
+                               "cpu")
+    hk = u32.from_numpy_u32(keys[0], "cuda")
+    got_h = hashmix(hk, seeds, s=dcfg.s)
+    want_h = hashmix_plain(hk, seeds.cuda(), dcfg.s)
+    hash_err = abs_err(got_h, want_h)
+    log(f"[graph_recsys] hashmix at this path's shape (B={hk.shape[0]}, "
+        f"k={dcfg.k}, s={dcfg.s}): exactly equal to the plain version "
+        f"{torch.equal(got_h, want_h)}")
+    if not (all(np.isfinite(losses)) and all(np.isfinite(gns)) and w_ok
+            and rep.sum() > 0 and fpr <= 0.01 and fnr <= 0.05
+            and launches == {"hashmix": len(keys), "bitset_step": 0,
+                             "counter_step": 0}
+            and torch.equal(got_h, want_h)):
+        raise AssertionError("graph_recsys: DLRM's gated training is out "
+                             "of bounds")
+    del params, state, step, pipe, batch, res, m, got_h, want_h, hk
+    torch.cuda.empty_cache()
+    lap("DLRM-RM2 train_batch")
+
+    # 4. serving: the four rankers' serve_p99, DLRM's serve_bulk and
+    # retrieval_cand, one model on the card at a time
+    for aid in REC_ARCHS:
+        arch = get_arch(aid)
+        cfg = arch.cfg
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        params = recsys.init(cfg, SEED)
+        stream = CTRStream(cfg.n_dense, cfg.vocab_sizes, seed=SEED + 60)
+        shapes = ("serve_p99", "serve_bulk") if aid == DLRM_ARCH else (
+            "serve_p99",)
+        for shape in shapes:
+            b = arch.shapes[shape].dims["batch"]
+            infer = arch.step(shape)
+            t0 = time.perf_counter()
+            raw = stream.batch(b)
+            t_draw = time.perf_counter() - t0
+            batch = tensor_batch({k: raw[k] for k in ("dense",
+                                                      "sparse_ids")})
+            out = infer(params, batch)
+            torch.cuda.synchronize()
+            call_ms = wall_ms(lambda i: infer(params, batch), REC_SERVE_CALLS)
+            bound = max(rec_serve_bytes(cfg, params, b) / HBM_BYTES_PER_S,
+                        rec_forward_flops(cfg, b) / PEAK_OPS_PER_S) * 1e3
+            ok = out.shape == (b,) and bool(torch.isfinite(out).all())
+            log(f"[graph_recsys] {shape}-{aid}: batch {b}, "
+                f"{sum(p.numel() for p in params.parameters())} parameters "
+                f"(fp32); logits finite of shape ({b},): {ok}; "
+                f"{call_ms:.4f} ms per call (CUDA events over "
+                f"{REC_SERVE_CALLS} calls); bound {bound:.4f} ms; CTR draw "
+                f"{t_draw:.4f} s (host); peak device memory "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB "
+                f"({card})")
+            profiled(f"{shape}-{aid} call", lambda: infer(params, batch),
+                     call_ms)
+            if not ok:
+                raise AssertionError(f"graph_recsys: {shape}-{aid} is out "
+                                     f"of bounds")
+            if aid == DLRM_ARCH and shape == "serve_p99":
+                with torch.inference_mode():
+                    dd = recsys.forward(dataclasses.replace(
+                        cfg, dedup_gather=True), params, batch)
+                gerr = float((dd - out).abs().max() / out.abs().max())
+                log(f"[graph_recsys] {shape}-{aid}: dedup_gather against "
+                    f"the plain gather, max |diff| / max |logit| {gerr:.6g}"
+                    f" (tolerance {GR_GATHER_TOL})")
+                if not gerr <= GR_GATHER_TOL:
+                    raise AssertionError("graph_recsys: dedup_gather "
+                                         "disagrees with the plain gather")
+        if aid == DLRM_ARCH:
+            d = arch.shapes["retrieval_cand"].dims
+            t0 = time.perf_counter()
+            cands = torch.from_numpy(candidates_matrix(
+                d["n_cand"], cfg.embed_dim, seed=SEED + 61)).cuda()
+            t_draw = time.perf_counter() - t0
+            raw = stream.batch(d["batch"])
+            batch = tensor_batch({"dense": raw["dense"],
+                                  "sparse_ids": raw["sparse_ids"]})
+            batch["candidates"] = cands
+            ret = arch.step("retrieval_cand")
+            scores, top_s, top_i = ret(params, batch)
+            order = torch.sort(scores, descending=True,
+                               stable=True).indices[:top_i.shape[0]]
+            same = bool(torch.equal(order, top_i)
+                        and torch.equal(scores[order], top_s))
+            call_ms = wall_ms(lambda i: ret(params, batch), REC_SERVE_CALLS)
+            nbytes = 4.0 * (d["n_cand"] * cfg.embed_dim + d["n_cand"])
+            bound = nbytes / HBM_BYTES_PER_S * 1e3
+            log(f"[graph_recsys] retrieval_cand-{aid}: 1 query x "
+                f"{d['n_cand']} candidates of {cfg.embed_dim}, top "
+                f"{top_i.shape[0]}: equal to a stable descending sort of "
+                f"the card's scores: {same}; {call_ms:.4f} ms per call "
+                f"(CUDA events over {REC_SERVE_CALLS} calls); bound "
+                f"{bound:.4f} ms (the candidates read, the scores written);"
+                f" candidates drawn in {t_draw:.2f} s (host) ({card})")
+            profiled(f"retrieval_cand-{aid} call",
+                     lambda: ret(params, batch), call_ms)
+            if not same or not bool(torch.isfinite(scores).all()):
+                raise AssertionError("graph_recsys: retrieval's top-k is "
+                                     "not the stable descending order")
+            del cands, scores, top_s, top_i, order
+        del params, batch, out
+        torch.cuda.empty_cache()
+    lap("serving")
     return launches, hash_err
 
 
@@ -3718,13 +4269,14 @@ def phase_profile(cfg, state, card, make_pieces, kernels, fleet=None,
     """Where a step's time goes on the path of ``cfg`` (of ``fleet`` when
     given, its mixed batches' tenant ids from ``tenants``): the host clock
     per call of the step's plain-PyTorch pieces (each call synchronised;
-    the kernels' times are the "time" phase's), then torch.profiler over 16
-    steps for the device's busy time, its kernel count and idle share."""
+    the kernels' times are the "time" phase's), then torch.profiler over
+    PROFILE_STEPS steps for the device's busy time, its kernel count and
+    idle share."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import Dedup, u32
     from repro_torch.data.streams import controlled_distinct_stream
-    n_b = 16
+    n_b = PROFILE_STEPS
     keys, _ = controlled_distinct_stream(n_b * BATCH, DISTINCT_FRAC,
                                          seed=SEED + 2)
     if fleet is None:
@@ -3935,6 +4487,9 @@ def main() -> int:
     train_launches, train_hash_err = phase_train(card)
     err["hashmix"] = max(err["hashmix"], train_hash_err)
     stamp("train")
+    gr_launches, gr_hash_err = phase_graph_recsys(card)
+    err["hashmix"] = max(err["hashmix"], gr_hash_err)
+    stamp("graph_recsys")
     times = phase_timings(cfg, state, sbf_cfg, sbf_state, card,
                           ((fb, fb_state), (fc, fc_state)), floor_lib,
                           parent)
@@ -3961,12 +4516,13 @@ def main() -> int:
     # that carries it: the standalone hashmix is the sbf path's (the rlbsbf
     # path's bitset step hashes its keys itself), fused_probe and the
     # standalone bloom_probe the ops path's
-    # hashmix: the sbf path's launches, the two LM-scored front ends' and
-    # the trainer's dedup stage's
+    # hashmix: the sbf path's launches, the two LM-scored front ends', the
+    # trainer's dedup stage's and DLRM's click-fraud stage's
     hashmix_launches = {"hashmix": sbf_launches["hashmix"]
                         + lm_launches["hashmix"]
                         + moe_launches["hashmix"]
-                        + train_launches["hashmix"]}
+                        + train_launches["hashmix"]
+                        + gr_launches["hashmix"]}
     rows = [
         ("hashmix", "hashmix.cu", "hashmix.py:46", hashmix_launches,
          "hashmix"),

@@ -1,11 +1,14 @@
-"""Architecture registry of the port — the LM part of
-``repro.configs.registry``: ``LMArch`` with its shape cells, its reduced
-``smoke()`` config, its optimizer and its ``train`` / ``prefill`` /
-``decode`` steps, and ``register`` / ``get_arch`` / ``all_arch_ids``.
+"""Architecture registry of the port — the counterpart of
+``repro.configs.registry``: 10 assigned archs x their shape sets = 40
+cells. ``LMArch``, ``GNNArch`` and ``RecsysArch`` each give their shape
+cells, a reduced ``smoke()`` config for CPU tests, their optimizer and
+their steps (LM ``train`` / ``prefill`` / ``decode``; GNN ``train``;
+recsys ``train`` / ``infer`` / ``retrieval``); ``register`` /
+``get_arch`` / ``all_arch_ids`` / ``all_cells`` resolve ``--arch`` ids.
 
-The mesh and partition-spec methods wait for the model-spec functions of
-``distributed/sharding.py`` (ROADMAP item 14e), and the GNN and recsys
-archs for their slice (14d).
+The mesh and partition-spec methods of all three (``input_specs``,
+``batch_specs``, ``param_specs``) wait for the model-spec functions of
+``distributed/sharding.py`` and the mesh launcher (ROADMAP item 14e).
 """
 
 from __future__ import annotations
@@ -13,8 +16,11 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Dict, Optional
 
+import numpy as np
 import torch
 
+from ..models import gnn as gnn_mod
+from ..models import recsys as rec_mod
 from ..models import transformer as tfm
 from ..optim import OptimizerConfig
 
@@ -22,7 +28,7 @@ from ..optim import OptimizerConfig
 @dataclasses.dataclass(frozen=True)
 class ShapeCell:
     name: str
-    kind: str                     # train | prefill | decode
+    kind: str             # train | prefill | decode | infer | retrieval
     dims: dict
     skip: Optional[str] = None
 
@@ -101,7 +107,144 @@ class LMArch:
             attn_q_block=32, attn_k_block=32)
 
 
-_REGISTRY: Dict[str, Callable[[], LMArch]] = {}
+# =================================================================== GNN == //
+
+class GNNArch:
+    """MeshGraphNet's config and its four train cells; ``cfg_for`` sets
+    the node feature width of a cell."""
+    family = "gnn"
+
+    def __init__(self, arch_id: str, base_cfg: gnn_mod.GNNConfig):
+        self.arch_id = arch_id
+        self.base_cfg = base_cfg
+        self.shapes = {
+            "full_graph_sm": ShapeCell(
+                "full_graph_sm", "train",
+                {"n_nodes": 2708, "n_edges": 10556, "d_feat": 1433}),
+            "minibatch_lg": ShapeCell(
+                "minibatch_lg", "train",
+                # sampled-subgraph worst case: 1024 seeds, fanout (15, 10)
+                {"n_nodes": 1024 * (1 + 15 + 150),
+                 "n_edges": 1024 * (15 + 150), "d_feat": 602,
+                 "graph_nodes": 232_965, "graph_edges": 114_615_892,
+                 "batch_nodes": 1024, "fanout": (15, 10)}),
+            "ogb_products": ShapeCell(
+                "ogb_products", "train",
+                {"n_nodes": 2_449_029, "n_edges": 61_859_140, "d_feat": 100,
+                 "shard_over_model": True}),
+            "molecule": ShapeCell(
+                "molecule", "train",
+                {"n_nodes": 30 * 128, "n_edges": 64 * 128, "d_feat": 16}),
+        }
+
+    def cfg_for(self, shape: str) -> gnn_mod.GNNConfig:
+        d = self.shapes[shape].dims
+        return dataclasses.replace(self.base_cfg, d_node_in=d["d_feat"])
+
+    def opt_config(self) -> OptimizerConfig:
+        return OptimizerConfig(kind="adamw", lr=1e-3, weight_decay=0.0)
+
+    def params(self, shape: str, seed: int = 0, device=None):
+        """The cell's seeded params (``gnn.init`` at ``cfg_for(shape)``)."""
+        return gnn_mod.init(self.cfg_for(shape), seed, device)
+
+    @staticmethod
+    def _pad4k(n: int) -> int:
+        """Graphs are padded (masked) to multiples of 4096 so node/edge
+        dims divide every mesh extent (16/32/256/512)."""
+        return ((n + 4095) // 4096) * 4096
+
+    def padded(self, shape: str) -> tuple:
+        """(N, E) of the cell's padded batch."""
+        d = self.shapes[shape].dims
+        return self._pad4k(d["n_nodes"]), self._pad4k(d["n_edges"])
+
+    def step(self, shape: str) -> Callable:
+        """``train_step(params, opt_state, batch, weights=None)`` ->
+        (params, opt_state, metrics): value and grad of ``loss_fn``, then
+        ``apply_updates``."""
+        from ..train.steps import make_train_step
+        cfg = self.cfg_for(shape)
+
+        def loss(params, batch, weights):
+            return gnn_mod.loss_fn(cfg, params, batch, weights)
+
+        return make_train_step(loss, self.opt_config())
+
+    def smoke(self) -> gnn_mod.GNNConfig:
+        return dataclasses.replace(self.base_cfg, n_layers=3, d_hidden=32,
+                                   d_node_in=16)
+
+
+def pad_graph(batch: dict, n_nodes: int, n_edges: int) -> dict:
+    """A numpy graph batch padded with masked-off nodes and edges (zeros,
+    ``node_mask`` / ``edge_mask`` False) to ``n_nodes`` and ``n_edges``."""
+    n, e = batch["nodes"].shape[0], batch["src"].shape[0]
+    if n > n_nodes or e > n_edges:
+        raise ValueError(f"a graph of {n} nodes and {e} edges does not pad "
+                         f"to {n_nodes} and {n_edges}")
+    out = {}
+    for k, v in batch.items():
+        extra = (n_nodes - n) if k in ("nodes", "node_mask", "targets") \
+            else (n_edges - e)
+        out[k] = np.concatenate(
+            [v, np.zeros((extra,) + v.shape[1:], v.dtype)])
+    return out
+
+
+# ================================================================ RecSys == //
+
+class RecsysArch:
+    family = "recsys"
+
+    def __init__(self, arch_id: str, cfg: rec_mod.RecSysConfig):
+        self.arch_id = arch_id
+        self.cfg = cfg
+        self.shapes = {
+            "train_batch": ShapeCell("train_batch", "train", {"batch": 65536}),
+            "serve_p99": ShapeCell("serve_p99", "infer", {"batch": 512}),
+            "serve_bulk": ShapeCell("serve_bulk", "infer", {"batch": 262144}),
+            "retrieval_cand": ShapeCell("retrieval_cand", "retrieval",
+                                        {"batch": 1, "n_cand": 1_000_000}),
+        }
+
+    def opt_config(self) -> OptimizerConfig:
+        return OptimizerConfig(kind="adamw", lr=1e-3, weight_decay=0.0)
+
+    def step(self, shape: str) -> Callable:
+        """``train_step(params, opt_state, batch, weights)`` -> (params,
+        opt_state, metrics); ``infer_step(params, batch)`` -> logits (B,);
+        ``retrieval_step(params, batch)`` -> (scores, top scores, top
+        indices). Serving runs under ``torch.inference_mode()``."""
+        cell = self.shapes[shape]
+        cfg = self.cfg
+        if cell.kind == "train":
+            from ..train.steps import make_train_step
+
+            def loss(params, batch, weights):
+                return rec_mod.loss_fn(cfg, params, batch, weights)
+
+            return make_train_step(loss, self.opt_config())
+        if cell.kind == "retrieval":
+            @torch.inference_mode()
+            def retrieval_step(params, batch):
+                return rec_mod.retrieval_scores(cfg, params, batch)
+            return retrieval_step
+
+        @torch.inference_mode()
+        def infer_step(params, batch):
+            return rec_mod.forward(cfg, params, batch)
+        return infer_step
+
+    def smoke(self) -> rec_mod.RecSysConfig:
+        return dataclasses.replace(
+            self.cfg, vocab_sizes=tuple(min(v, 1000)
+                                        for v in self.cfg.vocab_sizes))
+
+
+# ============================================================== registry == //
+
+_REGISTRY: Dict[str, Callable[[], object]] = {}
 
 
 def register(arch_id: str):
@@ -111,13 +254,26 @@ def register(arch_id: str):
     return deco
 
 
-def get_arch(arch_id: str) -> LMArch:
-    from . import lm_archs  # noqa: F401 — populate the registry
+def _load_all() -> None:
+    from . import gnn_archs, lm_archs, recsys_archs  # noqa: F401
+
+
+def get_arch(arch_id: str):
+    _load_all()
     if arch_id not in _REGISTRY:
         raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(_REGISTRY)}")
     return _REGISTRY[arch_id]()
 
 
 def all_arch_ids() -> list:
-    from . import lm_archs  # noqa: F401
+    _load_all()
     return sorted(_REGISTRY)
+
+
+def all_cells() -> list:
+    """Every (arch_id, shape_name, skip_reason) — the 40 assigned cells."""
+    out = []
+    for aid in all_arch_ids():
+        for sname, cell in get_arch(aid).shapes.items():
+            out.append((aid, sname, cell.skip))
+    return out

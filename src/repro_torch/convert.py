@@ -35,8 +35,14 @@ stacked on all n_layers) through
 ``decode_cache_from_numpy`` / ``decode_cache_to_numpy``, and its
 optimizer state (``OptState(step, m, v)``, the moments in the param
 tree's structure, stacked) through ``opt_state_from_numpy`` /
-``opt_state_to_numpy``. numpy has no bf16 of its own, so a bf16 leaf
-comes back as float32 (exact widening).
+``opt_state_to_numpy``. MeshGraphNet's weights (``enc_node``,
+``enc_edge``, ``dec`` and the stacked ``blocks``, each MLP's ``ws`` /
+``bs`` lists) cross through ``gnn_params_from_numpy`` /
+``gnn_params_to_numpy``, and a recsys model's (``tables``, the MLP
+lists, ``cin``, ``cross``, ``wide``, ...) through
+``recsys_params_from_numpy`` / ``recsys_params_to_numpy``; the same
+optimizer-state converters carry their AdamW state. numpy has no bf16
+of its own, so a bf16 leaf comes back as float32 (exact widening).
 """
 
 from __future__ import annotations
@@ -52,7 +58,8 @@ from .core.config import DedupConfig
 from .core.device import resolve_device
 from .core.state import FilterState, WindowRing, bits_shape
 
-if TYPE_CHECKING:       # the LM converters import the model when called
+if TYPE_CHECKING:       # the model converters import the model when called
+    from .models import gnn, recsys
     from .models import transformer as tfm
 
 
@@ -163,16 +170,13 @@ def _path_name(path) -> str:
     return "/".join(map(str, path))
 
 
-def transformer_params_from_numpy(cfg: tfm.TransformerConfig, tree: dict,
-                                  device=None) -> tfm.Params:
-    """The port's params (``models.transformer``) from the reference's
-    param tree of numpy leaves, each cast to the port's dtype for it
-    (``cfg.dtype``; fp32 norms and router). Every leaf must be there with
-    the config's shape; any other leaf is refused."""
-    from .models import transformer as tfm
+def _params_from_numpy(template, tree: dict, device) -> "torch.nn.Module":
+    """The port's params shaped as ``template`` (a ``Params`` tree on the
+    ``meta`` device) from the reference's tree of numpy leaves, each cast
+    to the template's dtype for it. Every leaf must be there with its
+    shape; any other leaf is refused."""
     from .models.layers import module_leaves, rebuild_params
     device = resolve_device(device)
-    template = tfm._build(cfg, None, torch.device("meta"))
     want = {lf.path: lf for lf in module_leaves(template)}
     got = _flatten(tree)
     if set(got) != set(want):
@@ -193,15 +197,64 @@ def transformer_params_from_numpy(cfg: tfm.TransformerConfig, tree: dict,
     return rebuild_params(template, tensors)
 
 
-def transformer_params_to_numpy(cfg: tfm.TransformerConfig, params) -> dict:
-    """The reference's param tree (numpy leaves, ``layers`` stacked,
-    ``dense_layers`` a list) of the port's params; bf16 weights come back
-    as float32."""
+def _params_to_numpy(params) -> dict:
+    """The reference's param tree (numpy leaves, what it stacks stacked,
+    its lists lists) of the port's params; bf16 weights come back as
+    float32."""
     from .models.layers import module_leaves, ref_tree
     return ref_tree(
         (lf.path, np.stack([_host_leaf(t) for t in lf.tensors])
          if lf.stacked else _host_leaf(lf.tensors[0]))
         for lf in module_leaves(params))
+
+
+def transformer_params_from_numpy(cfg: tfm.TransformerConfig, tree: dict,
+                                  device=None) -> tfm.Params:
+    """The port's params (``models.transformer``) from the reference's
+    param tree of numpy leaves, each cast to the port's dtype for it
+    (``cfg.dtype``; fp32 norms and router). Every leaf must be there with
+    the config's shape; any other leaf is refused."""
+    from .models import transformer as tfm
+    return _params_from_numpy(tfm._build(cfg, None, torch.device("meta")),
+                              tree, device)
+
+
+def transformer_params_to_numpy(cfg: tfm.TransformerConfig, params) -> dict:
+    """The reference's param tree (numpy leaves, ``layers`` stacked,
+    ``dense_layers`` a list) of the port's params; bf16 weights come back
+    as float32."""
+    return _params_to_numpy(params)
+
+
+def gnn_params_from_numpy(cfg: gnn.GNNConfig, tree: dict, device=None):
+    """The port's MeshGraphNet params (``models.gnn``) from the
+    reference's tree of numpy leaves: ``blocks`` stacked on a leading
+    n_layers axis, each MLP's ``ws`` / ``bs`` lists. Checked as
+    ``transformer_params_from_numpy`` checks."""
+    from .models import gnn
+    return _params_from_numpy(gnn._build(cfg, None, torch.device("meta")),
+                              tree, device)
+
+
+def gnn_params_to_numpy(cfg: gnn.GNNConfig, params) -> dict:
+    """The reference's MeshGraphNet tree (numpy, ``blocks`` stacked)."""
+    return _params_to_numpy(params)
+
+
+def recsys_params_from_numpy(cfg: recsys.RecSysConfig, tree: dict,
+                             device=None):
+    """The port's recsys params (``models.recsys``) from the reference's
+    tree of numpy leaves: ``tables`` ({``table_<i>``}), the MLPs' lists of
+    {``w``, ``b``}, xDeepFM's ``cin`` list, DCN-v2's ``cross`` list.
+    Checked as ``transformer_params_from_numpy`` checks."""
+    from .models import recsys
+    return _params_from_numpy(recsys._build(cfg, None, torch.device("meta")),
+                              tree, device)
+
+
+def recsys_params_to_numpy(cfg: recsys.RecSysConfig, params) -> dict:
+    """The reference's recsys tree of the port's params (numpy leaves)."""
+    return _params_to_numpy(params)
 
 
 def decode_cache_from_numpy(cfg: tfm.TransformerConfig, cache: dict,

@@ -8,36 +8,68 @@ has something real to remove. Record keys are FNV-1a of the token
 sequence. Every array equals the reference's for the same arguments: the
 same generator calls in the same order, nothing drawn another way.
 
-The corpus holds three (vocab, vocab) float64 tables: at vocab 32000 (the
-``100m`` training preset) about 8.2 GB each, and ``sample`` gathers a
-(batch, vocab) row block per token. That host cost is the reference's and
-is kept as it is; the trainer times it apart from the device step.
+The corpus holds two (vocab, vocab) float64 tables, ``probs`` and
+``cum``: at vocab 32000 (the ``100m`` training preset) about 8.2 GB each
+(the reference holds a third, its logits, while it builds them). Its init
+derives them by blocks of rows on a thread pool, and ``sample`` reads one
+row per token with a binary search where the reference gathers a (batch,
+vocab) row block per token: the same tables and tokens, at a fraction of
+the host time. The trainer times the draw apart from the device step.
 """
 
 from __future__ import annotations
 
+import os
+from concurrent.futures import ThreadPoolExecutor
 from typing import Iterator
 
 import numpy as np
 
 
+ROWS_PER_TASK = 64          # rows of the tables one init task derives
+
+
 class BigramCorpus:
     def __init__(self, vocab: int, seed: int = 0, temperature: float = 1.0):
+        """The reference's tables, value for value: one draw of the
+        (vocab, vocab) logits, then each row's ``exp(logits - max)``
+        normalised and its cumulative sum, in place and by blocks of rows
+        on a thread pool (numpy's row-wise reductions give the same bits
+        on a block as on the whole table; the ufuncs release the GIL)."""
         rng = np.random.default_rng(seed)
-        logits = rng.normal(size=(vocab, vocab)) * 2.0 / temperature
-        self.probs = np.exp(logits - logits.max(-1, keepdims=True))
-        self.probs /= self.probs.sum(-1, keepdims=True)
-        self.cum = np.cumsum(self.probs, axis=-1)
+        self.probs = rng.normal(size=(vocab, vocab))
+        self.cum = np.empty_like(self.probs)
+
+        def rows(lo: int) -> None:
+            p = self.probs[lo:lo + ROWS_PER_TASK]
+            p *= 2.0
+            p /= temperature
+            p -= p.max(-1, keepdims=True)
+            np.exp(p, out=p)
+            p /= p.sum(-1, keepdims=True)
+            np.cumsum(p, axis=-1, out=self.cum[lo:lo + ROWS_PER_TASK])
+
+        with ThreadPoolExecutor(os.cpu_count() or 1) as pool:
+            list(pool.map(rows, range(0, vocab, ROWS_PER_TASK)))
         self.vocab = vocab
         self.rng = rng
 
     def sample(self, batch: int, seq: int) -> np.ndarray:
+        """The reference's draws and tokens: each next token is the first
+        index whose cumulative probability exceeds the uniform draw
+        (``(u < cum[prev]).argmax()``, 0 where none does). A cumulative
+        row never decreases, so that index is ``searchsorted(cum[prev], u,
+        "right")``: one binary search per token, not a (batch, vocab)
+        row gather and compare."""
         toks = np.empty((batch, seq), dtype=np.int32)
         toks[:, 0] = self.rng.integers(0, self.vocab, size=batch)
         u = self.rng.random((batch, seq))
-        for t in range(1, seq):
-            c = self.cum[toks[:, t - 1]]
-            toks[:, t] = (u[:, t:t + 1] < c).argmax(-1)
+        for b in range(batch):
+            row, ub, prev = toks[b], u[b], int(toks[b, 0])
+            for t in range(1, seq):
+                k = int(np.searchsorted(self.cum[prev], ub[t], side="right"))
+                prev = 0 if k == self.vocab else k
+                row[t] = prev
         return toks
 
 

@@ -1,6 +1,7 @@
 """Shared neural-net layers of the port — the counterpart of
-``repro.models.layers`` (the parts the LMs run: serving, and the
-training objective ``weighted_xent``).
+``repro.models.layers``: what the LMs run (serving, and the training
+objective ``weighted_xent``) and what GNN and recsys run (``layernorm``,
+``mlp_init`` / ``mlp_apply``, ``zeros_init`` / ``ones_init``).
 
 Conventions, as in the reference:
   * init fns take an explicit ``torch.Generator`` and return a tensor on
@@ -25,6 +26,7 @@ import functools
 import math
 from typing import List, NamedTuple, Optional, Tuple, Union
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -64,9 +66,12 @@ class Params(nn.Module):
 
 class LayerList(nn.ModuleList):
     """Layers the reference keeps in a Python list (deepseek's
-    ``dense_layers``), not stacked: each layer's parameters are leaves of
-    their own under its index (``dense_layers/0/attn/norm``), where a
-    plain ``ModuleList`` is one stacked leaf per name."""
+    ``dense_layers``, an MLP's layers), not stacked: each layer's
+    parameters are leaves of their own under its index
+    (``dense_layers/0/attn/norm``), where a plain ``ModuleList`` is one
+    stacked leaf per name. A Python list of bare tensors (an MLP's
+    ``ws``, xDeepFM's ``cin``) is an ``nn.ParameterList``, one leaf per
+    index (``enc_node/ws/0``)."""
 
 
 class Leaf(NamedTuple):
@@ -90,7 +95,11 @@ def _leaves_of(mod: nn.Module, path: tuple, prefix: str):
     for name, p in mod.named_parameters(recurse=False):
         yield Leaf(path + (name,), [p], [prefix + name], False)
     for name, sub in mod.named_children():
-        if isinstance(sub, LayerList):
+        if isinstance(sub, nn.ParameterList):
+            for i, p in enumerate(sub):
+                yield Leaf(path + (name, i), [p], [f"{prefix}{name}.{i}"],
+                           False)
+        elif isinstance(sub, LayerList):
             for i, m in enumerate(sub):
                 yield from _leaves_of(m, path + (name, i),
                                       f"{prefix}{name}.{i}.")
@@ -137,6 +146,9 @@ def rebuild_params(template: nn.Module, tensors: dict) -> nn.Module:
     """A new ``Params`` tree shaped as ``template`` over ``tensors`` (the
     port's parameter name -> tensor)."""
     def build(mod, prefix):
+        if isinstance(mod, nn.ParameterList):
+            return nn.ParameterList(tensors[f"{prefix}{i}"]
+                                    for i in range(len(mod)))
         if isinstance(mod, nn.ModuleList):
             return type(mod)(build(m, f"{prefix}{i}.")
                              for i, m in enumerate(mod))
@@ -147,6 +159,29 @@ def rebuild_params(template: nn.Module, tensors: dict) -> nn.Module:
             out[name] = build(sub, f"{prefix}{name}.")
         return out
     return build(template, "")
+
+
+def as_torch_dtype(dtype) -> torch.dtype:
+    """A torch dtype from a torch dtype or anything numpy names (the
+    reference's ``jnp.bfloat16``)."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    out = getattr(torch, np.dtype(dtype).name, None)
+    if not isinstance(out, torch.dtype):
+        raise ValueError(f"no torch dtype for {dtype!r}")
+    return out
+
+
+def tensor_batch(batch: dict, device=None) -> dict:
+    """A batch of numpy arrays (the data modules' output) as tensors on
+    ``device`` (``cuda`` unless the caller passes ``device="cpu"``), each
+    keeping its dtype; a tensor is moved, not copied, where it already
+    lies there."""
+    from ..core.device import resolve_device
+    device = resolve_device(device)
+    return {k: (v if isinstance(v, torch.Tensor)
+                else torch.from_numpy(np.ascontiguousarray(v))).to(device)
+            for k, v in batch.items()}
 
 
 # ----------------------------------------------------------------- init -- //
@@ -172,6 +207,19 @@ def fan_in_init(gen: Optional[torch.Generator], shape, dtype,
     return normal_init(gen, shape, dtype, 1.0 / math.sqrt(fan_in), device)
 
 
+def zeros_init(gen: Optional[torch.Generator], shape, dtype, device=None
+               ) -> torch.Tensor:
+    """Zeros on ``device`` (the generator's where none is given); no draw."""
+    return torch.zeros(shape, dtype=dtype,
+                       device=gen.device if device is None else device)
+
+
+def ones_init(gen: Optional[torch.Generator], shape, dtype, device=None
+              ) -> torch.Tensor:
+    return torch.ones(shape, dtype=dtype,
+                      device=gen.device if device is None else device)
+
+
 # ----------------------------------------------------------------- norm -- //
 
 
@@ -182,6 +230,17 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
     var = (xf * xf).mean(-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * _wide(scale)).to(x.dtype)
+
+
+def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+              eps: float = 1e-6) -> torch.Tensor:
+    """LayerNorm in fp32 (``_wide``) over the last axis, the biased
+    variance under ``rsqrt``, cast back to x.dtype."""
+    xf = _wide(x)
+    mu = xf.mean(-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * _wide(scale) + _wide(bias)).to(x.dtype)
 
 
 # ----------------------------------------------------------------- rope -- //
@@ -319,6 +378,30 @@ def flash_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 # ------------------------------------------------------------------ mlp -- //
+
+
+def mlp_init(gen, dims, dtype, bias: bool = True, device=None) -> LayerList:
+    """dims [d0, d1, ..., dn] — n linear layers, each ``Params(w[, b])``
+    (the reference's list of {"w", "b"} dicts)."""
+    layers = LayerList()
+    for di, do in zip(dims[:-1], dims[1:]):
+        p = Params(w=fan_in_init(gen, (di, do), dtype, device))
+        if bias:
+            p["b"] = zeros_init(gen, (do,), dtype, device)
+        layers.append(p)
+    return layers
+
+
+def mlp_apply(layers, x: torch.Tensor, act=torch.relu,
+              final_act: bool = False) -> torch.Tensor:
+    n = len(layers)
+    for i, p in enumerate(layers):
+        x = x @ p["w"]
+        if hasattr(p, "b"):
+            x = x + p["b"]
+        if i < n - 1 or final_act:
+            x = act(x)
+    return x
 
 
 def swiglu_init(gen, d_model: int, d_ff: int, dtype, device=None

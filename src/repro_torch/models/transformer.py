@@ -44,27 +44,15 @@ import functools
 import math
 from typing import Any, Optional
 
-import numpy as np
 import torch
 from torch import nn
 
 from ..core.device import resolve_device
 from .layers import (_NEG, LayerList, Params, _wide, apply_rope,
-                     attention_scores_mask, fan_in_init, flash_sdpa,
-                     normal_init, rmsnorm, sdpa, swiglu_apply, swiglu_init,
-                     weighted_xent)
+                     as_torch_dtype, attention_scores_mask, fan_in_init,
+                     flash_sdpa, normal_init, rmsnorm, sdpa, swiglu_apply,
+                     swiglu_init, weighted_xent)
 from .moe import MoEConfig, moe_apply, moe_init
-
-
-def as_torch_dtype(dtype) -> torch.dtype:
-    """A torch dtype from a torch dtype or anything numpy names (the
-    reference's ``jnp.bfloat16``)."""
-    if isinstance(dtype, torch.dtype):
-        return dtype
-    out = getattr(torch, np.dtype(dtype).name, None)
-    if not isinstance(out, torch.dtype):
-        raise ValueError(f"no torch dtype for {dtype!r}")
-    return out
 
 
 @dataclasses.dataclass(frozen=True)

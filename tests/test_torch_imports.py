@@ -45,7 +45,9 @@ def test_port_files_found():
             "test_torch_analysis_gpu.py", "layers.py", "transformer.py",
             "registry.py", "lm_archs.py", "test_torch_models_gpu.py",
             "torch_lm_scorer.py", "optimizers.py", "steps.py", "trainer.py",
-            "lm.py", "train.py", "test_torch_train_gpu.py"} <= names
+            "lm.py", "train.py", "test_torch_train_gpu.py", "gnn.py",
+            "recsys.py", "graphs.py", "recsys_data.py", "gnn_archs.py",
+            "recsys_archs.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -69,11 +71,30 @@ def test_port_names_the_reference_exports():
                               "global_norm", "init_opt_state", "schedule"),
         "repro_torch.train": ("make_train_step", "StragglerWatchdog",
                               "Trainer", "TrainerConfig", "remesh"),
-        "repro_torch.data": ("lm", "streams"),
+        "repro_torch.data": ("graphs", "lm", "recsys_data", "streams"),
+        "repro_torch.data.graphs": ("random_graph", "molecule_batch",
+                                    "CSRGraph", "NeighborSampler"),
+        "repro_torch.data.recsys_data": ("CTRStream", "candidates_matrix"),
+        "repro_torch.models": ("gnn", "layers", "moe", "recsys",
+                               "transformer"),
+        "repro_torch.models.gnn": ("GNNConfig", "init", "forward",
+                                   "loss_fn"),
+        "repro_torch.models.recsys": ("RecSysConfig", "default_vocab_sizes",
+                                      "embedding_init", "embedding_bag",
+                                      "init", "forward", "loss_fn",
+                                      "retrieval_scores"),
+        "repro_torch.configs": ("GNNArch", "RecsysArch", "all_cells",
+                                "all_arch_ids", "get_arch"),
+        "repro_torch.convert": ("gnn_params_from_numpy",
+                                "gnn_params_to_numpy",
+                                "recsys_params_from_numpy",
+                                "recsys_params_to_numpy"),
         "repro_torch.data.lm": ("BigramCorpus", "seq_keys", "lm_batches"),
         "repro_torch.launch": ("train",),
         "repro_torch.models.transformer": ("forward",),
-        "repro_torch.models.layers": ("weighted_xent",),
+        "repro_torch.models.layers": ("weighted_xent", "layernorm",
+                                      "mlp_init", "mlp_apply", "zeros_init",
+                                      "ones_init"),
     }
     for module, names in want.items():
         mod = importlib.import_module(module)

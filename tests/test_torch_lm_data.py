@@ -21,6 +21,29 @@ def test_bigram_corpus_and_keys_equal_reference(vocab, seed):
     assert tlm.seq_keys(tb).dtype == np.uint32
 
 
+def test_sample_where_no_cumulative_exceeds_the_draw():
+    """The port builds the tables by blocks of rows and draws each token by
+    a binary search of the cumulative row where the reference compares the
+    whole row: the same tables at any width and temperature; where no entry
+    exceeds the uniform draw (a row whose rounding ends below 1; here
+    planted: rows that end at 0.6 or 0) both give token 0, and otherwise
+    the same tokens, over a wider vocab and a longer run."""
+    a, b = jlm.BigramCorpus(2048, 7), tlm.BigramCorpus(2048, 7)
+    assert np.array_equal(a.sample(16, 300), b.sample(16, 300))
+    # the tables, built by blocks of rows, at a width no block divides
+    c, d = (m.BigramCorpus(200, 1, temperature=0.7) for m in (jlm, tlm))
+    assert np.array_equal(c.probs, d.probs) and np.array_equal(c.cum, d.cum)
+    assert np.array_equal(c.sample(3, 50), d.sample(3, 50))
+    for c in (a, b):
+        c.cum = c.cum * 0.6
+        c.cum[5] = 0.0
+        c.cum[:, -1] = np.where(np.arange(2048) % 3 == 0, 1.0,
+                                c.cum[:, -2])
+    ta, tb = a.sample(16, 300), b.sample(16, 300)
+    assert np.array_equal(ta, tb)
+    assert (tb == 0).mean() > 0.2 and (tb[:, 1:] != 0).any()
+
+
 @pytest.mark.parametrize("dup_frac", (0.0, 0.3, 0.5))
 def test_lm_batches_equal_reference(dup_frac):
     ja = jlm.lm_batches(vocab=128, batch=8, seq=16, dup_frac=dup_frac,

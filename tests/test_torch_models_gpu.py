@@ -1,14 +1,20 @@
-"""The port's transformer on the card at smoke width (the five LM archs:
-dense, MoE, MLA), against the
-port's own CPU run from the same weights (the reference holds the CPU run,
-``tests/test_torch_transformer.py``). These tests import neither jax nor
-the JAX package:
+"""The port's models on the card at smoke width — the transformer (the
+five LM archs: dense, MoE, MLA), MeshGraphNet and the four recsys rankers
+— against the port's own CPU run from the same weights (the reference
+holds the CPU run: ``tests/test_torch_transformer.py``,
+``test_torch_gnn.py``, ``test_torch_recsys.py``). These tests import
+neither jax nor the JAX package:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_models_gpu.py
 
 Without a CUDA device they skip. fp32 on both sides with TF32 off, so the
 card's logits agree with the CPU's to 1e-4 (reductions in another
-order); the full-width run is ``chip_smoke.py``'s phase "lm"."""
+order); the full-width run is ``chip_smoke.py``'s phase "lm". GNN and
+recsys go through ``chip_smoke.py``'s ``model_card_vs_cpu`` (the check
+of its phase "graph_recsys"): two AdamW steps in lockstep, forward and
+loss within 1e-5 of the max |value|, each gradient within 1e-4 of its
+max |g|, params after the step within 1e-5 of their max |value| plus
+1e-2 x the lr."""
 
 import dataclasses
 
@@ -16,14 +22,20 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import (model_card_vs_cpu, model_parity_ok,
+                        model_parity_text, smoke_batches)
 from repro_torch import convert
 from repro_torch.configs import get_arch
+from repro_torch.models import gnn as TG
+from repro_torch.models import recsys as TR
 from repro_torch.models import transformer as TT
+from repro_torch.models.layers import tensor_batch
 from torch_lm_scorer import make_lm_scorer
 
 pytestmark = pytest.mark.gpu
 ALL = ("qwen3-8b", "codeqwen1.5-7b", "h2o-danube-3-4b", "mixtral-8x7b",
        "deepseek-v2-236b")
+GR = ("meshgraphnet", "wide-deep", "xdeepfm", "dlrm-rm2", "dcn-v2")
 B, S = 2, 40                 # past danube's window of 16 twice over
 ATOL = 1e-4
 
@@ -124,5 +136,67 @@ def test_steps_wait_for_nothing_on_the_host(card, arch_id):
     try:
         TT.prefill(cfg, gpu, toks)
         TT.decode_step(cfg, gpu, cache, toks[:, 0], pos)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+@pytest.mark.parametrize("arch_id", GR)
+def test_gnn_and_recsys_train_steps_on_card_match_cpu(card, arch_id):
+    """Two AdamW steps of each smoke config on the card and on the CPU in
+    lockstep, one record weighted 0 by the dedup stage (MeshGraphNet on a
+    random graph, then a neighbor sample; recsys on CTR batches with
+    replays): the card's forward, loss, gradients and updates within the
+    stated bounds; the scatter-sum's atomics and the embedding gradient's
+    ``index_put_`` run on the card."""
+    arch = get_arch(arch_id)
+    cfg = arch.smoke()
+    res = model_card_vs_cpu(arch.family, cfg, smoke_batches(arch.family,
+                                                            cfg))
+    print(f"{arch_id}: {model_parity_text(res)}")
+    assert model_parity_ok(res), model_parity_text(res)
+
+
+def test_the_model_check_fails_on_tf32(card, monkeypatch):
+    """The check can fail: with TF32 planted in the card's matmuls alone,
+    DCN-v2's forward is out of bounds."""
+    real = TR.forward
+
+    def planted(cfg, params, batch):
+        torch.backends.cuda.matmul.allow_tf32 = batch["dense"].is_cuda
+        try:
+            return real(cfg, params, batch)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+
+    monkeypatch.setattr(TR, "forward", planted)
+    cfg = get_arch("dcn-v2").smoke()
+    res = model_card_vs_cpu("recsys", cfg, smoke_batches("recsys", cfg, 1))
+    print(f"planted tf32: {model_parity_text(res)}")
+    assert not model_parity_ok(res)
+
+
+def test_gnn_and_recsys_forward_wait_for_nothing_on_the_host(card):
+    """MeshGraphNet's forward and loss (gathers, the scatter-sum's masks),
+    the rankers' serving forward with ``dedup_gather`` (``unique_gather``
+    on the card) and retrieval's tie-ordered top-k issue no host-device
+    synchronisation."""
+    gcfg = get_arch("meshgraphnet").smoke()
+    gparams = TG.init(gcfg, 0)
+    gbatch = tensor_batch(smoke_batches("gnn", gcfg, 1)[0][0])
+    rec = []
+    for aid in GR[1:]:
+        cfg = dataclasses.replace(get_arch(aid).smoke(), dedup_gather=True)
+        batch = tensor_batch(smoke_batches("recsys", cfg, 1)[0][0])
+        batch["candidates"] = torch.randn((5000, cfg.embed_dim),
+                                          device=card)
+        rec.append((cfg, TR.init(cfg, 0), batch))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        TG.loss_fn(gcfg, gparams, gbatch)
+        with torch.inference_mode():
+            for cfg, params, batch in rec:
+                TR.forward(cfg, params, batch)
+                TR.retrieval_scores(cfg, params, batch)
     finally:
         torch.cuda.set_sync_debug_mode("default")

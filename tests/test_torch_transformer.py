@@ -345,11 +345,15 @@ def test_cache_round_trip_and_refusals(arch_id):
 
 
 def test_registry_matches_reference():
-    """The five LM ids, their full configs field for field, the smoke
-    configs, the optimizer config and the accumulation factors (the train
-    step itself is held in test_torch_train.py)."""
+    """The five LM ids (among the reference's ten, all registered; the
+    other five are held in test_torch_recsys_train.py), their full configs
+    field for field, the smoke configs, the optimizer config and the
+    accumulation factors (the train step itself is held in
+    test_torch_train.py)."""
     ref_lm = [a for a in j_all_arch_ids() if j_get_arch(a).family == "lm"]
-    assert all_arch_ids() == sorted(ref_lm)
+    assert all_arch_ids() == j_all_arch_ids()
+    assert [a for a in all_arch_ids() if get_arch(a).family == "lm"] == \
+        sorted(ref_lm)
     for a in ref_lm:
         for ours, theirs in ((get_arch(a).cfg, j_get_arch(a).cfg),
                              (get_arch(a).smoke(), j_get_arch(a).smoke())):
