@@ -67,8 +67,9 @@ phase) with tenant ids drawn uniformly from a seeded generator
 
 Then the "shard" phase: the sharded service (``ShardedDedup``) at one
 NCCL rank (the card is one GPU; NCCL refuses two ranks on one device), the
-group initialised from a file store in a temporary directory and destroyed
-at the phase's end, every exchange through NCCL, over the stream's first
+group initialised from a file store in a temporary directory and kept
+until the "mesh" phase has ended, every exchange through NCCL, over the
+stream's first
 2^20 records (2^21 until the "graph_recsys" phase came) at batch 8192:
 
 * shard-static-rlbsbf-256MB-1rank: static hash routing, rlbsbf on the 256
@@ -181,6 +182,23 @@ GB of the card stay free, 2 steps with weights from the same dedup stage
 over ``seq_keys`` (a replayed document dropped): finite loss and grad
 norm, step ms, peak memory, device busy time and idle share.
 
+Then the "mesh" phase: the model sharding (``repro_torch.launch.mesh``,
+``distributed.sharding``, ``train.jit_sharded``) on the card. The
+("data", "model") mesh of ``make_local_mesh()`` over the one-rank NCCL
+group the "shard" phase brought up (kept until this phase ends; (1, 1)
+on one card), the ``100m`` trainer's step at full width placed on it by
+the registry's specs (``LMArch.param_specs`` / ``opt_specs``, the
+transformer batch specs): 2 steps through ``jit_sharded`` and 2 of the
+plain step from the same seeded state, fp32 with TF32 off, on batches
+drawn from the "train" phase's corpus and weighted by its dedup stage
+(one hashmix launch per call, counted). The losses and every parameter
+after the 2 steps equal within 1e-5 of their max |value|; then one more
+sharded step profiled (device busy, idle share) and one under
+``launch.analysis.analyze_step`` (its collective counts, flops and
+memory), and ``compressed_psum`` of the 100m gradients over the mesh's
+"data" group equal bit for bit to the one-rank form of the reference's
+formula (quantize, then dequantize), its error state finite.
+
 Then the "graph_recsys" phase: GNN and recsys (``repro_torch.models.gnn``
 and ``.recsys``), fp32 with TF32 off, weights from the port's seeded init.
 First MeshGraphNet's and the four rankers' smoke configs on the card
@@ -279,9 +297,10 @@ ORACLE_N = 512                   # keys of the sbf oracle on the card (cut
                                  # from 4096, then 1024, for time)
 FLEET_CAPACITY = 512             # FleetDedup's default: ceil(2·8192 / 32)
 DISTINCT_FRAC = 0.60             # the paper's 60% distinct (Section 6)
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
-PEAK_OPS_PER_S = 67e12           # H100 SXM float32 outside the tensor cores
-BF16_OPS_PER_S = 989e12          # H100 SXM bf16 dense tensor cores
+try:                             # the card's rates (main() reports a
+    from repro_torch.launch.hw import HBM_BW, PEAK_FLOPS_BF16, PEAK_FLOPS_FP32
+except ImportError:              # missing package)
+    HBM_BW = PEAK_FLOPS_BF16 = PEAK_FLOPS_FP32 = None
 PINNED_DIGESTS = {               # tests/test_sketch_template.py (reference)
     "bsbf": "4e3f72a324d1eb32",
     "bsbfsd": "9936da3ee28dfb25",
@@ -376,6 +395,9 @@ QWEN_TRAIN_LAYERS = 8            # qwen3-8b train_4k: the depth cut (of 36)
 QWEN_TRAIN = (4, 4096)           # its batch (4 microbatches of 1) and seq
 QWEN_TRAIN_STEPS = 2
 FREE_BYTES = 10 * 10**9          # the card left free by the cut depth
+# the "mesh" phase: the 100m step through jit_sharded on the (1, 1) mesh
+MESH_STEPS = 2                   # steps of each form from one state
+MESH_TOL = 1e-5                  # sharded vs plain, of max |value|
 # the "graph_recsys" phase: MeshGraphNet and the four recsys rankers at
 # their published widths (gnn_archs.py, recsys_archs.py), fp32, seeded
 GNN_ARCH = "meshgraphnet"
@@ -1700,14 +1722,15 @@ def phase_lm(card):
         log(f"[lm] scorer prefill at width {w} ({w * 16} tokens, logits "
             f"{w * 16 * cfg.vocab * 2 / 2**30:.3f} GiB): {wall:.4f} ms per "
             f"call by CUDA events{busy}; matmul bound "
-            f"{flops / 989e12 * 1e3:.4f} ms (bf16 989 TFLOP/s); peak memory "
+            f"{flops / PEAK_FLOPS_BF16 * 1e3:.4f} ms (bf16 at "
+            f"{PEAK_FLOPS_BF16 / 1e12:g} TFLOP/s); peak memory "
             f"above the weights {extra:.3f} GiB ({card})")
         del tw
         torch.cuda.empty_cache()
     lap("scorer widths")
 
     # 5. greedy decode timed against the weight-read bound
-    bound = w_bytes / HBM_BYTES_PER_S * 1e3
+    bound = w_bytes / HBM_BW * 1e3
     for b in LM_DECODE_B:
         cache = tfm.init_cache(cfg, b, LM_DECODE_SEQ)
         c_bytes = sum(c.numel() * c.element_size() for c in cache.values())
@@ -1734,7 +1757,7 @@ def phase_lm(card):
             f"{ms:.4f} ms per step, {b * 1e3 / ms:.1f} tokens/s; device busy "
             f"per step {busy}; weight-read bound {bound:.4f} ms "
             f"({w_bytes / 1e9:.4f} GB at 3.35 TB/s), with the cache read "
-            f"{(w_bytes + c_bytes) / HBM_BYTES_PER_S * 1e3:.4f} ms; "
+            f"{(w_bytes + c_bytes) / HBM_BW * 1e3:.4f} ms; "
             f"{bound / ms:.4f} of the weight-read bound ({card})")
         if not bool(torch.isfinite(lg).all()):
             raise AssertionError(f"lm: decode at B {b} is not finite")
@@ -1977,7 +2000,7 @@ def phase_moe(card):
         busy, n_ops, n_kern, top = profile_train_step(lambda: step(
             params, cache, tok, torch.full((b,), n_tok, dtype=torch.int32,
                                            device="cuda")))
-        bound = w_bytes / HBM_BYTES_PER_S * 1e3
+        bound = w_bytes / HBM_BW * 1e3
         dev = ("not measured" if busy is None else
                f"{busy:.4f} ms (idle share {max(0.0, 1 - busy / ms):.4f}; "
                f"{n_kern} kernels; the costliest {top})")
@@ -2313,7 +2336,8 @@ def phase_train(card):
     truth, hashmix at its shape against the plain version, an fp32 2-layer
     copy of its config stepped on the card and on the CPU, and qwen3-8b's
     train_4k step at full width and a cut depth. -> (the trainer's kernel
-    launches, hashmix's largest difference from its plain version)."""
+    launches, hashmix's largest difference from its plain version, the
+    trainer's data, dedup stage and step for the "mesh" phase)."""
     import torch
     from repro_torch.configs import LMArch, get_arch
     from repro_torch.core import DedupConfig, hashing, u32
@@ -2381,7 +2405,7 @@ def phase_train(card):
         f"{len(steps_ms)} steps; {tokens * 1e3 / step_ms:.1f} tokens/s in "
         f"the step, {tokens / (step_ms / 1e3 + float(np.median(draws[1:]))):.1f}"
         f" with the data draw; matmul bound "
-        f"{train_bound_ms(preset_config(TRAIN_PRESET), p['batch'], p['seq'], PEAK_OPS_PER_S):.4f}"
+        f"{train_bound_ms(preset_config(TRAIN_PRESET), p['batch'], p['seq'], PEAK_FLOPS_FP32):.4f}"
         f" ms (fp32 at 67 TFLOP/s, TF32 off) ({card})")
     log(f"[train] data (host, numpy; the reference's BigramCorpus over vocab "
         f"{p['vocab']}): corpus init {init_s:.2f} s (first draw "
@@ -2435,6 +2459,7 @@ def phase_train(card):
     if not torch.equal(got_h, want_h) or hk.shape[0] != p["batch"]:
         raise AssertionError("train: hashmix disagrees with its plain "
                              "version")
+    keep = (trainer.data, trainer.dedup, trainer.train_step)
     del trainer, probe
     torch.cuda.empty_cache()
 
@@ -2508,8 +2533,8 @@ def phase_train(card):
         f"{[round(x, 4) for x in q_gn]}; step ms {[round(x, 1) for x in q_ms]}"
         f" (host clock ending in torch.cuda.synchronize), "
         f"{bq * sq * 1e3 / q_ms[-1]:.1f} tokens/s; matmul bound "
-        f"{train_bound_ms(qcfg, bq, sq, BF16_OPS_PER_S):.4f} ms (bf16 at "
-        f"989 TFLOP/s); peak device "
+        f"{train_bound_ms(qcfg, bq, sq, PEAK_FLOPS_BF16):.4f} ms (bf16 at "
+        f"{PEAK_FLOPS_BF16 / 1e12:g} TFLOP/s); peak device "
         f"memory reserved {peak_q / 2**30:.3f} GiB of "
         f"{total / 2**30:.3f} GiB ({card})")
     if qbusy is None:
@@ -2525,7 +2550,141 @@ def phase_train(card):
     del qparams, qstate, qstep
     torch.cuda.empty_cache()
     lap("qwen3-8b train_4k")
-    return launches, hash_err
+    return launches, hash_err, keep
+
+
+def phase_mesh(card, kept):
+    """The 100m trainer's step placed on the local mesh over the live
+    one-rank NCCL group, against the plain step; ``compressed_psum`` of
+    its gradients; see the module's docstring. ``kept``: the "train"
+    phase's (data, dedup stage, step). -> the kernel launches of its dedup
+    calls."""
+    import torch
+    from repro_torch.configs import LMArch
+    from repro_torch.distributed import sharding as shr
+    from repro_torch.distributed.collectives import (compressed_psum,
+                                                     dequantize_int8,
+                                                     quantize_int8)
+    from repro_torch.kernels.fused_template import bitset_step, counter_step
+    from repro_torch.kernels.hashmix import hashmix
+    from repro_torch.launch.analysis import analyze_step
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.train import preset_config
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import init_opt_state
+    from repro_torch.train import jit_sharded
+    torch.backends.cuda.matmul.allow_tf32 = False   # fp32 is fp32
+    data, dedup, step = kept
+    t_phase = time.perf_counter()
+    mesh = make_local_mesh()
+    cfg = preset_config(TRAIN_PRESET)
+    arch = LMArch(cfg.name, cfg)
+    bs = shr.transformer_batch_specs(mesh)
+    specs = (arch.param_specs(mesh), arch.opt_specs(mesh), bs["tokens"],
+             bs["weights"])
+    log(f"[mesh] {mesh} over the NCCL group of {mesh.size()} rank(s); "
+        f"specs of {cfg.name} ({cfg.param_count()} parameters): tokens "
+        f"{bs['tokens']}, weights {bs['weights']}, every parameter and "
+        f"moment replicated on a (1, 1) mesh")
+    counters = (hashmix, bitset_step, counter_step)
+    for c in counters:
+        c.launches = 0
+    batches = []
+    for _ in range(MESH_STEPS):
+        db = dedup.process(next(data))
+        batches.append((torch.from_numpy(db.data["tokens"]).cuda(),
+                        db.weights))
+    launches = {c.__name__: c.launches for c in counters}
+    if launches != {"hashmix": MESH_STEPS, "bitset_step": 0,
+                    "counter_step": 0}:
+        raise AssertionError(f"mesh: the dedup stage launched {launches} "
+                             f"for {MESH_STEPS} calls")
+    params = tfm.init(cfg, SEED + 31)
+    forms = {}
+    for form in ("plain", "sharded"):
+        p = copy.deepcopy(params)
+        o = init_opt_state(arch.opt_config(), p)
+        fn = step if form == "plain" else jit_sharded(step, mesh, specs)
+        losses, ms = [], []
+        for t, w in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p, o, m = fn(p, o, t, w)
+            loss = m["loss"]
+            losses.append(float(loss.full_tensor() if form == "sharded"
+                                else loss))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        forms[form] = (p, o, fn, losses, ms)
+    del params
+    (pp, _, _, l_plain, ms_plain), (ps, os_, fs, l_shard, ms_shard) = (
+        forms["plain"], forms["sharded"])
+    dist_p = 0.0
+    for (name, a), (_, b) in zip(pp.named_parameters(),
+                                 ps.named_parameters()):
+        b = b.full_tensor() if hasattr(b, "full_tensor") else b
+        d = float((a - b).detach().abs().max()) / max(
+            float(a.detach().abs().max()), 1e-30)
+        dist_p = max(dist_p, d)
+    dist_l = max(abs(a - b) / abs(a) for a, b in zip(l_plain, l_shard))
+    log(f"[mesh] train-{TRAIN_PRESET}-jit_sharded-1x1: {MESH_STEPS} steps "
+        f"from one seeded state, fp32, TF32 off; losses plain {l_plain}, "
+        f"sharded {l_shard}; step ms plain {[round(x, 1) for x in ms_plain]},"
+        f" sharded {[round(x, 1) for x in ms_shard]} (host clock ending in "
+        f"the loss read); largest distance of a loss {dist_l:.3g}, of a "
+        f"parameter {dist_p:.3g} of its max |value| (gate 1e-5); hashmix "
+        f"launches {launches['hashmix']} for {MESH_STEPS} dedup calls "
+        f"({card})")
+    if not (dist_l <= MESH_TOL and dist_p <= MESH_TOL
+            and all(np.isfinite(l_shard))):
+        raise AssertionError("mesh: the sharded step disagrees with the "
+                             "plain one")
+    del forms, pp
+    t, w = batches[-1]
+    busy, _, n_k, top = profile_train_step(
+        lambda: float(fs(ps, os_, t, w)[2]["loss"].full_tensor()),
+        host_ops=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    float(fs(ps, os_, t, w)[2]["loss"].full_tensor())
+    one_ms = (time.perf_counter() - t0) * 1e3
+    if busy is None:
+        log("[mesh] the profiler recorded no device time: the sharded "
+            "step's idle share not measured")
+    else:
+        log(f"[mesh] one sharded step profiled: device busy {busy:.4f} ms "
+            f"in {n_k} kernels, idle share {max(0.0, 1 - busy / one_ms):.4f}"
+            f" of an unprofiled sharded step of {one_ms:.1f} ms; costliest "
+            f"kernels (ms, launches) {top} ({card})")
+    res = analyze_step(fs.placed, fs.place(ps, os_, t, w))
+    log(f"[mesh] analyze_step on the sharded step: collectives_counts "
+        f"{res['collectives_counts']}, collectives_bytes "
+        f"{res['collectives_bytes']}, flops {res['cost']['flops']:.4g}, "
+        f"bytes_accessed {res['cost']['bytes_accessed']:.4g}, memory "
+        f"{res['memory']}, {res['run_s']:.1f} s under the counters "
+        f"({card})")
+    del res
+    # compressed_psum over the mesh's "data" group of one rank
+    p = tfm.init(cfg, SEED + 31)
+    names = [n for n, _ in p.named_parameters()]
+    loss, _ = tfm.forward(cfg, p, t, w)
+    grads = dict(zip(names, torch.autograd.grad(loss, list(p.parameters()))))
+    synced, err = compressed_psum(grads, mesh.get_group("data"))
+    exact = all(torch.equal(synced[n], dequantize_int8(*quantize_int8(g)))
+                for n, g in grads.items())
+    finite = all(bool(torch.isfinite(e).all()) for e in err.values())
+    n_values = sum(g.numel() for g in grads.values())
+    log(f"[mesh] compressed_psum of the {TRAIN_PRESET} gradients "
+        f"({len(grads)} leaves, {n_values} values, all-reduced as int32 "
+        f"accumulators and one fp32 max per leaf) over the mesh's "
+        f"\"data\" group of {mesh.size(0)}: equal bit for bit to quantize "
+        f"then dequantize {exact}, error state finite {finite} "
+        f"({time.perf_counter() - t_phase:.1f} s in the phase; {card})")
+    if not (exact and finite):
+        raise AssertionError("mesh: compressed_psum is not the one-rank "
+                             "form of the reference's formula")
+    del p, grads, synced, err, loss, ps, os_, fs, batches
+    torch.cuda.empty_cache()
+    return launches
 
 
 def host_graph(n_nodes: int, n_edges: int, d_feat: int, d_out: int, seed):
@@ -2814,7 +2973,7 @@ def phase_graph_recsys(card):
             gns.append(float(m["grad_norm"]))
             ms.append((time.perf_counter() - t0) * 1e3)
         peak = torch.cuda.max_memory_allocated()
-        bound = gnn_step_flops(cfg, n, e) / PEAK_OPS_PER_S * 1e3
+        bound = gnn_step_flops(cfg, n, e) / PEAK_FLOPS_FP32 * 1e3
         log(f"[graph_recsys] {shape}-{GNN_ARCH}: {cfg.n_layers} layers, d "
             f"{cfg.d_hidden}, mlp_layers {cfg.mlp_layers}, d_feat "
             f"{cfg.d_node_in}, remat {cfg.remat}, fp32 ({n_params} "
@@ -2899,7 +3058,7 @@ def phase_graph_recsys(card):
     # is filled with zeros first
     nbytes = 4.0 * (7 * n_params + n_tab)
     flops = 3 * rec_forward_flops(cfg, bsz)
-    bound = max(nbytes / HBM_BYTES_PER_S, flops / PEAK_OPS_PER_S) * 1e3
+    bound = max(nbytes / HBM_BW, flops / PEAK_FLOPS_FP32) * 1e3
     log(f"[graph_recsys] train_batch-{DLRM_ARCH}-dedup-rlbsbf-256MB: "
         f"{n_params} parameters ({n_tab} in {cfg.n_sparse} tables of "
         f"{cfg.embed_dim}, fp32), AdamW, batch {bsz}; CTRStream "
@@ -2960,8 +3119,8 @@ def phase_graph_recsys(card):
             out = infer(params, batch)
             torch.cuda.synchronize()
             call_ms = wall_ms(lambda i: infer(params, batch), REC_SERVE_CALLS)
-            bound = max(rec_serve_bytes(cfg, params, b) / HBM_BYTES_PER_S,
-                        rec_forward_flops(cfg, b) / PEAK_OPS_PER_S) * 1e3
+            bound = max(rec_serve_bytes(cfg, params, b) / HBM_BW,
+                        rec_forward_flops(cfg, b) / PEAK_FLOPS_FP32) * 1e3
             ok = out.shape == (b,) and bool(torch.isfinite(out).all())
             log(f"[graph_recsys] {shape}-{aid}: batch {b}, "
                 f"{sum(p.numel() for p in params.parameters())} parameters "
@@ -3005,7 +3164,7 @@ def phase_graph_recsys(card):
                         and torch.equal(scores[order], top_s))
             call_ms = wall_ms(lambda i: ret(params, batch), REC_SERVE_CALLS)
             nbytes = 4.0 * (d["n_cand"] * cfg.embed_dim + d["n_cand"])
-            bound = nbytes / HBM_BYTES_PER_S * 1e3
+            bound = nbytes / HBM_BW * 1e3
             log(f"[graph_recsys] retrieval_cand-{aid}: 1 query x "
                 f"{d['n_cand']} candidates of {cfg.embed_dim}, top "
                 f"{top_i.shape[0]}: equal to a stable descending sort of "
@@ -3116,18 +3275,14 @@ def shard_cell(tag, runs, truth, card, want, extra, checks):
                              f"{want})")
 
 
-def phase_shard(keys, truth, card):
-    """The sharded service (``ShardedDedup``) at one NCCL rank: the card
-    has one GPU, so the group is world size 1, and every exchange
-    (``all_to_all_single``, ``all_reduce``, ``all_gather``) still runs
-    through NCCL. Three 256 MB cells and the pinned digests; see the
-    module's docstring."""
+@contextlib.contextmanager
+def nccl_group(card):
+    """A one-rank NCCL process group on the card (world size 1: every
+    collective still runs through NCCL) for the "shard" to "mesh" phases,
+    destroyed when they end."""
     import inspect
     import torch
     import torch.distributed as dist
-    from repro_torch.kernels.fused_template import bitset_step, counter_step
-    from repro_torch.kernels.hashmix import hashmix
-    counters = (hashmix, bitset_step, counter_step)
     torch.cuda.set_device(0)
     kw = ({"device_id": torch.device("cuda", 0)} if "device_id" in
           inspect.signature(dist.init_process_group).parameters else {})
@@ -3145,9 +3300,20 @@ def phase_shard(keys, truth, card):
                 f"clock) | {card}")
             if int(probe.item()) != 1:
                 raise AssertionError("NCCL all_reduce at 1 rank")
-            shard_cells(keys, truth, card, counters)
+            yield
         finally:
             dist.destroy_process_group()
+
+
+def phase_shard(keys, truth, card):
+    """The sharded service (``ShardedDedup``) at one NCCL rank, over the
+    group ``nccl_group`` holds: the card has one GPU, so the group is world
+    size 1, and every exchange (``all_to_all_single``, ``all_reduce``,
+    ``all_gather``) still runs through NCCL. Three 256 MB cells and the
+    pinned digests; see the module's docstring."""
+    from repro_torch.kernels.fused_template import bitset_step, counter_step
+    from repro_torch.kernels.hashmix import hashmix
+    shard_cells(keys, truth, card, (hashmix, bitset_step, counter_step))
 
 
 def shard_cells(keys, truth, card, counters):
@@ -3587,8 +3753,8 @@ def counter_step_bytes(cfg, spec, pos, v, seen, load, ev):
 def bound(nbytes: float, ops: float):
     """(bound_ms, bound_by): the larger of the bytes over the HBM rate and
     the operations over the float32 rate outside the tensor cores."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS_PER_S * 1e3
+    t_bytes = nbytes / HBM_BW * 1e3
+    t_ops = ops / PEAK_FLOPS_FP32 * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -4473,20 +4639,24 @@ def main() -> int:
                                                  f_truth)
     del f_keys, f_tenants, f_truth
     stamp("fleet paths")
-    phase_shard(shard_keys, shard_truth, card)
-    del shard_keys, shard_truth
-    stamp("shard")
-    phase_serve(serve_keys, card)
-    stamp("serve")
-    lm_launches, lm_hash_err = phase_lm(card)
-    err["hashmix"] = max(err["hashmix"], lm_hash_err)
-    stamp("lm")
-    moe_launches, moe_hash_err = phase_moe(card)
-    err["hashmix"] = max(err["hashmix"], moe_hash_err)
-    stamp("moe")
-    train_launches, train_hash_err = phase_train(card)
-    err["hashmix"] = max(err["hashmix"], train_hash_err)
-    stamp("train")
+    with nccl_group(card):         # the shard phase's, kept for "mesh"
+        phase_shard(shard_keys, shard_truth, card)
+        del shard_keys, shard_truth
+        stamp("shard")
+        phase_serve(serve_keys, card)
+        stamp("serve")
+        lm_launches, lm_hash_err = phase_lm(card)
+        err["hashmix"] = max(err["hashmix"], lm_hash_err)
+        stamp("lm")
+        moe_launches, moe_hash_err = phase_moe(card)
+        err["hashmix"] = max(err["hashmix"], moe_hash_err)
+        stamp("moe")
+        train_launches, train_hash_err, kept = phase_train(card)
+        err["hashmix"] = max(err["hashmix"], train_hash_err)
+        stamp("train")
+        mesh_launches = phase_mesh(card, kept)
+        del kept
+        stamp("mesh")
     gr_launches, gr_hash_err = phase_graph_recsys(card)
     err["hashmix"] = max(err["hashmix"], gr_hash_err)
     stamp("graph_recsys")
@@ -4517,11 +4687,13 @@ def main() -> int:
     # path's bitset step hashes its keys itself), fused_probe and the
     # standalone bloom_probe the ops path's
     # hashmix: the sbf path's launches, the two LM-scored front ends', the
-    # trainer's dedup stage's and DLRM's click-fraud stage's
+    # trainer's dedup stage's (the "train" and "mesh" phases') and DLRM's
+    # click-fraud stage's
     hashmix_launches = {"hashmix": sbf_launches["hashmix"]
                         + lm_launches["hashmix"]
                         + moe_launches["hashmix"]
                         + train_launches["hashmix"]
+                        + mesh_launches["hashmix"]
                         + gr_launches["hashmix"]}
     rows = [
         ("hashmix", "hashmix.cu", "hashmix.py:46", hashmix_launches,

@@ -6,9 +6,15 @@ their steps (LM ``train`` / ``prefill`` / ``decode``; GNN ``train``;
 recsys ``train`` / ``infer`` / ``retrieval``); ``register`` /
 ``get_arch`` / ``all_arch_ids`` / ``all_cells`` resolve ``--arch`` ids.
 
-The mesh and partition-spec methods of all three (``input_specs``,
-``batch_specs``, ``param_specs``) wait for the model-spec functions of
-``distributed/sharding.py`` and the mesh launcher (ROADMAP item 14e).
+Each also plans a cell on a mesh, from shapes alone:
+  * ``params_shape`` — the param tree on the ``meta`` device;
+  * ``param_specs`` / ``opt_specs`` — its partition specs and the
+    optimizer state's (ZeRO-1 moments for the LMs), in the reference's
+    tree structure (``distributed.sharding``);
+  * ``input_specs`` — every step input of a cell as ``meta`` tensors of
+    the reference's shapes and dtypes;
+  * ``batch_specs`` — their partition specs on a mesh.
+A mesh is a ``DeviceMesh`` or a ``MeshAxes`` record of names and sizes.
 """
 
 from __future__ import annotations
@@ -19,10 +25,14 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
+from ..distributed import sharding as shr
+from ..distributed.sharding import P
 from ..models import gnn as gnn_mod
 from ..models import recsys as rec_mod
 from ..models import transformer as tfm
-from ..optim import OptimizerConfig
+from ..optim import OptimizerConfig, OptState
+
+META = torch.device("meta")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,6 +41,26 @@ class ShapeCell:
     kind: str             # train | prefill | decode | infer | retrieval
     dims: dict
     skip: Optional[str] = None
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device=META)
+
+
+def _batch_axes_or_none(mesh, batch: int):
+    """Batch partition axes, dropped when the batch is too small to
+    split."""
+    axes = shr.batch_axes(mesh)
+    if axes and batch % shr.axis_size(mesh, axes) == 0 \
+            and batch >= shr.axis_size(mesh, axes):
+        return axes
+    return None
+
+
+def _opt_specs(pspecs) -> OptState:
+    """The optimizer state's specs where the moments follow the params
+    (the reference's dry run for GNN and recsys)."""
+    return OptState(step=P(), m=pspecs, v=pspecs)
 
 
 class LMArch:
@@ -61,6 +91,65 @@ class LMArch:
     def opt_config(self) -> OptimizerConfig:
         return OptimizerConfig(kind="adamw", lr=3e-4)
 
+    # ------------------------------------------------------------------ //
+    def params_shape(self):
+        return tfm._build(self.cfg, None, META)
+
+    def param_specs(self, mesh, fsdp: Optional[bool] = None):
+        if fsdp is None:
+            fsdp = self.cfg.param_count() > 3e10   # big models: FSDP over data
+        return shr.transformer_param_specs(self.cfg, mesh,
+                                           self.params_shape(), fsdp=fsdp)
+
+    def opt_specs(self, mesh) -> OptState:
+        """ZeRO-1: each moment sharded by ``zero_shard_spec``."""
+        pspecs = self.param_specs(mesh)
+        shapes = shr.shape_tree(self.params_shape())
+        m_specs = shr.map_specs(
+            lambda s, sh: shr.zero_shard_spec(s, sh, mesh), pspecs, shapes)
+        return OptState(step=P(), m=m_specs, v=m_specs)
+
+    def input_specs(self, shape: str) -> dict:
+        cell = self.shapes[shape]
+        d = cell.dims
+        if cell.kind == "train":
+            return {"tokens": _meta((d["batch"], d["seq"] + 1), torch.int32),
+                    "weights": _meta((d["batch"],), torch.float32)}
+        if cell.kind == "prefill":
+            return {"tokens": _meta((d["batch"], d["seq"]), torch.int32)}
+        # decode: one new token against a seq-long cache
+        cache = {name: _meta(*sd) for name, sd in tfm.cache_spec(
+            self.cfg, d["batch"], d["seq"]).items()}
+        return {"cache": cache,
+                "token": _meta((d["batch"],), torch.int32),
+                "pos": _meta((d["batch"],), torch.int32)}
+
+    def batch_specs(self, shape: str, mesh) -> dict:
+        cell = self.shapes[shape]
+        d = cell.dims
+        b_ax = _batch_axes_or_none(mesh, d["batch"])
+        if cell.kind == "train":
+            return {"tokens": P(b_ax, None), "weights": P(b_ax)}
+        if cell.kind == "prefill":
+            return {"tokens": P(b_ax, None)}
+        cache_specs = shr.transformer_cache_specs(
+            self.cfg, mesh, tfm.cache_spec(self.cfg, d["batch"], d["seq"]))
+        if b_ax is None:   # batch too small to split (long_500k b=1)
+            bset = set(shr.batch_axes(mesh))
+
+            def strip(e):
+                if e is None:
+                    return e
+                if isinstance(e, str):
+                    return None if e in bset else e
+                kept = tuple(a for a in e if a not in bset)
+                return kept or None
+
+            cache_specs = {k: P(*(strip(e) for e in p))
+                           for k, p in cache_specs.items()}
+        return {"cache": cache_specs, "token": P(b_ax), "pos": P(b_ax)}
+
+    # ------------------------------------------------------------------ //
     def step(self, shape: str) -> Callable:
         """The cell's step: ``train_step(params, opt_state, tokens,
         weights)`` -> (params, opt_state, metrics) with the cell's
@@ -148,6 +237,32 @@ class GNNArch:
         """The cell's seeded params (``gnn.init`` at ``cfg_for(shape)``)."""
         return gnn_mod.init(self.cfg_for(shape), seed, device)
 
+    def params_shape(self, shape: str):
+        return gnn_mod._build(self.cfg_for(shape), None, META)
+
+    def param_specs(self, mesh, shape: str = "full_graph_sm"):
+        return shr.gnn_param_specs(mesh, self.params_shape(shape))
+
+    def opt_specs(self, mesh, shape: str = "full_graph_sm") -> OptState:
+        return _opt_specs(self.param_specs(mesh, shape))
+
+    def input_specs(self, shape: str) -> dict:
+        n, e = self.padded(shape)
+        f = self.shapes[shape].dims["d_feat"]
+        d_out = self.cfg_for(shape).d_out
+        return {"batch": {
+            "nodes": _meta((n, f), torch.float32),
+            "edges": _meta((e, 8), torch.float32),
+            "src": _meta((e,), torch.int32), "dst": _meta((e,), torch.int32),
+            "edge_mask": _meta((e,), torch.bool),
+            "node_mask": _meta((n,), torch.bool),
+            "targets": _meta((n, d_out), torch.float32),
+        }}
+
+    def batch_specs(self, shape: str, mesh) -> dict:
+        over_model = self.shapes[shape].dims.get("shard_over_model", False)
+        return {"batch": shr.gnn_batch_specs(mesh, over_model)}
+
     @staticmethod
     def _pad4k(n: int) -> int:
         """Graphs are padded (masked) to multiples of 4096 so node/edge
@@ -210,6 +325,42 @@ class RecsysArch:
 
     def opt_config(self) -> OptimizerConfig:
         return OptimizerConfig(kind="adamw", lr=1e-3, weight_decay=0.0)
+
+    def params_shape(self):
+        return rec_mod._build(self.cfg, None, META)
+
+    def param_specs(self, mesh):
+        return shr.recsys_param_specs(mesh, self.params_shape())
+
+    def opt_specs(self, mesh) -> OptState:
+        return _opt_specs(self.param_specs(mesh))
+
+    def input_specs(self, shape: str) -> dict:
+        cell = self.shapes[shape]
+        d = cell.dims
+        B, F = d["batch"], self.cfg.n_sparse
+        ids = (B, F) if self.cfg.multi_hot == 1 else (B, F,
+                                                      self.cfg.multi_hot)
+        base = {"dense": _meta((B, self.cfg.n_dense), torch.float32),
+                "sparse_ids": _meta(ids, torch.int32)}
+        if cell.kind == "train":
+            return {"batch": {**base, "labels": _meta((B,), torch.float32)},
+                    "weights": _meta((B,), torch.float32)}
+        if cell.kind == "retrieval":
+            return {"batch": {**base, "candidates": _meta(
+                (d["n_cand"], self.cfg.embed_dim), torch.float32)}}
+        return {"batch": base}
+
+    def batch_specs(self, shape: str, mesh) -> dict:
+        cell = self.shapes[shape]
+        b_ax = _batch_axes_or_none(mesh, cell.dims["batch"])
+        if cell.kind == "retrieval":
+            return {"batch": shr.recsys_batch_specs(mesh, retrieval=True)}
+        ids = [b_ax, None] if self.cfg.multi_hot == 1 else [b_ax, None, None]
+        base = {"dense": P(b_ax, None), "sparse_ids": P(*ids)}
+        if cell.kind == "train":
+            return {"batch": {**base, "labels": P(b_ax)}, "weights": P(b_ax)}
+        return {"batch": base}
 
     def step(self, shape: str) -> Callable:
         """``train_step(params, opt_state, batch, weights)`` -> (params,

@@ -619,15 +619,37 @@ class ShardedDedup:
         lb = kb.shape[-1] // self.n_shards
         return kb[..., self.me * lb:(self.me + 1) * lb]
 
+    def local_step(self, local_batch: int):
+        """This rank's part of one global batch: (state, this rank's
+        ``local_batch`` keys as int32 words, all valid) -> (state, the
+        verdicts of those keys, this rank's () overflow) — the fused
+        dispatch + consume of the pipelined protocol when
+        ``pipeline=True``, else the serial body; the reference's
+        shard-mapped body. The caller's state is left as it was."""
+        serial, dispatch, consume = self._bodies()
+
+        def step(state: FilterState, mine: torch.Tensor):
+            valid = torch.ones(mine.shape, dtype=torch.bool,
+                               device=mine.device)
+            state = state._replace(bits=state.bits.clone())
+            if self.scfg.pipeline:
+                state, dup, ovf, _ = consume(
+                    state, dispatch(state, mine, valid, local_batch),
+                    local_batch)
+            else:
+                state, dup, ovf = serial(state, mine, valid, local_batch)
+            return state, dup, ovf
+
+        return step
+
     def make_step(self, local_batch: int):
         """A (state, keys) -> (state, dup, overflow) step for one global
-        batch of ``local_batch * n_shards`` keys, all valid: the fused
-        dispatch + consume of the pipelined protocol when ``pipeline=True``
-        (so it equals ``run_stream`` on a shared ``init()``), else the
-        serial body. Every rank passes the same global batch; it returns
-        the global (B,) verdicts and the (n_shards,) overflow. The caller's
-        state is left as it was."""
-        serial, dispatch, consume = self._bodies()
+        batch of ``local_batch * n_shards`` keys, all valid:
+        ``local_step`` on this rank's columns, its verdicts and overflow
+        gathered (so it equals ``run_stream`` on a shared ``init()``).
+        Every rank passes the same global batch; it returns the global
+        (B,) verdicts and the (n_shards,) overflow."""
+        body = self.local_step(local_batch)
 
         def step(state: FilterState, keys):
             keys = u32.as_words(keys, self.device)
@@ -636,16 +658,7 @@ class ShardedDedup:
                     f"step built for {local_batch} keys per rank takes a "
                     f"global batch of {local_batch * self.n_shards}, got "
                     f"{keys.shape[0]}")
-            mine = self._mine(keys)
-            valid = torch.ones(mine.shape, dtype=torch.bool,
-                               device=self.device)
-            state = state._replace(bits=state.bits.clone())
-            if self.scfg.pipeline:
-                state, dup, ovf, _ = consume(
-                    state, dispatch(state, mine, valid, local_batch),
-                    local_batch)
-            else:
-                state, dup, ovf = serial(state, mine, valid, local_batch)
+            state, dup, ovf = body(state, self._mine(keys))
             return state, self._gather(dup), self._gather(ovf)
 
         return step

@@ -30,13 +30,14 @@ from __future__ import annotations
 
 import math
 
+from ..launch.hw import VMEM_BYTES
 from .hashmix import MAX_ROWS
 
 DEFAULT_TILE_W = 512
 DEFAULT_CHUNK_B = 1024
 VMEM_FILTER_BYTES_LIMIT = 8 * 1024 * 1024
 
-SHARED_BYTES_PER_BLOCK_LIMIT = 232448   # 227 KB, opt-in, per block (sm_90)
+SHARED_BYTES_PER_BLOCK_LIMIT = VMEM_BYTES  # 227 KB, opt-in, per block
 COUNTER_TILE = 128                      # csrc/counter_step.cu::kTile
 L2_BYTES = 50 * 1024 * 1024             # the H100's L2
 

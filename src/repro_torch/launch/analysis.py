@@ -1,0 +1,233 @@
+"""Per-device step analysis — the port of ``repro.launch.analysis``:
+cost, memory and collective bytes of one run of a step, under the
+reference's record keys.
+
+``analyze_step(step_fn, args)`` runs the step once, with its arguments as
+they are (DTensors on a mesh, plain tensors on one device; real, or fake
+under ``FakeTensorMode`` on a fake process group, which is how the dry
+run plans a 256-rank mesh on one host), under three counting modes:
+
+  * ``cost`` — ``flops`` from ``torch.utils.flop_counter``'s formulas and
+    ``bytes_accessed``, the operand plus result bytes of every aten op
+    that is not a view or a collective. An eager step has no fusion, so
+    every op boundary touches device memory: the reference's own rule for
+    post-fusion HLO.
+  * ``memory`` — ``argument_size_in_bytes`` and ``output_size_in_bytes``
+    (each storage once; ``alias_size_in_bytes`` the outputs that are
+    arguments), and ``temp_size_in_bytes``: the peak that
+    ``torch.distributed._tools.mem_tracker.MemTracker`` sees above the
+    arguments.
+  * ``collectives_bytes`` / ``collectives_counts`` — by the reference's
+    names (``all-gather``, ``all-reduce``, ``reduce-scatter``,
+    ``all-to-all``; ``total``): counts from
+    ``torch.distributed.tensor.debug.CommDebugMode``, bytes the result
+    bytes of each collective (a c10d op's output tensors, its first
+    argument).
+
+Every mode lets DTensor run first and counts the local ops and the
+collectives it turns each op into, so every number is per device, as the
+reference's compiled per-device module gives it. The reference's
+``loop_aware_analysis`` and its HLO-text parsers have no counterpart:
+they rebuild trip counts of scanned loops that XLA's cost analysis counts
+once, while these counters see every op that runs.
+"""
+
+from __future__ import annotations
+
+import time
+from collections import defaultdict
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+
+KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all")
+
+
+def collective_kind(name: str):
+    """The reference's name of a collective op (``c10d.allreduce_``,
+    ``_c10d_functional.all_gather_into_tensor``, ...), or None."""
+    flat = name.replace("_", "")
+    for pat, kind in (("allgather", "all-gather"),
+                      ("reducescatter", "reduce-scatter"),
+                      ("allreduce", "all-reduce"),
+                      ("alltoall", "all-to-all"),
+                      ("broadcast", "broadcast")):
+        if pat in flat:
+            return kind
+    return None
+
+
+def _tensors(x) -> list:
+    """Every tensor of a tree: dicts, lists and tuples (NamedTuples
+    too), dataclasses (``FilterState``), modules (their parameters and
+    buffers)."""
+    import dataclasses
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, torch.nn.Module):
+        return list(x.parameters()) + list(x.buffers())
+    if isinstance(x, dict):
+        return [t for v in x.values() for t in _tensors(v)]
+    if isinstance(x, (list, tuple)):
+        return [t for v in x for t in _tensors(v)]
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return [t for f in dataclasses.fields(x)
+                for t in _tensors(getattr(x, f.name))]
+    return []
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    from torch.distributed.tensor import DTensor
+    return t._local_tensor if isinstance(t, DTensor) else t
+
+
+def _nbytes(ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def _storage_bytes(x) -> dict:
+    """{storage: bytes} of every tensor of a tree, each storage once."""
+    out = {}
+    for t in _tensors(x):
+        t = _local(t)
+        st = t.untyped_storage()
+        out[st._cdata] = max(out.get(st._cdata, 0), st.nbytes())
+    return out
+
+
+def _is_dtensor(types) -> bool:
+    from torch.distributed.tensor import DTensor
+    return any(issubclass(t, DTensor) for t in types)
+
+
+class _Propagating:
+    """Set as DTensor's ``ShardingPropagator._fake_mode_lock`` while a step
+    is counted: DTensor holds it while it runs an op on fake tensors of
+    the global shapes to learn the output's, which under an outer
+    ``FakeTensorMode`` (the dry run) the counters would otherwise take for
+    the step's own ops."""
+
+    def __init__(self):
+        self.depth = 0
+
+    def __enter__(self):
+        self.depth += 1
+
+    def __exit__(self, *exc):
+        self.depth -= 1
+
+
+def _mem_tracker(propagating: _Propagating):
+    """A ``MemTracker`` that leaves DTensor's shape propagation out."""
+    from torch.distributed._tools.mem_tracker import MemTracker
+
+    class Tracker(MemTracker):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if propagating.depth and not _is_dtensor(types):
+                return func(*args, **(kwargs or {}))
+            return super().__torch_dispatch__(func, types, args, kwargs)
+
+    return Tracker()
+
+
+class _OpCounter(TorchDispatchMode):
+    """flops, bytes of every op, and result bytes of every collective, on
+    local tensors (a DTensor op is left to DTensor, which comes back with
+    its local ops and collectives)."""
+
+    def __init__(self, propagating: _Propagating):
+        super().__init__()
+        self.propagating = propagating
+        from torch.utils.flop_counter import flop_registry
+        self.registry = flop_registry
+        self.flops = 0
+        self.bytes = 0
+        self.coll = defaultdict(int)
+
+    def __enter__(self):
+        # DTensor works out an op's output placement by running it under a
+        # fake mode of its own: only ops under the entry's mode are counted
+        from torch._guards import active_fake_mode
+        self._fake_on_entry = active_fake_mode()
+        return super().__enter__()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch._guards import active_fake_mode
+        if _is_dtensor(types):
+            return NotImplemented
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        if isinstance(func, torch._ops.HigherOrderOperator) or \
+                self.propagating.depth or \
+                active_fake_mode() is not self._fake_on_entry:
+            return out
+        name = func._schema.name
+        kind = collective_kind(name)
+        if kind is not None:
+            # the result: a functional collective's output, a c10d op's
+            # first argument (its output tensors)
+            res = out if name.startswith("_c10d_functional") or \
+                name.startswith("c10d_functional") else args[0]
+            self.coll[kind] += _nbytes(_tensors(res))
+            return out
+        if "wait_tensor" in name or func.is_view:
+            return out
+        packet = func.overloadpacket
+        if packet in self.registry:
+            self.flops += self.registry[packet](*args, **kwargs, out_val=out)
+        self.bytes += _nbytes(_tensors(args)) + _nbytes(_tensors(kwargs)) \
+            + _nbytes(_tensors(out))
+        return out
+
+
+def _by_kind(counts) -> dict:
+    out = defaultdict(int)
+    for op, n in counts.items():
+        kind = collective_kind(str(op)) or str(op)
+        out[kind] += int(n)
+    return dict(out)
+
+
+def analyze_step(step_fn, args) -> dict:
+    """Run ``step_fn(*args)`` once and count it, per device. -> {"cost",
+    "memory", "collectives_bytes", "collectives_counts", "run_s",
+    "outputs"} (the step's outputs, for the caller to use or drop)."""
+    from torch.distributed.tensor._sharding_prop import ShardingPropagator
+    from torch.distributed.tensor.debug import CommDebugMode
+    arg_st = _storage_bytes(args)
+    propagating = _Propagating()
+    mt = _mem_tracker(propagating)
+    mt.track_external(*_tensors(args))
+    counter = _OpCounter(propagating)
+    comm = CommDebugMode()
+    lock = getattr(ShardingPropagator, "_fake_mode_lock", None)
+    if lock is not None:
+        ShardingPropagator._fake_mode_lock = propagating
+    t0 = time.perf_counter()
+    try:
+        with mt, comm, counter:
+            out = step_fn(*args)
+    finally:
+        if lock is not None:
+            ShardingPropagator._fake_mode_lock = lock
+    run_s = time.perf_counter() - t0
+    peak = max((snap["Total"] for snap in
+                mt.get_tracker_snapshot("peak").values()), default=0)
+    out_st = _storage_bytes(out)
+    coll_bytes = dict(counter.coll)
+    coll_bytes["total"] = sum(coll_bytes.values())
+    counts = _by_kind(comm.get_comm_counts())
+    return {
+        "cost": {"flops": float(counter.flops),
+                 "bytes_accessed": float(counter.bytes)},
+        "memory": {
+            "argument_size_in_bytes": sum(arg_st.values()),
+            "output_size_in_bytes": sum(out_st.values()),
+            "alias_size_in_bytes": sum(b for s, b in out_st.items()
+                                       if s in arg_st),
+            "temp_size_in_bytes": max(0, peak - sum(arg_st.values()))},
+        "collectives_bytes": coll_bytes,
+        "collectives_counts": counts,
+        "run_s": run_s,
+        "outputs": out,
+    }

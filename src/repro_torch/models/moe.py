@@ -7,7 +7,7 @@ densely, and the reference's two dispatches, selected per config:
     (tokens, E, capacity), the classic formulation;
   * ``sort`` — token copies stably sorted by expert, written into an
     (E, C, d) buffer, one grouped einsum per weight, added back to their
-    tokens (``index_add_``).
+    tokens (``index_add``).
 
 Both drop the (token, slot) pairs past an expert's capacity
 ``max(4, ceil(T·k·cf / E))`` over the T tokens routed together, and
@@ -18,7 +18,7 @@ dispatch tensor.
 
 The reference computes all of this with jnp einsums, sorts and scatters
 outside any Pallas kernel; so does the port, with torch ops. No step
-waits on the host: the counts are a ``scatter_add_``, never a
+waits on the host: the counts are a ``scatter_add``, never a
 ``bincount`` (which reads its input's maximum back on the card).
 """
 
@@ -131,8 +131,11 @@ def _moe_sort(params, x, cfg: MoEConfig):
     e_sorted = torch.gather(flat_e, 1, order)
     t_sorted = order // k                        # repeat(arange(T), k)[order]
     w_sorted = torch.gather(flat_w, 1, order)
-    counts = torch.zeros((n, E), dtype=torch.int64, device=x.device
-                         ).scatter_add_(1, flat_e, torch.ones_like(flat_e))
+    # the buffers are made with ``new_zeros`` (their source's tensor type)
+    # and written out of place, so under ``jit_sharded`` they are DTensors
+    # and each write is a DTensor op whose result DTensor places itself
+    counts = flat_e.new_zeros((n, E)).scatter_add(1, flat_e,
+                                                  torch.ones_like(flat_e))
     starts = torch.cumsum(counts, dim=1) - counts
     rank = torch.arange(T * k, device=x.device) - torch.gather(
         starts, 1, e_sorted)
@@ -142,15 +145,13 @@ def _moe_sort(params, x, cfg: MoEConfig):
     slot = torch.where(keep, e_sorted * C + rank, E * C)      # (n,T*k)
     base = torch.arange(n, device=x.device)[:, None]
     tok = (base * T + t_sorted).reshape(-1)                   # into (n·T, d)
-    buf = torch.zeros((n * (E * C + 1), d), dtype=x.dtype, device=x.device)
-    buf.index_put_(((base * (E * C + 1) + slot).reshape(-1),),
-                   x.reshape(n * T, d)[tok])
+    buf = x.new_zeros((n * (E * C + 1), d)).index_put(
+        ((base * (E * C + 1) + slot).reshape(-1),), x.reshape(n * T, d)[tok])
     xin = buf.reshape(n, E * C + 1, d)[:, :E * C].reshape(n, E, C, d)
     out_e = _experts(params, xin).reshape(n * E * C, d)
     src = (base * (E * C) + torch.where(keep, slot, 0)).reshape(-1)
     gathered = out_e[src] * (w_sorted * keep).to(x.dtype).reshape(-1, 1)
-    out = torch.zeros((n * T, d), dtype=x.dtype, device=x.device)
-    out.index_add_(0, tok, gathered)
+    out = x.new_zeros((n * T, d)).index_add(0, tok, gathered)
     return out.reshape(n, T, d)
 
 

@@ -362,6 +362,15 @@ def _dots_policy(ctx, op, *args, **kwargs):
     return CheckpointPolicy.PREFER_RECOMPUTE
 
 
+def _embed(params, tokens):
+    """The embedding rows of ``tokens`` — ``embed[tokens]`` as an
+    embedding lookup, whose backward (``embedding_dense_backward``) and
+    DTensor rule (a vocab split across ranks) are the same op placed or
+    not, so a step on a mesh sums each row's gradient as the plain one
+    does."""
+    return torch.nn.functional.embedding(tokens, params["embed"])
+
+
 def _dense_layers(params):
     return getattr(params, "dense_layers", ())
 
@@ -399,7 +408,7 @@ def forward(cfg: TransformerConfig, params, tokens, weights=None):
     B, S = inp.shape
     positions = torch.arange(S, dtype=torch.int32,
                              device=tokens.device).expand(B, S)
-    x = params["embed"][inp]
+    x = _embed(params, inp)
     x = _stack_apply(cfg, params, x, positions)
     x = rmsnorm(x, params["final_norm"])
     logits = torch.einsum("bsd,dv->bsv", x, params["lm_head"])
@@ -497,7 +506,7 @@ def decode_step(cfg: TransformerConfig, params, cache: dict, token, pos):
     position), on the params' device. -> (logits (B, V), cache): the cache
     is written in place and returned. The dense first layers take cache
     layers 0 .. first_dense_layers - 1, the scanned ones the rest."""
-    x = params["embed"][token][:, None, :]                # (B,1,d)
+    x = _embed(params, token)[:, None, :]                 # (B,1,d)
     layers = [(lp, False) for lp in _dense_layers(params)] + [
         (lp, cfg.is_moe) for lp in params["layers"]]
     for i, (lp, moe) in enumerate(layers):
@@ -515,7 +524,7 @@ def prefill(cfg: TransformerConfig, params, tokens):
     B, S = tokens.shape
     positions = torch.arange(S, dtype=torch.int32,
                              device=tokens.device).expand(B, S)
-    x = params["embed"][tokens]
+    x = _embed(params, tokens)
     x = _stack_apply(cfg, params, x, positions)
     x = rmsnorm(x, params["final_norm"])
     return torch.einsum("bsd,dv->bsv", x, params["lm_head"])

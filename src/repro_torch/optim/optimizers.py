@@ -67,13 +67,34 @@ def _wide(dtype: torch.dtype) -> torch.dtype:
     return torch.promote_types(dtype, torch.float32)
 
 
+def _leaf(tree, lf: Leaf) -> torch.Tensor:
+    for k in lf.path:
+        tree = tree[k]
+    return tree
+
+
 def _views(tree, lf: Leaf) -> List[torch.Tensor]:
     """The per-tensor pieces of a state leaf: a stacked leaf's layer
     views, or the leaf itself."""
-    t = tree
-    for k in lf.path:
-        t = t[k]
+    t = _leaf(tree, lf)
     return list(t.unbind(0)) if lf.stacked else [t]
+
+
+def _layers_split(t: torch.Tensor) -> bool:
+    """Whether a stacked state leaf is a DTensor split along its L axis
+    (ZeRO-1 over "data" where the layer count divides): its layers live
+    on different ranks, so it is updated whole, not through per-layer
+    views, and the updated layers are gathered back to their params."""
+    from torch.distributed.tensor import DTensor, Shard
+    return isinstance(t, DTensor) and Shard(0) in t.placements
+
+
+def _gather_layers(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor split along dim 0 made whole along it (an all-gather:
+    ZeRO-1's gather of the updated params)."""
+    from torch.distributed.tensor import Replicate, Shard
+    return t.redistribute(placements=[Replicate() if pl == Shard(0) else pl
+                                      for pl in t.placements])
 
 
 def init_opt_state(cfg: OptimizerConfig, params) -> OptState:
@@ -157,28 +178,39 @@ def apply_updates(cfg: OptimizerConfig, params, grads, state: OptState):
         s = step.to(torch.float32)
         bc1 = float(1 - torch.pow(torch.tensor(b1, dtype=torch.float32), s))
         bc2 = float(1 - torch.pow(torch.tensor(b2, dtype=torch.float32), s))
-        for lf, g_list in zip(leaves, gs):
-            decay = cfg.weight_decay and len(lf.ref_shape) >= 2
-            for p, g, m, v in zip(lf.tensors, g_list, _views(state.m, lf),
-                                  _views(state.v, lf)):
-                # the reference's expressions, evaluated in its order; the
-                # in-place forms round as the out-of-place ones and keep
-                # the temporaries of an embedding-sized leaf to a few
-                g = g.to(m.dtype) * scale
-                m.mul_(b1).add_((1 - b1) * g)
-                t = (1 - b2) * g
-                v.mul_(b2).add_(t.mul_(g))
-                del g, t
-                delta = m / bc1
-                delta.div_(torch.sqrt(v / bc2).add_(cfg.eps))
-                p32 = p.to(m.dtype)
-                if decay:
-                    delta.add_(cfg.weight_decay * p32)
-                p.copy_(p32.sub_(delta.mul_(lr_f)))
+
+        def update(p, g, m, v, decay):
+            # the reference's expressions, evaluated in its order; the
+            # in-place forms round as the out-of-place ones and keep the
+            # temporaries of an embedding-sized leaf to a few
+            g = g.to(m.dtype) * scale
+            m.mul_(b1).add_((1 - b1) * g)
+            t = (1 - b2) * g
+            v.mul_(b2).add_(t.mul_(g))
+            del g, t
+            delta = m / bc1
+            delta.div_(torch.sqrt(v / bc2).add_(cfg.eps))
+            p32 = p.to(m.dtype)
+            if decay:
+                delta.add_(cfg.weight_decay * p32)
+            return p32.sub_(delta.mul_(lr_f))
     else:
-        for lf, g_list in zip(leaves, gs):
-            for p, g, m in zip(lf.tensors, g_list, _views(state.m, lf)):
-                m.mul_(cfg.momentum).add_(g.to(m.dtype) * scale)
-                p.copy_(p.to(m.dtype).sub_(lr_f * m))
+        def update(p, g, m, v, decay):
+            m.mul_(cfg.momentum).add_(g.to(m.dtype) * scale)
+            return p.to(m.dtype).sub_(lr_f * m)
+
+    for lf, g_list in zip(leaves, gs):
+        decay = cfg.kind == "adamw" and cfg.weight_decay \
+            and len(lf.ref_shape) >= 2
+        if lf.stacked and _layers_split(_leaf(state.m, lf)):
+            new = update(torch.stack(lf.tensors), torch.stack(g_list),
+                         _leaf(state.m, lf), _leaf(state.v, lf), decay)
+            for p, row in zip(lf.tensors, _gather_layers(new).unbind(0)):
+                p.copy_(row)
+            continue
+        vs = (_views(state.v, lf) if cfg.kind == "adamw"
+              else [None] * len(lf.tensors))       # sgd keeps no v
+        for p, g, m, v in zip(lf.tensors, g_list, _views(state.m, lf), vs):
+            p.copy_(update(p, g, m, v, decay))
     return params, OptState(step, state.m, state.v), {"grad_norm": gnorm,
                                                       "lr": lr}

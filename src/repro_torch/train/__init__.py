@@ -1,10 +1,10 @@
 """Training substrate of the port (``repro.train``): the train step with
-gradient accumulation and the fault-tolerant loop. ``jit_sharded`` waits
-for the mesh launcher (ROADMAP item 14e)."""
+gradient accumulation, its placement on a mesh (``jit_sharded``) and the
+fault-tolerant loop."""
 
-from .steps import make_train_step
+from .steps import jit_sharded, make_train_step
 from .trainer import (MeshShape, StragglerWatchdog, Trainer, TrainerConfig,
                       remesh)
 
-__all__ = ["make_train_step", "MeshShape",
+__all__ = ["jit_sharded", "make_train_step", "MeshShape",
            "StragglerWatchdog", "Trainer", "TrainerConfig", "remesh"]

@@ -206,10 +206,10 @@ def remesh(axis_sizes: dict, devices=None):
         raise ValueError(f"cannot fit mesh {axis_sizes} on {len(devices)} devices")
     names = tuple(axis_sizes.keys())
     if grouped:
-        from torch.distributed.device_mesh import DeviceMesh
+        from ..distributed.sharding import MeshAxes
+        from ..launch.mesh import mesh_over_ranks
         kind = "cuda" if dist.get_backend() == "nccl" else "cpu"
-        return DeviceMesh(kind, torch.arange(n).reshape(
-            *axis_sizes.values()), mesh_dim_names=names)
+        return mesh_over_ranks(MeshAxes(names, dict(axis_sizes)), kind)
     layout = np.empty(n, dtype=object)
     layout[:] = list(devices[:n])
     return MeshShape(names, dict(axis_sizes),

@@ -1,0 +1,204 @@
+"""The port's dry run and step analysis (``repro_torch.launch.dryrun``,
+``repro_torch.launch.analysis``) against the reference's shapes.
+
+``analyze_step`` counts 2mnk flops for a lone matmul, and one all-gather
+of the tensor's bytes for a known redistribute. An accumulating step over
+a batch split over the production meshes moves its rows in all-to-alls
+and gathers none. On a fake 256-rank world,
+``dryrun_cell`` on a full-width cell (qwen3-8b decode_32k, single mesh)
+and ``dedup_dryrun`` give argument bytes per device equal to the
+reference's shard shapes summed (``NamedSharding.shard_shape`` on a
+``jax.sharding.AbstractMesh``). A fake process group is global to its
+process, so the parts that bring one up run in one subprocess of their
+own, started when the module's first test needs it."""
+
+import json
+import math
+import os
+import subprocess
+import sys
+import textwrap
+
+import jax
+import numpy as np
+import pytest
+import torch
+from jax.sharding import AbstractMesh, NamedSharding
+from jax.sharding import PartitionSpec as JP
+
+from repro.configs import get_arch as j_get_arch
+from repro.core import DedupConfig as JConfig
+from repro.dedup import ShardedDedup as JSharded
+from repro.dedup import ShardedDedupConfig as JShardedConfig
+from repro_torch.launch import analysis, dryrun
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+WORKER = """
+import json, sys
+import torch, torch.distributed as dist
+from repro_torch.launch import analysis, dryrun
+
+out = {}
+with dryrun.fake_world(4):
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from repro_torch.launch.mesh import make_local_mesh
+    mesh = make_local_mesh(model=2, device="cpu")
+    x = distribute_tensor(torch.randn(64, 32), mesh, [Shard(0), Replicate()],
+                          src_data_rank=None)
+    r = analysis.analyze_step(
+        lambda t: t.redistribute(mesh, [Replicate(), Replicate()]), (x,))
+    out["redistribute"] = {k: r[k] for k in
+                           ("collectives_counts", "collectives_bytes")}
+assert not dist.is_initialized()
+# an accumulating step over a batch split over the production mesh's
+# batch axes: 4 microbatches of 256 rows of 33 token ids, a replicated
+# table (so that only the batch moves)
+import torch.nn.functional as F
+from repro_torch.distributed.sharding import P, batch_axes
+from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.models.layers import Params
+from repro_torch.optim import OptimizerConfig, OptState, init_opt_state
+from repro_torch.train import jit_sharded, make_train_step
+
+
+def loss_fn(p, tokens, w):
+    per = F.embedding(tokens, p["table"]).pow(2).mean((1, 2))
+    return (per * w).sum() / w.sum()
+
+
+for multi in (False, True):
+    with dryrun.fake_world(512 if multi else 256):
+        mesh = make_production_mesh(multi, device="cpu")
+        params = Params(table=torch.randn(64, 8))
+        opt = init_opt_state(OptimizerConfig(), params)
+        rep = {"table": P(None, None)}
+        b_ax = batch_axes(mesh)
+        fn = jit_sharded(make_train_step(loss_fn, OptimizerConfig(),
+                                         accum_steps=4), mesh,
+                         (rep, OptState(P(), rep, rep), P(b_ax, None),
+                          P(b_ax)))
+        r = analysis.analyze_step(fn.placed, fn.place(
+            params, opt, torch.randint(0, 64, (256, 33), dtype=torch.int32),
+            torch.ones(256)))
+        out["accum_multi" if multi else "accum_single"] = {
+            k: r[k] for k in ("collectives_counts", "collectives_bytes")}
+for name, rec in (("decode", dryrun.dryrun_cell("qwen3-8b", "decode_32k",
+                                                False)),
+                  ("dedup", dryrun.dedup_dryrun(False))):
+    out[name] = {k: rec[k] for k in ("memory", "n_chips", "mesh_shape",
+                                     "collectives_counts", "kind")}
+print(json.dumps(out))
+"""
+
+
+@pytest.fixture(scope="module")
+def fake_runs():
+    proc = subprocess.run(
+        [sys.executable, "-c", textwrap.dedent(WORKER)], cwd=ROOT,
+        capture_output=True, text=True, timeout=900,
+        env={**os.environ, "PYTHONPATH": "src"})
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def _shard_bytes(mesh, shape, dtype, spec) -> int:
+    return math.prod(NamedSharding(mesh, spec).shard_shape(shape)) * \
+        np.dtype(dtype).itemsize
+
+
+def test_analyze_step_counts_a_lone_matmul():
+    m, k, n = 48, 40, 24
+    a, b = torch.randn(m, k), torch.randn(k, n)
+    r = analysis.analyze_step(lambda x, y: x @ y, (a, b))
+    assert r["cost"]["flops"] == 2 * m * k * n
+    assert r["cost"]["bytes_accessed"] == 4 * (m * k + k * n + m * n)
+    assert r["memory"]["argument_size_in_bytes"] == 4 * (m * k + k * n)
+    assert r["memory"]["output_size_in_bytes"] == 4 * m * n
+    assert r["collectives_counts"] == {}
+    assert r["collectives_bytes"] == {"total": 0}
+    assert torch.equal(r["outputs"], a @ b)
+
+
+def test_analyze_step_counts_one_all_gather(fake_runs):
+    r = fake_runs["redistribute"]
+    assert r["collectives_counts"] == {"all-gather": 1}
+    assert r["collectives_bytes"] == {"all-gather": 64 * 32 * 4,
+                                      "total": 64 * 32 * 4}
+
+
+@pytest.mark.parametrize("mesh", ["single", "multi"])
+def test_accumulating_step_gathers_no_batch_rows(fake_runs, mesh):
+    """4 microbatches of a batch of 256 rows split over 16 ("data") or 32
+    (("pod", "data")) ranks: each rank keeps its share of every
+    microbatch. The token ids and the weights travel once, in one
+    all-to-all per mesh dimension that splits them, each of a (D, m, c,
+    ...) buffer (m = 1 slot, c = 64 / D rows of a microbatch per rank);
+    nothing is all-gathered."""
+    r = fake_runs[f"accum_{mesh}"]
+    n_dims, d = (1, 16) if mesh == "single" else (2, 32)
+    row_bytes = 33 * 4 + 4                       # token ids, a weight
+    assert "all-gather" not in r["collectives_counts"]
+    assert "all-gather" not in r["collectives_bytes"]
+    assert r["collectives_counts"]["all-to-all"] == 2 * n_dims
+    assert r["collectives_bytes"]["all-to-all"] == \
+        n_dims * d * (64 // d) * row_bytes
+
+
+def test_decode_cell_argument_bytes_equal_the_reference(fake_runs):
+    """Parameters, the 32k KV cache, token and pos of qwen3-8b's
+    decode_32k, per device on the (16, 16) mesh."""
+    rec = fake_runs["decode"]
+    assert rec["n_chips"] == 256 and rec["kind"] == "decode"
+    assert rec["mesh_shape"] == {"data": 16, "model": 16}
+    mesh = AbstractMesh((16, 16), ("data", "model"))
+    arch = j_get_arch("qwen3-8b")
+    want = 0
+    pshape = arch.params_shape()
+    for sd, spec in zip(jax.tree.leaves(pshape), jax.tree.leaves(
+            arch.param_specs(mesh), is_leaf=lambda x: isinstance(x, JP))):
+        want += _shard_bytes(mesh, sd.shape, sd.dtype, spec)
+    inputs = arch.input_specs("decode_32k")
+    specs = arch.batch_specs("decode_32k", mesh)
+    for sd, spec in zip(jax.tree.leaves(inputs), jax.tree.leaves(
+            specs, is_leaf=lambda x: isinstance(x, JP))):
+        want += _shard_bytes(mesh, sd.shape, sd.dtype, spec)
+    assert rec["memory"]["argument_size_in_bytes"] == want
+    assert rec["memory"]["temp_size_in_bytes"] > 0
+
+
+def test_dedup_dryrun_argument_bytes_equal_the_reference(fake_runs):
+    """The sharded filter's state slab and the keys of one global batch of
+    2^20 over 256 ranks, per device."""
+    rec = fake_runs["dedup"]
+    assert rec["n_chips"] == 256 and rec["kind"] == "dedup"
+    assert set(rec["collectives_counts"]) == {"all-to-all"}
+    mesh = AbstractMesh((16, 16), ("data", "model"))
+    axes = ("data", "model")
+    cfg = JConfig.for_variant("rlbsbf", memory_bits=512 * 8 * 1024 * 1024,
+                              packed=False)
+    sd = JSharded(JShardedConfig(base=cfg, mesh_axes=axes), mesh)
+    state = jax.eval_shape(sd.init)
+    want = sum(_shard_bytes(mesh, x.shape, x.dtype,
+                            JP(axes, *([None] * (x.ndim - 1))))
+               for x in jax.tree.leaves(state))
+    want += _shard_bytes(mesh, (1 << 20,), np.uint32, JP(axes))
+    assert rec["memory"]["argument_size_in_bytes"] == want
+
+
+def test_skipped_cells_and_the_cli_resume(tmp_path, capsys):
+    """A cell with a skip reason is skipped by rule, with no process
+    group; the CLI writes it, resumes by (arch, shape, mesh) and exits
+    0."""
+    rec = dryrun.dryrun_cell("qwen3-8b", "long_500k", True)
+    assert "skipped" in rec and rec["mesh"] == "multi"
+    out = tmp_path / "dr.json"
+    argv = ["--arch", "qwen3-8b", "--shape", "long_500k", "--mesh", "both",
+            "--out", str(out)]
+    assert dryrun.main(argv) == 0
+    recs = json.loads(out.read_text())
+    assert [(r["mesh"], "skipped" in r) for r in recs] == [
+        ("single", True), ("multi", True)]
+    assert dryrun.main(argv) == 0
+    assert "skip cached" in capsys.readouterr().out
+    assert not torch.distributed.is_initialized()

@@ -47,7 +47,8 @@ def test_port_files_found():
             "torch_lm_scorer.py", "optimizers.py", "steps.py", "trainer.py",
             "lm.py", "train.py", "test_torch_train_gpu.py", "gnn.py",
             "recsys.py", "graphs.py", "recsys_data.py", "gnn_archs.py",
-            "recsys_archs.py"} <= names
+            "recsys_archs.py", "hw.py", "mesh.py", "analysis.py",
+            "dryrun.py", "collectives.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -70,7 +71,9 @@ def test_port_names_the_reference_exports():
                               "apply_updates", "clip_by_global_norm",
                               "global_norm", "init_opt_state", "schedule"),
         "repro_torch.train": ("make_train_step", "StragglerWatchdog",
-                              "Trainer", "TrainerConfig", "remesh"),
+                              "Trainer", "TrainerConfig", "remesh",
+                              "jit_sharded"),
+        "repro_torch.distributed": ("collectives", "sharding"),
         "repro_torch.data": ("graphs", "lm", "recsys_data", "streams"),
         "repro_torch.data.graphs": ("random_graph", "molecule_batch",
                                     "CSRGraph", "NeighborSampler"),
@@ -90,7 +93,8 @@ def test_port_names_the_reference_exports():
                                 "recsys_params_from_numpy",
                                 "recsys_params_to_numpy"),
         "repro_torch.data.lm": ("BigramCorpus", "seq_keys", "lm_batches"),
-        "repro_torch.launch": ("train",),
+        "repro_torch.launch": ("train", "make_local_mesh",
+                               "make_production_mesh", "analysis", "hw"),
         "repro_torch.models.transformer": ("forward",),
         "repro_torch.models.layers": ("weighted_xent", "layernorm",
                                       "mlp_init", "mlp_apply", "zeros_init",
@@ -104,3 +108,21 @@ def test_port_names_the_reference_exports():
                 (module, name)
             if exported is not None:
                 assert name in exported, (module, name)
+
+
+def test_launch_imports_without_touching_the_process_group():
+    """``repro_torch.launch`` (and its dry run) import with no process
+    group brought up and no fake world left behind: the dry run builds
+    its own 256- or 512-rank world when it runs, never at import."""
+    import os
+    import subprocess
+    import sys
+    code = ("import torch.distributed as dist\n"
+            "import repro_torch.launch, repro_torch.launch.dryrun\n"
+            "import repro_torch.launch.mesh, repro_torch.launch.analysis\n"
+            "assert not dist.is_initialized()\n"
+            "print('ok')")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300,
+                         env={**os.environ, "PYTHONPATH": "src"})
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
