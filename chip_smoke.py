@@ -174,13 +174,39 @@ in lockstep from the CPU's fp32 state, in fp32 (TF32 off) and in float64
 on the card and on the CPU (``train_card_vs_cpu``: the fp32 losses within
 1e-4, the float64 card's gradients within 1e-8 of the float64 CPU
 referee's, the fp32 card's within 4x the run's fp32 noise of it, its
-updates within 1e-4 of the lr of float64 AdamW on its own gradients); and
+updates within 1e-4 of the lr of float64 AdamW on its own gradients); the
+same check once more at deepseek-v2-236b's smoke config (MLA, routed and
+shared experts, the dense first layer; B 4, S 40, accumulation 2), whose
+four runs must route every token to the same experts in the same order,
+layer by layer, before any gradient is compared (a difference is printed
+with its token and the router's top-k gap, and fails the run);
 qwen3-8b's
 ``train_4k`` step at its published width (bf16, remat "full", 4
 microbatches of 1 x 4096), its depth cut to 8 of 36 layers so at least 10
 GB of the card stay free, 2 steps with weights from the same dedup stage
 over ``seq_keys`` (a replayed document dropped): finite loss and grad
-norm, step ms, peak memory, device busy time and idle share.
+norm, step ms, peak memory, device busy time and idle share. Then the
+MoE LMs at their published widths, each batch cut from the trainer's
+corpus (its sequences laid end to end, one row a replay of the previous
+cut's) and weighted by that dedup stage (one hashmix launch per call,
+counted): mixtral-8x7b's ``train_4k`` (sort dispatch, capacity factor
+1.25, 4 microbatches of 1 x 4096) at 2 of 32 layers (3164688384
+parameters, 50.6 GB of training state at 16 B each; 3 layers would hold
+73.9 GB), 2 steps and a profiled third: finite loss and grad norm, at
+least 10 GB of the card free, step ms beside its bf16 matmul bound, the
+(token, slot) pairs dropped per layer and microbatch, device busy time,
+idle share and aten ops; deepseek-v2-236b, whose whole AdamW step at a
+routed depth (2 layers: 85.7 GB of training state) does not fit one
+card, in two parts: at 2 layers (the dense first layer and one routed
+layer) one microbatch of 4 x 4096 = 16384 tokens through ``forward`` and
+autograd in bf16 with remat "full", no optimizer (the routed layer
+routes in 2 groups of its ``moe_group_size`` 8192; the loss and every
+gradient finite; ms beside its bf16 matmul bound, peak memory, grad
+norm, the pairs dropped per group and a profiled one's device busy time
+printed), and at 1 layer (its dense MLA layer, 1386562560 parameters) 2
+whole ``LMArch.step("train_4k")`` steps at accumulation 8 (finite loss
+and grad norm; ms, bound, peak memory and a profiled step's device busy
+time printed).
 
 Then the "mesh" phase: the model sharding (``repro_torch.launch.mesh``,
 ``distributed.sharding``, ``train.jit_sharded``) on the card. The
@@ -212,18 +238,25 @@ features) of a host CSR graph of the reference's 232965 nodes and
 114615892 edges, padded to 172032 nodes and edges (the real edge count
 within 1% of 168960); full_graph_sm (2708 nodes, 10556 edges, 1433
 features) and molecule (128 graphs of 30 nodes and 64 edges) one step
-each. Then DLRM-RM2 at full width (26 tables, 3018362177 parameters,
-12.07 GB) at train_batch (B 65536), 4 AdamW steps and a profiled fifth,
-each batch a ``CTRStream`` draw (10% replayed clicks) through
-``DedupPipeline(paper_config("rlbsbf", 256, batch_size=65536),
-mode="drop")`` keyed on the stream's ``key``, whose weights are the loss
-weights: finite loss and grad norm, weights 0 exactly where ``dup``,
-FPR <= 0.01 and FNR <= 0.05 against the keys' exact repeats, one hashmix
-launch per batch and hashmix at the path's shape equal to its plain
-version. Then the four rankers' serve_p99 (B 512) at full width, one model
-on the card at a time, and DLRM's serve_bulk (B 262144) and
-retrieval_cand (1 query x 10^6 candidates): finite logits, the top 100
-equal to a stable descending sort of the card's own scores, and
+each. Then the four rankers at full width, one model on the card at a
+time, at train_batch (B 65536; DLRM-RM2's 26 tables 12.07 GB, wide-deep's
+40 9.24 GB, xDeepFM's 39 2.85 GB, DCN-v2's 26 3.02 GB): xDeepFM's bytes
+reckoned before it runs from its CIN's shapes (``cin_reckon``: every
+layer's (B, H, 39, 10) fp32 outer product saved, the largest one's
+gradient and its product with a factor, 16 B a parameter, against the
+card's memory); each other ranker, and xDeepFM where that fits, 4 AdamW
+steps (DLRM; 3 for the others) and a profiled extra one, each batch a
+``CTRStream`` draw (10% replayed
+clicks) through ``DedupPipeline(paper_config("rlbsbf", 256,
+batch_size=65536), mode="drop")`` keyed on the stream's ``key``, whose
+weights are the loss weights: finite loss and grad norm, weights 0
+exactly where ``dup``, FPR <= 0.01 and FNR <= 0.05 against the keys'
+exact repeats, one hashmix launch per batch and hashmix at the path's
+shape equal to its plain version; where xDeepFM's does not fit, the
+reckoning is printed. Then each ranker's serve_p99 (B 512), serve_bulk
+(B 262144; xDeepFM's reckoned first: two consecutive layers' outer
+products at once over its params) and retrieval_cand (1 query x 10^6 candidates): finite logits, the top 100
+equal to a stable descending sort of the card's own scores, and DLRM's
 ``dedup_gather`` equal to the plain gather within 1e-6 of the max
 |logit|. Each cell prints its step or call ms, a profiled step's device
 busy time, idle share and aten ops, its peak memory and its bound.
@@ -395,6 +428,18 @@ QWEN_TRAIN_LAYERS = 8            # qwen3-8b train_4k: the depth cut (of 36)
 QWEN_TRAIN = (4, 4096)           # its batch (4 microbatches of 1) and seq
 QWEN_TRAIN_STEPS = 2
 FREE_BYTES = 10 * 10**9          # the card left free by the cut depth
+STATE_BYTES = 16                 # training state per parameter: bf16 param
+                                 # and gradient, fp32 accumulation, m and v
+MIXTRAL_TRAIN_LAYERS = 2         # mixtral-8x7b train_4k: the depth cut (of 32)
+MOE_TRAIN = (4, 4096)            # its batch (4 microbatches of 1) and seq
+MOE_TRAIN_STEPS = 2              # its steps timed (one more profiled)
+DEEPSEEK_GRAD = (2, 4, 4096)     # layers, B, S of deepseek's one-microbatch
+                                 # backward: 16384 tokens, 2 groups of 8192
+DEEPSEEK_STEP = (1, 8, 4096)     # layers, B (8 microbatches of 1), S of its
+DEEPSEEK_STEPS = 2               # whole train_4k steps
+MOE_LOCKSTEP = ("deepseek-v2-236b", 4, 40, 2)   # the MoE card-vs-CPU check:
+                                 # smoke config, B, S (past its 32-wide
+                                 # attention blocks), accumulation
 # the "mesh" phase: the 100m step through jit_sharded on the (1, 1) mesh
 MESH_STEPS = 2                   # steps of each form from one state
 MESH_TOL = 1e-5                  # sharded vs plain, of max |value|
@@ -404,9 +449,9 @@ GNN_ARCH = "meshgraphnet"
 GNN_LG_STEPS = 3                 # minibatch_lg steps timed (one more profiled)
 REC_ARCHS = ("wide-deep", "xdeepfm", "dlrm-rm2", "dcn-v2")
 DLRM_ARCH = "dlrm-rm2"
-DLRM_STEPS = 4                   # train_batch steps timed (one more profiled)
-DLRM_DUP_FRAC = 0.1              # CTRStream's replayed (fraud) records
-DLRM_FREE = 70 * 10**9           # card memory free before its train state
+REC_TRAIN = {"dlrm-rm2": 4, "wide-deep": 3, "xdeepfm": 3, "dcn-v2": 3}
+                                 # train_batch steps timed (one more profiled)
+CTR_DUP_FRAC = 0.1               # CTRStream's replayed (fraud) records
 REC_SERVE_CALLS = 20             # calls per serving cell timed
 GR_CPU_STEPS = 2                 # card-vs-CPU AdamW steps at smoke configs
 GR_FWD_TOL = 1e-5                # card vs CPU: forward and loss, of max |v|
@@ -1790,17 +1835,80 @@ def recorded_routes():
         moe._route = route
 
 
+def group_drops(ids, cap: int, n_experts: int) -> list:
+    """The (token, slot) pairs past their expert's capacity in each group
+    of one recorded dispatch."""
+    import torch
+    flat = ids.reshape(ids.shape[0], -1)
+    load = torch.zeros((flat.shape[0], n_experts), dtype=torch.int64,
+                       device=flat.device).scatter_add_(
+        1, flat, torch.ones_like(flat))
+    return (load - cap).clamp(min=0).sum(1).tolist()
+
+
 def dropped_pairs(calls) -> list:
     """The (token, slot) pairs past their expert's capacity, per recorded
     dispatch."""
+    return [sum(group_drops(*c)) for c in calls]
+
+
+@contextlib.contextmanager
+def route_log():
+    """Records every MoE dispatch inside the block for the card-vs-CPU
+    train check: one (ids (n_groups, T, k), gaps (n_groups, T)) per call,
+    both on the host, ``gaps`` each token's least difference between
+    adjacent router probabilities among its k + 1 largest (its top-k
+    gap: a near tie shows as a gap near 0)."""
     import torch
-    out = []
-    for ids, cap, n_experts in calls:
-        flat = ids.reshape(ids.shape[0], -1)
-        load = torch.zeros((flat.shape[0], n_experts), dtype=torch.int64,
-                           device=flat.device).scatter_add_(
-            1, flat, torch.ones_like(flat))
-        out.append(int((load - cap).clamp(min=0).sum()))
+    from repro_torch.models import moe
+    from repro_torch.models.layers import _wide
+    calls, route = [], moe._route
+
+    def recording(params, x, cfg):
+        ids, w = route(params, x, cfg)
+        probs = torch.softmax(_wide(x) @ _wide(params["router"]), dim=-1)
+        top = torch.sort(probs, dim=-1, descending=True).values[
+            ..., :cfg.top_k + 1]
+        gaps = (top[..., :-1] - top[..., 1:]).amin(-1)
+        calls.append((ids.detach().cpu(), gaps.detach().double().cpu()))
+        return ids, w
+
+    moe._route = recording
+    try:
+        yield calls
+    finally:
+        moe._route = route
+
+
+def route_differences(cfg, logs: dict, accum: int, step: int) -> list:
+    """Where the route ids of a train step's runs differ from the float64
+    CPU referee's (``logs``: run name -> ``route_log`` calls, the referee
+    "ref"), layer by layer: one line per differing run and layer, naming
+    the first differing token (row and position in its microbatch), both
+    runs' ids there and the referee's top-k gap. The calls of a step are
+    its microbatches' MoE layers in order (remat "none")."""
+    n_moe = cfg.n_layers - cfg.first_dense_layers
+    ref, out = logs["ref"], []
+    for name, calls in logs.items():
+        if name == "ref":
+            continue
+        if len(calls) != len(ref):
+            out.append(f"run {name} step {step}: {len(calls)} dispatches, "
+                       f"the referee {len(ref)}")
+            continue
+        for i, ((ids, _), (want, gaps)) in enumerate(zip(calls, ref)):
+            bad = (ids != want).any(-1)
+            if not bad.any():
+                continue
+            g, t = (int(v) for v in bad.nonzero()[0])
+            out.append(
+                f"run {name} step {step} microbatch {i // n_moe} of {accum}"
+                f" layer {cfg.first_dense_layers + i % n_moe}: token "
+                f"{g * ids.shape[1] + t} of {ids.shape[0] * ids.shape[1]} "
+                f"({int(bad.sum())} differ): ids {ids[g, t].tolist()}, the "
+                f"float64 CPU referee's {want[g, t].tolist()}, its top-k gap"
+                f" {float(gaps[g, t]):.6g} (its least over the microbatch "
+                f"{float(gaps.min()):.6g})")
     return out
 
 
@@ -2143,11 +2251,12 @@ def profile_train_step(step_fn, host_ops: bool = True):
 
 def train_bound_ms(cfg, batch: int, seq: int, peak: float) -> float:
     """The least time of one train step at ``peak`` operations/s: its
-    matmuls, 6 x (parameters outside the embedding) x tokens, and
+    matmuls, 6 x (parameters outside the embedding that a token meets: an
+    MoE layer's top-k experts of its routed ones) x tokens, and
     attention's two products, forward and backward, over the full (S, S)
     blocks the blocked attention computes (12 x B x layers x heads x S^2 x
-    head_dim); no recompute counted."""
-    n = cfg.param_count() - cfg.vocab * cfg.d_model
+    head_dim); no recompute counted, nor the slots a dispatch pads."""
+    n = cfg.active_param_count() - cfg.vocab * cfg.d_model
     attn = 12 * batch * cfg.n_layers * cfg.n_heads * seq * seq * cfg.hd
     return (6 * n * batch * seq + attn) / peak * 1e3
 
@@ -2165,7 +2274,8 @@ def _train_leaves(params, state) -> dict:
                 tree = tree[k]
             moments.append(tree.detach().double().cpu())
         p = torch.stack(lf.tensors) if lf.stacked else lf.tensors[0]
-        out["/".join(lf.path)] = (p.detach().double().cpu(), *moments)
+        key = "/".join(map(str, lf.path))    # dense_layers/0/...
+        out[key] = (p.detach().double().cpu(), *moments)
     return out
 
 
@@ -2187,7 +2297,10 @@ def train_card_vs_cpu(cfg, batches, accum: int = 1) -> dict:
     optimizer then run in float64; the CPU's is the referee). Each run's
     gradients are the ones its step built, after accumulation and
     clipping, read back from its first moment: g = (m_t - b1 m_{t-1}) /
-    (1 - b1), m_{t-1} being the common start.
+    (1 - b1), m_{t-1} being the common start. Before any gradient is
+    compared, an MoE config's route ids of the four runs are held equal,
+    layer by layer (``route_differences``): a difference is logged with
+    its token and the referee's top-k gap and raises AssertionError.
     -> {"loss": max |card - CPU| / |CPU| of the fp32 losses;
     "fp64": max over the steps and leaves of the float64 card's gradient
     distance to the referee (|diff| / |referee| in the 2-norm);
@@ -2197,7 +2310,8 @@ def train_card_vs_cpu(cfg, batches, accum: int = 1) -> dict:
     rounding of the param) where |g_referee| exceeds TRAIN_NOISE times the
     leaf's largest CPU gradient error, with "masked" the share of elements
     held so; "adam": the same unit for the card's update against the
-    float64 AdamW of the card's own gradients, every element}."""
+    float64 AdamW of the card's own gradients, every element; "routes":
+    the MoE dispatches whose ids were held equal on all four runs}."""
     import torch
     from repro_torch.models import transformer as tfm
     from repro_torch.optim import OptimizerConfig, OptState, init_opt_state
@@ -2218,7 +2332,7 @@ def train_card_vs_cpu(cfg, batches, accum: int = 1) -> dict:
                       "cpu")
     state = init_opt_state(opt, params)
     out = {"loss": 0.0, "fp64": 0.0, "update": 0.0, "adam": 0.0,
-           "masked": [0, 0]}
+           "masked": [0, 0], "routes": 0}
 
     def dist(got, want):
         return float((got - want).norm() / want.norm().clamp_min(1e-300))
@@ -2229,19 +2343,28 @@ def train_card_vs_cpu(cfg, batches, accum: int = 1) -> dict:
 
     for toks, w in batches:
         start = _train_leaves(params, state)
-        got = {}
+        got, routes = {}, {}
         for name, dev, dt in runs:             # the CPU's fp32 run last
             p, s = params, state
             if name != "cpu":
                 p = copy.deepcopy(params).to(dev, dt)
                 s = OptState(state.step.clone(), _tree_to(state.m, dev, dt),
                              _tree_to(state.v, dev, dt))
-            p, s, met = steps[name](p, s, torch.from_numpy(toks).to(dev),
-                                  torch.from_numpy(w).to(dev, dt))
+            with route_log() as routes[name]:
+                p, s, met = steps[name](p, s, torch.from_numpy(toks).to(dev),
+                                      torch.from_numpy(w).to(dev, dt))
             got[name] = (float(met["loss"]), float(met["grad_norm"]),
                          _train_leaves(p, s))
             if name == "cpu":
                 params, state = p, s
+        # the routes first: a token routed otherwise is a different step
+        differ = route_differences(cfg, routes, accum, int(state.step))
+        for line in differ:
+            log(f"[train] routes differ: {line}")
+        if differ:
+            raise AssertionError(f"train: the runs route differently "
+                                 f"({len(differ)} run and layer pairs)")
+        out["routes"] += len(routes["ref"])
         lr = float(met["lr"])
         t = int(state.step)
         bc1 = float(1 - torch.pow(torch.tensor(b1, dtype=torch.float32), t))
@@ -2327,17 +2450,20 @@ def train_parity_text(res: dict) -> str:
             f"referee's {res['update']:.6g} on the {res['masked']:.4f} of "
             f"elements whose gradient stands above {TRAIN_NOISE} x the "
             f"CPU's error, against AdamW of the card's own gradients "
-            f"{res['adam']:.6g}; within bounds: {train_parity_ok(res)}")
+            f"{res['adam']:.6g}; MoE dispatches routed alike on all four "
+            f"runs: {res['routes']}; within bounds: {train_parity_ok(res)}")
 
 def phase_train(card):
     """Dedup-gated LM training on the card (``repro_torch.launch.train``):
     the ``100m`` trainer at full width and depth with an injected fault,
     its dedup weights against a CPU replay and against the corpus's replay
     truth, hashmix at its shape against the plain version, an fp32 2-layer
-    copy of its config stepped on the card and on the CPU, and qwen3-8b's
-    train_4k step at full width and a cut depth. -> (the trainer's kernel
-    launches, hashmix's largest difference from its plain version, the
-    trainer's data, dedup stage and step for the "mesh" phase)."""
+    copy of its config and deepseek's smoke config stepped on the card
+    and on the CPU, qwen3-8b's and mixtral-8x7b's train_4k steps at full
+    width and a cut depth, deepseek-v2-236b's routed backward at 2 layers
+    and its train_4k step at 1. -> (the trainer's and the MoE parts'
+    kernel launches, hashmix's largest difference from its plain version,
+    the trainer's data, dedup stage and step for the "mesh" phase)."""
     import torch
     from repro_torch.configs import LMArch, get_arch
     from repro_torch.core import DedupConfig, hashing, u32
@@ -2348,7 +2474,7 @@ def phase_train(card):
     from repro_torch.kernels.hashmix import hashmix, hashmix_plain
     from repro_torch.launch.train import PRESETS, build, preset_config
     from repro_torch.models import transformer as tfm
-    from repro_torch.optim import init_opt_state
+    from repro_torch.optim import global_norm, init_opt_state
     torch.backends.cuda.matmul.allow_tf32 = False   # fp32 is fp32
     laps = [time.perf_counter()]
 
@@ -2481,6 +2607,26 @@ def phase_train(card):
     if not train_parity_ok(res):
         raise AssertionError("train: the card's train steps disagree "
                              "with the CPU's")
+    # the same check at an MoE smoke config, the routes held equal first
+    aid, bm, sm, accum = MOE_LOCKSTEP
+    mcfg = get_arch(aid).smoke()
+    batches = [(rng.integers(0, mcfg.vocab, (bm, sm + 1)).astype(np.int32),
+                np.array([1.0, 0.0] + [1.0] * (bm - 2), np.float32))
+               for _ in range(TRAIN_CPU_STEPS)]
+    t0 = time.perf_counter()
+    res = train_card_vs_cpu(mcfg, batches, accum)
+    n_moe = mcfg.n_layers - mcfg.first_dense_layers
+    log(f"[train] card == CPU ({aid} smoke config: MLA, {mcfg.n_experts} "
+        f"routed experts top-{mcfg.moe_top_k}, {mcfg.n_shared_experts} "
+        f"shared, {mcfg.first_dense_layers} dense first layer, "
+        f"{mcfg.param_count()} parameters; {TRAIN_CPU_STEPS} AdamW steps of"
+        f" B {bm}, S {sm} at accumulation {accum} in lockstep, one record "
+        f"weighted 0, fp32 with TF32 off and float64; "
+        f"{time.perf_counter() - t0:.1f} s): {train_parity_text(res)}")
+    if not (train_parity_ok(res)
+            and res["routes"] == TRAIN_CPU_STEPS * accum * n_moe):
+        raise AssertionError(f"train: the card's {aid} train steps "
+                             f"disagree with the CPU's")
     torch.cuda.empty_cache()
     lap("fp32 card against the CPU")
 
@@ -2550,6 +2696,229 @@ def phase_train(card):
     del qparams, qstate, qstep
     torch.cuda.empty_cache()
     lap("qwen3-8b train_4k")
+
+    # 5. - 6. the MoE LMs at full width: batches cut from the phase's
+    # corpus, weights from the dedup stage (one hashmix launch per call)
+    data, last, n_dedup = keep[0], None, 0
+    for c in counters:
+        c.launches = 0
+
+    def corpus_batch(b, s):
+        """(b, s + 1) tokens on the card, cut from the corpus's next batch
+        (its sequences laid end to end; row 2 a replay of the previous
+        cut's row 0), and their dedup weights."""
+        nonlocal last, n_dedup
+        flat = next(data)["tokens"].reshape(-1)
+        if flat.size < b * (s + 1):
+            raise AssertionError("train: a corpus batch is too short")
+        toks = flat[:b * (s + 1)].reshape(b, s + 1).copy()
+        if last is not None:
+            toks[2] = last
+        last = toks[0].copy()
+        n_dedup += 1
+        w = pipe.process({"key": seq_keys(toks)}).weights
+        return torch.from_numpy(toks).cuda(), w
+
+    # 5. mixtral-8x7b's train_4k step, the depth cut
+    arch = get_arch("mixtral-8x7b")
+    n_l = MIXTRAL_TRAIN_LAYERS
+    mcfg = dataclasses.replace(arch.cfg, n_layers=n_l)
+    n_m = mcfg.param_count()
+    n_next = dataclasses.replace(arch.cfg, n_layers=n_l + 1).param_count()
+    log(f"[train] mixtral-8x7b depth: {n_l} of {arch.cfg.n_layers} layers, "
+        f"{n_m} parameters x {STATE_BYTES} B (bf16 param and gradient, fp32"
+        f" accumulation buffer, m and v) = {n_m * STATE_BYTES / 1e9:.1f} GB "
+        f"of training state of the card's {total / 1e9:.1f} GB; {n_l + 1} "
+        f"layers would hold {n_next * STATE_BYTES / 1e9:.1f} GB, leaving "
+        f"{(total - n_next * STATE_BYTES) / 1e9:.1f} GB for activations, "
+        f"AdamW's temporaries and the {FREE_BYTES / 1e9:.0f} GB kept free")
+    lm = LMArch("mixtral-8x7b", mcfg, accum=arch.accum)
+    bm, sm = MOE_TRAIN
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mparams = tfm.init(mcfg, SEED)
+    mstate = init_opt_state(lm.opt_config(), mparams)
+    mstep = lm.step("train_4k")
+    m_ms, m_loss, m_gn = [], [], []
+    for i in range(MOE_TRAIN_STEPS + 1):
+        tt, w = corpus_batch(bm, sm)
+        if i == MOE_TRAIN_STEPS:              # the profiled extra step
+            break
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with recorded_routes() as calls:
+            mparams, mstate, m = mstep(mparams, mstate, tt, w)
+            m_loss.append(float(m["loss"]))
+        if i == 0:
+            first = calls
+        m_gn.append(float(m["grad_norm"]))
+        torch.cuda.synchronize()
+        m_ms.append((time.perf_counter() - t0) * 1e3)
+    peak_m = torch.cuda.max_memory_reserved()
+    mbusy, m_ops, m_k, m_top = profile_train_step(
+        lambda: float(mstep(mparams, mstate, tt, w)[2]["loss"]))
+    accum = arch.accum["train_4k"]
+    # per microbatch each MoE layer routes once forward and once more
+    # where remat "full" recomputes it in the backward
+    per_mb = n_l * (2 if mcfg.remat == "full" else 1)
+    fwd = [c for i, c in enumerate(first) if i % per_mb < n_l]
+    drops = [[sum(group_drops(*fwd[mb * n_l + j])) for mb in range(accum)]
+             for j in range(n_l)]
+    pairs = (bm // accum) * sm * mcfg.moe_top_k
+    log(f"[train] train_4k-mixtral-8x7b-{n_l}L: d {mcfg.d_model}, "
+        f"{mcfg.n_heads} / {mcfg.n_kv_heads} heads, {mcfg.n_experts} "
+        f"experts top-{mcfg.moe_top_k} of d_ff {mcfg.d_ff_expert}, "
+        f"{mcfg.moe_dispatch} dispatch at capacity factor "
+        f"{mcfg.capacity_factor}, vocab {mcfg.vocab}, {mcfg.dtype}, remat "
+        f"{mcfg.remat}, {n_l} of {arch.cfg.n_layers} layers ({n_m} "
+        f"parameters), batch {bm} of seq {sm} in {accum} microbatches; "
+        f"weights from the dedup stage: losses "
+        f"{[round(x, 4) for x in m_loss]}, grad norms "
+        f"{[round(x, 4) for x in m_gn]}; step ms "
+        f"{[round(x, 1) for x in m_ms]} (host clock ending in "
+        f"torch.cuda.synchronize), {bm * sm * 1e3 / m_ms[-1]:.1f} tokens/s;"
+        f" matmul bound {train_bound_ms(mcfg, bm, sm, PEAK_FLOPS_BF16):.4f}"
+        f" ms (bf16 at {PEAK_FLOPS_BF16 / 1e12:g} TFLOP/s, the top-"
+        f"{mcfg.moe_top_k} experts per token); (token, slot) pairs dropped "
+        f"in the first step per MoE layer and microbatch {drops} of {pairs}"
+        f" each; peak device memory reserved {peak_m / 2**30:.3f} GiB of "
+        f"{total / 2**30:.3f} GiB ({card})")
+    if mbusy is None:
+        log("[train] mixtral-8x7b step: device busy share not measured")
+    else:
+        log(f"[train] mixtral-8x7b step profiled: device busy {mbusy:.4f} ms"
+            f" in {m_k} kernels, idle share "
+            f"{max(0.0, 1 - mbusy / m_ms[-1]):.4f} of the last unprofiled "
+            f"step; {m_ops} aten ops; costliest kernels (ms, launches) "
+            f"{m_top} ({card})")
+    if not (all(np.isfinite(m_loss)) and all(np.isfinite(m_gn))
+            and total - peak_m >= FREE_BYTES and len(fwd) == accum * n_l):
+        raise AssertionError("train: mixtral-8x7b train_4k is out of "
+                             "bounds")
+    del mparams, mstate, mstep, calls, first, fwd, m
+    torch.cuda.empty_cache()
+    lap("mixtral-8x7b train_4k")
+
+    # 6a. deepseek-v2-236b: one microbatch's loss and gradients through a
+    # routed layer, two groups of its moe_group_size
+    arch = get_arch("deepseek-v2-236b")
+    n_l, bd, sd = DEEPSEEK_GRAD
+    dcfg2 = dataclasses.replace(arch.cfg, n_layers=n_l)
+    n_d2 = dcfg2.param_count()
+    n_d1 = dataclasses.replace(arch.cfg,
+                               n_layers=DEEPSEEK_STEP[0]).param_count()
+    log(f"[train] deepseek-v2-236b depth: at {n_l} layers (its dense first "
+        f"layer and one routed layer) {n_d2} parameters x {STATE_BYTES} B "
+        f"= {n_d2 * STATE_BYTES / 1e9:.1f} GB of training state, "
+        f"{'more than' if n_d2 * STATE_BYTES > total else 'within'} the "
+        f"card's {total / 1e9:.1f} GB, so the whole AdamW step at a routed "
+        f"depth waits for more than one card; that depth's forward "
+        f"and backward hold its bf16 parameters and gradients, "
+        f"{n_d2 * 4 / 1e9:.1f} GB; at {DEEPSEEK_STEP[0]} layer (the dense "
+        f"MLA layer) the whole step holds {n_d1} x {STATE_BYTES} B = "
+        f"{n_d1 * STATE_BYTES / 1e9:.1f} GB")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dparams = tfm.init(dcfg2, SEED)
+    tt, w = corpus_batch(bd, sd)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with recorded_routes() as calls:
+        loss = tfm.forward(dcfg2, dparams, tt, w)[0]
+        grads = torch.autograd.grad(loss, list(dparams.parameters()))
+    d_gn = float(global_norm(list(grads)))
+    d_ms = (time.perf_counter() - t0) * 1e3
+    d_finite = bool(torch.stack([torch.isfinite(g).all() for g in grads]
+                                ).all()) and bool(torch.isfinite(loss))
+    d_loss = float(loss)
+    peak_d = torch.cuda.max_memory_reserved()
+    ids, cap, n_e = calls[0]
+    g_drops = group_drops(ids, cap, n_e)
+    del loss, grads                       # the profiled one makes its own
+
+    def backward():
+        out = torch.autograd.grad(tfm.forward(dcfg2, dparams, tt, w)[0],
+                                  list(dparams.parameters()))
+        return float(out[0].float().norm())
+
+    dbusy, _, d_k, _ = profile_train_step(backward, host_ops=False)
+    d_busy, d_idle = ("not measured",) * 2 if dbusy is None else (
+        f"{dbusy:.4f} ms", f"{max(0.0, 1 - dbusy / d_ms):.4f}")
+    log(f"[train] train_4k-deepseek-v2-236b-{n_l}L backward: d "
+        f"{dcfg2.d_model}, MLA (q_lora {dcfg2.q_lora_rank}, kv_lora "
+        f"{dcfg2.kv_lora_rank}), {dcfg2.n_experts} routed experts top-"
+        f"{dcfg2.moe_top_k} of d_ff {dcfg2.d_ff_expert} and "
+        f"{dcfg2.n_shared_experts} shared, capacity factor "
+        f"{dcfg2.capacity_factor}, moe_group_size {dcfg2.moe_group_size}, "
+        f"{dcfg2.dtype}, remat {dcfg2.remat} ({n_d2} parameters); one "
+        f"microbatch of {bd} x {sd} = {bd * sd} tokens through tfm.forward "
+        f"and autograd, no optimizer: loss {d_loss:.4f}, grad norm "
+        f"{d_gn:.4f}, loss and every gradient finite: {d_finite}; the "
+        f"routed layer in {ids.shape[0]} groups of {ids.shape[1]} tokens, "
+        f"capacity {cap}, (token, slot) pairs dropped per group {g_drops} "
+        f"of {ids.shape[1] * ids.shape[2]} each; {d_ms:.1f} ms (host clock "
+        f"ending in the grad norm read); matmul bound (forward and "
+        f"backward) {train_bound_ms(dcfg2, bd, sd, PEAK_FLOPS_BF16):.4f} ms;"
+        f" one more profiled: device busy {d_busy} in {d_k} kernels, idle "
+        f"share {d_idle}; peak device memory reserved "
+        f"{peak_d / 2**30:.3f} GiB ({card})")
+    if not (d_finite and np.isfinite(d_gn) and ids.shape[0] == 2
+            and len(calls) == (2 if dcfg2.remat == "full" else 1)):
+        raise AssertionError("train: deepseek-v2-236b's routed backward is "
+                             "out of bounds")
+    del dparams, calls, ids
+    torch.cuda.empty_cache()
+    lap("deepseek-v2-236b routed backward")
+
+    # 6b. its whole train_4k step at the depth of its dense MLA layer
+    n_l, bd, sd = DEEPSEEK_STEP
+    dcfg1 = dataclasses.replace(arch.cfg, n_layers=n_l)
+    lm = LMArch("deepseek-v2-236b", dcfg1, accum=arch.accum)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dparams = tfm.init(dcfg1, SEED)
+    dstate = init_opt_state(lm.opt_config(), dparams)
+    dstep = lm.step("train_4k")
+    d_ms, d_loss, d_gn = [], [], []
+    for _ in range(DEEPSEEK_STEPS):
+        tt, w = corpus_batch(bd, sd)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dparams, dstate, m = dstep(dparams, dstate, tt, w)
+        d_loss.append(float(m["loss"]))
+        d_gn.append(float(m["grad_norm"]))
+        torch.cuda.synchronize()
+        d_ms.append((time.perf_counter() - t0) * 1e3)
+    peak_d = torch.cuda.max_memory_reserved()
+    launches_moe = {c.__name__: c.launches for c in counters}
+    dbusy, _, d_k, _ = profile_train_step(
+        lambda: float(dstep(dparams, dstate, tt, w)[2]["loss"]),
+        host_ops=False)
+    d_busy, d_idle = ("not measured",) * 2 if dbusy is None else (
+        f"{dbusy:.4f} ms", f"{max(0.0, 1 - dbusy / d_ms[-1]):.4f}")
+    log(f"[train] train_4k-deepseek-v2-236b-{n_l}L: {n_l} layer (the dense "
+        f"MLA layer, d_ff {dcfg1.d_ff}), {dcfg1.param_count()} parameters, "
+        f"AdamW on its unstacked dense_layers leaves, batch {bd} of seq "
+        f"{sd} in {arch.accum['train_4k']} microbatches; weights from the "
+        f"dedup stage: losses {[round(x, 4) for x in d_loss]}, grad norms "
+        f"{[round(x, 4) for x in d_gn]}; step ms "
+        f"{[round(x, 1) for x in d_ms]} (host clock ending in "
+        f"torch.cuda.synchronize); matmul bound "
+        f"{train_bound_ms(dcfg1, bd, sd, PEAK_FLOPS_BF16):.4f} ms; one "
+        f"more step profiled: device busy {d_busy} in {d_k} kernels, idle "
+        f"share {d_idle} of the last; peak device memory reserved "
+        f"{peak_d / 2**30:.3f} GiB; kernel launches "
+        f"of the MoE parts {launches_moe} for {n_dedup} dedup calls "
+        f"({card})")
+    if not (all(np.isfinite(d_loss)) and all(np.isfinite(d_gn))
+            and launches_moe == {"hashmix": n_dedup, "bitset_step": 0,
+                                 "counter_step": 0}):
+        raise AssertionError("train: deepseek-v2-236b train_4k is out of "
+                             "bounds")
+    del dparams, dstate, dstep, m, pipe
+    torch.cuda.empty_cache()
+    lap("deepseek-v2-236b train_4k")
+    launches = {k: v + launches_moe[k] for k, v in launches.items()}
     return launches, hash_err, keep
 
 
@@ -2760,6 +3129,34 @@ def rec_serve_bytes(cfg, params, b: int) -> float:
                   + wide + b)
 
 
+def cin_reckon(cfg, b: int, n_params: int, train: bool) -> tuple:
+    """The least an xDeepFM cell at batch ``b`` holds at once, counted from
+    its CIN's shapes before it runs. Each CIN layer materialises its outer
+    product (B, H, F, D) in fp32. A train step saves every layer's for the
+    backward and, at the last layer, holds that product's gradient and the
+    gradient's product with one factor beside them, over 16 B per
+    parameter (param, gradient, m, v). A
+    forward holds two consecutive layers' (the loop's ``z`` keeps layer l's
+    while l + 1's is made) over its params. -> (bytes, the count as text)."""
+    dims = [cfg.n_sparse, *cfg.cin_dims]
+    z = [4.0 * b * h * cfg.n_sparse * cfg.embed_dim for h in dims[:-1]]
+    if train:
+        state, acts = 16.0 * n_params, sum(z) + 2 * max(z)
+        what = ("every layer's saved, plus the largest one's gradient and "
+                "that gradient times a factor")
+    else:
+        state = 4.0 * n_params
+        acts = max([*z, *(x + y for x, y in zip(z, z[1:]))])
+        what = "two consecutive layers' at once"
+    gb = [round(x / 1e9, 2) for x in z]
+    return state + acts, (
+        f"each CIN layer's outer product (B, H, {cfg.n_sparse}, "
+        f"{cfg.embed_dim}) in fp32 at B {b}: {gb} GB; {what}: "
+        f"{acts / 1e9:.2f} GB over {state / 1e9:.2f} GB of "
+        f"{'params, gradients, m and v' if train else 'params'}: "
+        f"{(state + acts) / 1e9:.2f} GB")
+
+
 def model_card_vs_cpu(family: str, cfg, batches) -> dict:
     """A MeshGraphNet (``family`` "gnn") or recsys ("recsys") model at
     ``cfg`` from one seeded CPU init, stepped over ``batches`` [(numpy
@@ -2877,13 +3274,14 @@ def smoke_batches(family: str, cfg, n: int = GR_CPU_STEPS) -> list:
 
 
 def phase_graph_recsys(card):
-    """GNN and recsys on the card (ROADMAP item 14d): the card against the
-    CPU at the five smoke configs; MeshGraphNet's minibatch_lg,
-    full_graph_sm and molecule train steps at full width; DLRM-RM2's
-    train_batch steps behind the click-fraud dedup stage; the four
-    rankers' serve_p99, and DLRM's serve_bulk and retrieval_cand.
-    -> (the dedup stage's kernel launches, hashmix's largest difference
-    from its plain version)."""
+    """GNN and recsys on the card: the card against the CPU at the five
+    smoke configs; MeshGraphNet's minibatch_lg, full_graph_sm and
+    molecule train steps at full width; the four rankers' train_batch
+    steps behind the click-fraud dedup stage (xDeepFM's CIN reckoned
+    first: it does not fit); each ranker's serve_p99, serve_bulk
+    (xDeepFM's reckoned first) and retrieval_cand; fails unless every
+    cell but xDeepFM's two ran. -> (the dedup stages' kernel
+    launches, hashmix's largest difference from its plain version)."""
     import torch
     from repro_torch.configs import get_arch, pad_graph, paper_config
     from repro_torch.core import hashing, u32
@@ -3004,101 +3402,120 @@ def phase_graph_recsys(card):
     del host, sampler
     lap("MeshGraphNet")
 
-    # 3. DLRM-RM2's train_batch behind the click-fraud dedup stage
-    rarch = get_arch(DLRM_ARCH)
-    cfg = rarch.cfg
-    bsz = rarch.shapes["train_batch"].dims["batch"]
-    free = torch.cuda.mem_get_info()[0]
-    if free < DLRM_FREE:
-        raise AssertionError(f"graph_recsys: {free / 1e9:.1f} GB free on "
-                             f"the card, {DLRM_FREE / 1e9:.0f} needed")
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    params = recsys.init(cfg, SEED)
-    state = init_opt_state(rarch.opt_config(), params)
-    step = rarch.step("train_batch")
-    n_params = sum(p.numel() for p in params.parameters())
-    stream = CTRStream(cfg.n_dense, cfg.vocab_sizes, dup_frac=DLRM_DUP_FRAC,
-                       seed=SEED + 50)
-    dcfg = paper_config("rlbsbf", MEMORY_MB, batch_size=bsz)
-    pipe = DedupPipeline(dcfg, mode="drop")
+    # 3. train_batch behind the click-fraud dedup stage, one model on the
+    # card at a time; xDeepFM's CIN bytes reckoned before it runs
+    card_bytes = torch.cuda.get_device_properties(0).total_memory
     counters = (hashmix, bitset_step, counter_step)
-    for c in counters:
-        c.launches = 0
-    draws, ms, losses, gns, keys, reps, w_ok = [], [], [], [], [], [], True
-    for i in range(DLRM_STEPS + 1):             # the last one profiled
-        t0 = time.perf_counter()
-        raw = stream.batch(bsz)
-        draws.append(time.perf_counter() - t0)
-        res = pipe.process({"key": raw["key"]})
-        dup = res.dup.cpu().numpy()
-        w_ok &= bool(torch.equal(res.weights == 0, res.dup))
-        keys.append(raw["key"])
-        reps.append(dup)
-        batch = tensor_batch({k: raw[k] for k in ("dense", "sparse_ids",
-                                                  "labels")})
-        if i == DLRM_STEPS:
-            break
+    launches = {c.__name__: 0 for c in counters}
+    hash_err = 0
+    trained, served = [], []
+    for aid, n_steps in REC_TRAIN.items():
+        rarch = get_arch(aid)
+        cfg = rarch.cfg
+        bsz = rarch.shapes["train_batch"].dims["batch"]
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        params, state, m = step(params, state, batch, res.weights)
-        losses.append(float(m["loss"]))
-        gns.append(float(m["grad_norm"]))
-        ms.append((time.perf_counter() - t0) * 1e3)
-    launches = {c.__name__: c.launches for c in counters}
-    peak = torch.cuda.max_memory_allocated()
-    all_keys = np.concatenate(keys)
-    truth = np.ones(all_keys.size, bool)
-    truth[np.unique(all_keys, return_index=True)[1]] = False
-    rep = np.concatenate(reps)
-    fpr, fnr = fpr_fnr(rep, truth)
-    n_tab = sum(p.numel() for n, p in params.named_parameters()
-                if n.startswith("tables."))
-    # AdamW reads p, g, m, v and writes p, m, v; the dense table gradient
-    # is filled with zeros first
-    nbytes = 4.0 * (7 * n_params + n_tab)
-    flops = 3 * rec_forward_flops(cfg, bsz)
-    bound = max(nbytes / HBM_BW, flops / PEAK_FLOPS_FP32) * 1e3
-    log(f"[graph_recsys] train_batch-{DLRM_ARCH}-dedup-rlbsbf-256MB: "
-        f"{n_params} parameters ({n_tab} in {cfg.n_sparse} tables of "
-        f"{cfg.embed_dim}, fp32), AdamW, batch {bsz}; CTRStream "
-        f"(dup_frac {DLRM_DUP_FRAC}) through DedupPipeline({dcfg.variant} "
-        f"{dcfg.effective_layout}, k={dcfg.k}, s={dcfg.s}, drop): "
-        f"{int(rep.sum())} of {rep.size} records dropped, {int(truth.sum())}"
-        f" repeated keys; FPR {fpr:.6g}, FNR {fnr:.6g}; weights 0 exactly "
-        f"where dup: {w_ok}; kernel launches {launches} for "
-        f"{len(keys)} batches; losses {[round(x, 6) for x in losses]}, grad "
-        f"norms {[round(x, 6) for x in gns]}; step ms "
-        f"{[round(x, 4) for x in ms]} (host clock ending in the loss read);"
-        f" bound {bound:.4f} ms ({nbytes / 1e9:.2f} GB of AdamW and the "
-        f"gradient's fill at 3.35 TB/s; {flops / 1e12:.4f} TFLOP); CTR "
-        f"draw {[round(x, 4) for x in draws]} s per batch (host); peak "
-        f"device memory {peak / 2**30:.3f} GiB ({card})")
-    profiled(f"train_batch-{DLRM_ARCH} step",
-             lambda: float(step(params, state, batch, res.weights)[2][
-                 "loss"]), float(np.median(ms)))
-    seeds = u32.from_numpy_u32(hashing.derive_seeds(dcfg.seed, dcfg.k, 0),
-                               "cpu")
-    hk = u32.from_numpy_u32(keys[0], "cuda")
-    got_h = hashmix(hk, seeds, s=dcfg.s)
-    want_h = hashmix_plain(hk, seeds.cuda(), dcfg.s)
-    hash_err = abs_err(got_h, want_h)
-    log(f"[graph_recsys] hashmix at this path's shape (B={hk.shape[0]}, "
-        f"k={dcfg.k}, s={dcfg.s}): exactly equal to the plain version "
-        f"{torch.equal(got_h, want_h)}")
-    if not (all(np.isfinite(losses)) and all(np.isfinite(gns)) and w_ok
-            and rep.sum() > 0 and fpr <= 0.01 and fnr <= 0.05
-            and launches == {"hashmix": len(keys), "bitset_step": 0,
+        torch.cuda.reset_peak_memory_stats()
+        params = recsys.init(cfg, SEED)
+        n_params = sum(p.numel() for p in params.parameters())
+        if cfg.interaction == "cin":
+            need, text = cin_reckon(cfg, bsz, n_params, train=True)
+            log(f"[graph_recsys] train_batch-{aid} reckoned before it runs "
+                f"({n_params} parameters, fp32, AdamW): {text} against the "
+                f"card's {card_bytes / 1e9:.2f} GB: "
+                + ("runs" if need <= card_bytes else "does not fit, not run")
+                + f" ({card})")
+            if need > card_bytes:
+                del params
+                torch.cuda.empty_cache()
+                continue
+        state = init_opt_state(rarch.opt_config(), params)
+        step = rarch.step("train_batch")
+        stream = CTRStream(cfg.n_dense, cfg.vocab_sizes,
+                           dup_frac=CTR_DUP_FRAC, seed=SEED + 50)
+        dcfg = paper_config("rlbsbf", MEMORY_MB, batch_size=bsz)
+        pipe = DedupPipeline(dcfg, mode="drop")
+        for c in counters:
+            c.launches = 0
+        draws, ms, losses, gns, keys, reps, w_ok = ([], [], [], [], [], [],
+                                                    True)
+        for i in range(n_steps + 1):            # the last one profiled
+            t0 = time.perf_counter()
+            raw = stream.batch(bsz)
+            draws.append(time.perf_counter() - t0)
+            res = pipe.process({"key": raw["key"]})
+            dup = res.dup.cpu().numpy()
+            w_ok &= bool(torch.equal(res.weights == 0, res.dup))
+            keys.append(raw["key"])
+            reps.append(dup)
+            batch = tensor_batch({k: raw[k] for k in ("dense", "sparse_ids",
+                                                      "labels")})
+            if i == n_steps:
+                break
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, state, m = step(params, state, batch, res.weights)
+            losses.append(float(m["loss"]))
+            gns.append(float(m["grad_norm"]))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        cell = {c.__name__: c.launches for c in counters}
+        peak = torch.cuda.max_memory_allocated()
+        all_keys = np.concatenate(keys)
+        truth = np.ones(all_keys.size, bool)
+        truth[np.unique(all_keys, return_index=True)[1]] = False
+        rep = np.concatenate(reps)
+        fpr, fnr = fpr_fnr(rep, truth)
+        # every gathered table's gradient (``tables``, the wide tower's
+        # ``wide``) is dense: filled with zeros before its rows are added
+        n_tab = sum(p.numel() for n, p in params.named_parameters()
+                    if n.startswith("tables.") or n == "wide")
+        # AdamW reads p, g, m, v and writes p, m, v
+        nbytes = 4.0 * (7 * n_params + n_tab)
+        flops = 3 * rec_forward_flops(cfg, bsz)
+        bound = max(nbytes / HBM_BW, flops / PEAK_FLOPS_FP32) * 1e3
+        log(f"[graph_recsys] train_batch-{aid}-dedup-rlbsbf-256MB: "
+            f"{n_params} parameters ({n_tab} in gathered tables, "
+            f"{cfg.n_sparse} fields of {cfg.embed_dim}, fp32), AdamW, batch "
+            f"{bsz}; CTRStream (dup_frac {CTR_DUP_FRAC}) through "
+            f"DedupPipeline({dcfg.variant} {dcfg.effective_layout}, "
+            f"k={dcfg.k}, s={dcfg.s}, drop): {int(rep.sum())} of {rep.size}"
+            f" records dropped, {int(truth.sum())} repeated keys; FPR "
+            f"{fpr:.6g}, FNR {fnr:.6g}; weights 0 exactly where dup: {w_ok};"
+            f" kernel launches {cell} for {len(keys)} batches; losses "
+            f"{[round(x, 6) for x in losses]}, grad norms "
+            f"{[round(x, 6) for x in gns]}; step ms "
+            f"{[round(x, 4) for x in ms]} (host clock ending in the loss "
+            f"read); bound {bound:.4f} ms ({nbytes / 1e9:.2f} GB of AdamW "
+            f"and the gradients' fill at 3.35 TB/s; {flops / 1e12:.4f} "
+            f"TFLOP at 67 TFLOP/s); CTR draw {[round(x, 4) for x in draws]}"
+            f" s per batch (host); peak device memory {peak / 2**30:.3f} "
+            f"GiB ({card})")
+        profiled(f"train_batch-{aid} step",
+                 lambda: float(step(params, state, batch, res.weights)[2][
+                     "loss"]), float(np.median(ms)))
+        seeds = u32.from_numpy_u32(hashing.derive_seeds(dcfg.seed, dcfg.k,
+                                                        0), "cpu")
+        hk = u32.from_numpy_u32(keys[0], "cuda")
+        got_h = hashmix(hk, seeds, s=dcfg.s)
+        want_h = hashmix_plain(hk, seeds.cuda(), dcfg.s)
+        hash_err = max(hash_err, abs_err(got_h, want_h))
+        log(f"[graph_recsys] hashmix at this path's shape (B={hk.shape[0]},"
+            f" k={dcfg.k}, s={dcfg.s}): exactly equal to the plain version "
+            f"{torch.equal(got_h, want_h)}")
+        if not (all(np.isfinite(losses)) and all(np.isfinite(gns)) and w_ok
+                and rep.sum() > 0 and fpr <= 0.01 and fnr <= 0.05
+                and cell == {"hashmix": len(keys), "bitset_step": 0,
                              "counter_step": 0}
-            and torch.equal(got_h, want_h)):
-        raise AssertionError("graph_recsys: DLRM's gated training is out "
-                             "of bounds")
-    del params, state, step, pipe, batch, res, m, got_h, want_h, hk
-    torch.cuda.empty_cache()
-    lap("DLRM-RM2 train_batch")
+                and torch.equal(got_h, want_h)):
+            raise AssertionError(f"graph_recsys: {aid}'s gated training is "
+                                 f"out of bounds")
+        launches = {k: v + cell[k] for k, v in launches.items()}
+        trained.append(aid)
+        del params, state, step, pipe, batch, res, m, got_h, want_h, hk
+        torch.cuda.empty_cache()
+        lap(f"{aid} train_batch")
 
-    # 4. serving: the four rankers' serve_p99, DLRM's serve_bulk and
-    # retrieval_cand, one model on the card at a time
+    # 4. serving: each ranker's serve_p99 and serve_bulk (reckoned before
+    # it runs) and retrieval_cand, one model on the card at a time
     for aid in REC_ARCHS:
         arch = get_arch(aid)
         cfg = arch.cfg
@@ -3106,11 +3523,20 @@ def phase_graph_recsys(card):
         torch.cuda.reset_peak_memory_stats()
         params = recsys.init(cfg, SEED)
         stream = CTRStream(cfg.n_dense, cfg.vocab_sizes, seed=SEED + 60)
-        shapes = ("serve_p99", "serve_bulk") if aid == DLRM_ARCH else (
-            "serve_p99",)
-        for shape in shapes:
+        for shape in ("serve_p99", "serve_bulk"):
             b = arch.shapes[shape].dims["batch"]
             infer = arch.step(shape)
+            if shape == "serve_bulk" and cfg.interaction == "cin":
+                need, text = cin_reckon(cfg, b, sum(
+                    p.numel() for p in params.parameters()), train=False)
+                log(f"[graph_recsys] {shape}-{aid} reckoned before it runs,"
+                    f" a forward: {text} against the card's "
+                    f"{card_bytes / 1e9:.2f} GB: "
+                    + ("runs" if need <= card_bytes
+                       else "does not fit, not run") + f" ({card})")
+                if need > card_bytes:
+                    continue
+            torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
             raw = stream.batch(b)
             t_draw = time.perf_counter() - t0
@@ -3146,41 +3572,52 @@ def phase_graph_recsys(card):
                 if not gerr <= GR_GATHER_TOL:
                     raise AssertionError("graph_recsys: dedup_gather "
                                          "disagrees with the plain gather")
-        if aid == DLRM_ARCH:
-            d = arch.shapes["retrieval_cand"].dims
-            t0 = time.perf_counter()
-            cands = torch.from_numpy(candidates_matrix(
-                d["n_cand"], cfg.embed_dim, seed=SEED + 61)).cuda()
-            t_draw = time.perf_counter() - t0
-            raw = stream.batch(d["batch"])
-            batch = tensor_batch({"dense": raw["dense"],
-                                  "sparse_ids": raw["sparse_ids"]})
-            batch["candidates"] = cands
-            ret = arch.step("retrieval_cand")
-            scores, top_s, top_i = ret(params, batch)
-            order = torch.sort(scores, descending=True,
-                               stable=True).indices[:top_i.shape[0]]
-            same = bool(torch.equal(order, top_i)
-                        and torch.equal(scores[order], top_s))
-            call_ms = wall_ms(lambda i: ret(params, batch), REC_SERVE_CALLS)
-            nbytes = 4.0 * (d["n_cand"] * cfg.embed_dim + d["n_cand"])
-            bound = nbytes / HBM_BW * 1e3
-            log(f"[graph_recsys] retrieval_cand-{aid}: 1 query x "
-                f"{d['n_cand']} candidates of {cfg.embed_dim}, top "
-                f"{top_i.shape[0]}: equal to a stable descending sort of "
-                f"the card's scores: {same}; {call_ms:.4f} ms per call "
-                f"(CUDA events over {REC_SERVE_CALLS} calls); bound "
-                f"{bound:.4f} ms (the candidates read, the scores written);"
-                f" candidates drawn in {t_draw:.2f} s (host) ({card})")
-            profiled(f"retrieval_cand-{aid} call",
-                     lambda: ret(params, batch), call_ms)
-            if not same or not bool(torch.isfinite(scores).all()):
-                raise AssertionError("graph_recsys: retrieval's top-k is "
-                                     "not the stable descending order")
-            del cands, scores, top_s, top_i, order
-        del params, batch, out
+            served.append(f"{shape}-{aid}")
+            del batch, out
+        d = arch.shapes["retrieval_cand"].dims
+        t0 = time.perf_counter()
+        cands = torch.from_numpy(candidates_matrix(
+            d["n_cand"], cfg.embed_dim, seed=SEED + 61)).cuda()
+        t_draw = time.perf_counter() - t0
+        raw = stream.batch(d["batch"])
+        batch = tensor_batch({"dense": raw["dense"],
+                              "sparse_ids": raw["sparse_ids"]})
+        batch["candidates"] = cands
+        ret = arch.step("retrieval_cand")
+        scores, top_s, top_i = ret(params, batch)
+        order = torch.sort(scores, descending=True,
+                           stable=True).indices[:top_i.shape[0]]
+        same = bool(torch.equal(order, top_i)
+                    and torch.equal(scores[order], top_s))
+        call_ms = wall_ms(lambda i: ret(params, batch), REC_SERVE_CALLS)
+        nbytes = 4.0 * (d["n_cand"] * cfg.embed_dim + d["n_cand"])
+        bound = nbytes / HBM_BW * 1e3
+        log(f"[graph_recsys] retrieval_cand-{aid}: 1 query x "
+            f"{d['n_cand']} candidates of {cfg.embed_dim}, top "
+            f"{top_i.shape[0]}: equal to a stable descending sort of "
+            f"the card's scores: {same}; {call_ms:.4f} ms per call "
+            f"(CUDA events over {REC_SERVE_CALLS} calls); bound "
+            f"{bound:.4f} ms (the candidates read, the scores written);"
+            f" candidates drawn in {t_draw:.2f} s (host) ({card})")
+        profiled(f"retrieval_cand-{aid} call",
+                 lambda: ret(params, batch), call_ms)
+        if not same or not bool(torch.isfinite(scores).all()):
+            raise AssertionError(f"graph_recsys: {aid} retrieval's top-k is"
+                                 f" not the stable descending order")
+        del cands, scores, top_s, top_i, order, params, batch
         torch.cuda.empty_cache()
     lap("serving")
+    # only a CIN cell may be reckoned out; every other cell ran
+    cin = {a for a in REC_ARCHS if get_arch(a).cfg.interaction == "cin"}
+    must_serve = {f"{s}-{a}" for a in REC_ARCHS for s in ("serve_p99",
+                                                          "serve_bulk")}
+    log(f"[graph_recsys] cells run: train_batch {trained}; serving "
+        f"{served}")
+    if not (set(REC_TRAIN) - cin <= set(trained)
+            and {f"serve_bulk-{a}" for a in cin} | set(served) >= must_serve
+            and launches["hashmix"] == sum(REC_TRAIN[a] + 1
+                                           for a in trained)):
+        raise AssertionError("graph_recsys: a cell that must run did not")
     return launches, hash_err
 
 
@@ -4687,8 +5124,8 @@ def main() -> int:
     # path's bitset step hashes its keys itself), fused_probe and the
     # standalone bloom_probe the ops path's
     # hashmix: the sbf path's launches, the two LM-scored front ends', the
-    # trainer's dedup stage's (the "train" and "mesh" phases') and DLRM's
-    # click-fraud stage's
+    # trainer's dedup stage's and the MoE train parts' (the "train" and
+    # "mesh" phases') and the rankers' click-fraud stages'
     hashmix_launches = {"hashmix": sbf_launches["hashmix"]
                         + lm_launches["hashmix"]
                         + moe_launches["hashmix"]

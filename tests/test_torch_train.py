@@ -357,3 +357,68 @@ def test_fp32_gradients_as_near_float64_as_the_reference():
     port, jax_ = fp32_distances_from_float64()
     assert all(np.isfinite(port + jax_)) and max(port + jax_) > 1e-4
     assert sum(port) <= 1.5 * sum(jax_), (port, jax_)
+
+
+
+def test_grouped_routing_with_drops_matches_reference(monkeypatch):
+    """The backward of grouped routing where pairs drop — the path of a
+    routed layer's train step at full width, where a microbatch of 4 x
+    4096 tokens routes in two groups of 8192: deepseek's smoke config
+    (MLA, routed and shared experts, the dense first layer) with 8 routed
+    experts (its top 4 of the smoke config's 4 experts route every token
+    to every expert, so nothing could drop) and ``moe_group_size`` 20.
+    One ``LMArch.step("train_4k")`` (accumulation 8: microbatches of 1 x
+    40 tokens, each routed in 2 groups at capacity 13 per expert; pairs
+    drop) from the port's seeded init crossed to the reference, against
+    the reference's step: the loss within 1e-5, the grad norm, the first
+    and second moments (the clipped, accumulated gradients and their
+    squares) and every param after the update within 1e-4 of their max
+    |value|."""
+    from repro_torch.models import moe as TM
+    rc = dataclasses.replace(j_get_arch("deepseek-v2-236b").smoke(),
+                             n_experts=8, moe_group_size=20)
+    tc = TT.TransformerConfig(**dataclasses.asdict(rc))
+    params = TT.init(tc, 0, "cpu")
+    rp = jax.tree.map(jnp.asarray,
+                      convert.transformer_params_to_numpy(tc, params))
+    accum = j_get_arch("deepseek-v2-236b").accum
+    n = accum["train_4k"]
+    toks = np.random.default_rng(1).integers(0, rc.vocab, (n, S + 1)
+                                             ).astype(np.int32)
+    weights = np.resize(WEIGHTS, n)
+    routed, route = [], TM._route
+
+    def recording(prm, x, cfg):
+        ids, w = route(prm, x, cfg)
+        flat = ids.reshape(ids.shape[0], -1)
+        load = torch.zeros((flat.shape[0], cfg.n_experts), dtype=torch.int64
+                           ).scatter_add_(1, flat, torch.ones_like(flat))
+        cap = TM._capacity(x.shape[-2], cfg)
+        routed.append((ids.shape[0], cap,
+                       int((load - cap).clamp(min=0).sum())))
+        return ids, w
+
+    monkeypatch.setattr(TM, "_route", recording)
+    jarch = JLMArch("deepseek-v2-236b", rc, accum=accum)
+    tarch = LMArch("deepseek-v2-236b", tc, accum=dict(accum))
+    jp, js, jm = jax.jit(jarch.step("train_4k"))(
+        rp, j_init_opt(jarch.opt_config(), rp), jnp.asarray(toks),
+        jnp.asarray(weights))
+    tp, ts, tm = tarch.step("train_4k")(
+        params, init_opt_state(tarch.opt_config(), params), t(toks),
+        t(weights))
+    assert len(routed) == n and {r[:2] for r in routed} == {(2, 13)}
+    assert sum(r[2] for r in routed) > 0, routed
+    assert abs(float(tm["loss"]) - float(jm["loss"])) <= \
+        1e-5 * abs(float(jm["loss"]))
+    assert abs(float(tm["grad_norm"]) - float(jm["grad_norm"])) <= \
+        1e-4 * float(jm["grad_norm"])
+    got_p = convert.transformer_params_to_numpy(tc, tp)
+    for tree_t, tree_j, what in ((got_p, jp, "params"), (ts.m, js.m, "m"),
+                                 (ts.v, js.v, "v")):
+        flat_t = dict(jax.tree_util.tree_flatten_with_path(jax.tree.map(
+            lambda x: x if isinstance(x, np.ndarray) else
+            x.detach().numpy(), tree_t))[0])
+        for path, want in jax.tree_util.tree_flatten_with_path(tree_j)[0]:
+            assert rel_err(flat_t[path], want) <= 1e-4, \
+                (what, jax.tree_util.keystr(path))

@@ -17,8 +17,13 @@ accumulation, in the 2-norm) and grad norms no further from the referee
 than 4 times the run's fp32 noise (the CPU's largest such distance; or
 1e-4); its param updates within 1e-4 of the lr (plus fp32's rounding of
 the param) of the referee's wherever the referee's gradient stands above
-the fp32 noise, and of float64 AdamW on its own gradients everywhere. A
-fault planted in the card's step alone must fail the same check."""
+the fp32 noise, and of float64 AdamW on its own gradients everywhere. For
+the MoE configs (mixtral's, and deepseek's with MLA, routed and shared
+experts and its dense first layer) the route ids of the four runs are
+held equal layer by layer before any gradient is compared. A fault
+planted in the card's step alone must fail the same check."""
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -29,6 +34,7 @@ from repro_torch.configs import get_arch
 
 pytestmark = pytest.mark.gpu
 DENSE = ("qwen3-8b", "codeqwen1.5-7b", "h2o-danube-3-4b")
+MOE = ("mixtral-8x7b", "deepseek-v2-236b")
 B, S, STEPS = 4, 40, 3
 
 
@@ -39,17 +45,22 @@ def card():
     return torch.device("cuda")
 
 
+def smoke_batches(cfg) -> list:
+    r = np.random.default_rng(2)
+    return [(r.integers(0, cfg.vocab, (B, S + 1)).astype(np.int32),
+             np.array([1.0, 0.0, 1.0, 1.0], np.float32))
+            for _ in range(STEPS)]
+
+
 @pytest.mark.parametrize("accum", (1, 2))
-@pytest.mark.parametrize("arch_id", DENSE)
+@pytest.mark.parametrize("arch_id", DENSE + MOE)
 def test_train_steps_on_card_match_cpu(card, arch_id, accum):
     cfg = get_arch(arch_id).smoke()
-    r = np.random.default_rng(2)
-    batches = [(r.integers(0, cfg.vocab, (B, S + 1)).astype(np.int32),
-                np.array([1.0, 0.0, 1.0, 1.0], np.float32))
-               for _ in range(STEPS)]
-    res = train_card_vs_cpu(cfg, batches, accum)
+    res = train_card_vs_cpu(cfg, smoke_batches(cfg), accum)
     print(f"{arch_id} accum {accum}: {train_parity_text(res)}")
     assert train_parity_ok(res), train_parity_text(res)
+    n_moe = cfg.n_layers - cfg.first_dense_layers if cfg.is_moe else 0
+    assert res["routes"] == STEPS * accum * n_moe
 
 
 @pytest.mark.parametrize("fault", ("tf32", "final_norm_decayed",
@@ -83,10 +94,42 @@ def test_the_check_fails_on_a_faulty_card_step(card, monkeypatch, fault):
 
     monkeypatch.setattr(train, "make_train_step", planted)
     cfg = get_arch("h2o-danube-3-4b").smoke()
-    r = np.random.default_rng(2)
-    batches = [(r.integers(0, cfg.vocab, (B, S + 1)).astype(np.int32),
-                np.array([1.0, 0.0, 1.0, 1.0], np.float32))
-               for _ in range(STEPS)]
-    res = train_card_vs_cpu(cfg, batches, 2)
+    res = train_card_vs_cpu(cfg, smoke_batches(cfg), 2)
     print(f"planted {fault}: {train_parity_text(res)}")
+    assert not train_parity_ok(res), train_parity_text(res)
+
+
+def test_the_check_fails_on_a_faulty_moe_step(card, monkeypatch):
+    """A fault only an MoE step can have: the card's fp32 sort dispatch
+    takes each expert's capacity one short. At mixtral's smoke config with
+    capacity factor 1.0 an expert's capacity is its mean load, so some
+    expert fills it in every microbatch and the card drops a pair the
+    other runs keep. That moves the next layer's input, so the check
+    fails at its route comparison where that layer routes a token
+    elsewhere (it raises), or else at the gradients."""
+    from repro_torch.models import moe
+    sort, capacity = moe._moe_sort, moe._capacity
+
+    def short(n_tokens, cfg):
+        return capacity(n_tokens, cfg) - 1
+
+    def planted(params, x, cfg):
+        if not (x.is_cuda and x.dtype == torch.float32):
+            return sort(params, x, cfg)
+        moe._capacity = short
+        try:
+            return sort(params, x, cfg)
+        finally:
+            moe._capacity = capacity
+
+    monkeypatch.setattr(moe, "_moe_sort", planted)
+    cfg = dataclasses.replace(get_arch("mixtral-8x7b").smoke(),
+                              capacity_factor=1.0)
+    try:
+        res = train_card_vs_cpu(cfg, smoke_batches(cfg), 2)
+    except AssertionError as exc:
+        print(f"planted capacity one short: {exc}")
+        assert "route differently" in str(exc), exc
+        return
+    print(f"planted capacity one short: {train_parity_text(res)}")
     assert not train_parity_ok(res), train_parity_text(res)
