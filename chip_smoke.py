@@ -183,7 +183,8 @@ with its token and the router's top-k gap, and fails the run);
 qwen3-8b's
 ``train_4k`` step at its published width (bf16, remat "full", 4
 microbatches of 1 x 4096), its depth cut to 8 of 36 layers so at least 10
-GB of the card stay free, 2 steps with weights from the same dedup stage
+GB of the card stay free, 1 step (cut from 2 for time) with weights from the
+same dedup stage
 over ``seq_keys`` (a replayed document dropped): finite loss and grad
 norm, step ms, peak memory, device busy time and idle share. Then the
 MoE LMs at their published widths, each batch cut from the trainer's
@@ -194,8 +195,9 @@ counted): mixtral-8x7b's ``train_4k`` (sort dispatch, capacity factor
 parameters, 50.6 GB of training state at 16 B each; 3 layers would hold
 73.9 GB), 2 steps and a profiled third: finite loss and grad norm, at
 least 10 GB of the card free, step ms beside its bf16 matmul bound, the
-(token, slot) pairs dropped per layer and microbatch, device busy time,
-idle share and aten ops; deepseek-v2-236b, whose whole AdamW step at a
+(token, slot) pairs dropped per layer and microbatch, device busy time
+and idle share (its host ops not recorded, for time);
+deepseek-v2-236b, whose whole AdamW step at a
 routed depth (2 layers: 85.7 GB of training state) does not fit one
 card, in two parts: at 2 layers (the dense first layer and one routed
 layer) one microbatch of 4 x 4096 = 16384 tokens through ``forward`` and
@@ -261,6 +263,23 @@ equal to a stable descending sort of the card's own scores, and DLRM's
 |logit|. Each cell prints its step or call ms, a profiled step's device
 busy time, idle share and aten ops, its peak memory and its bound.
 
+Then the "examples" phase: the port's eight examples
+(``examples/*_torch.py``) through their ``main``, each on the card at the
+reference's size — but quickstart's stream, cut from 2M to 2^19 records,
+the serving example, cut from 6000 to 3000 requests and its per-request
+loop to 128 synchronous calls, and the training example, cut from 200 to
+20 steps, for the phase's time — with the hashmix, bitset-step and
+counter-step launches
+counted from 0 and held to each example's design (added to the kernels
+line); then each at a cut size (2^16 records, its own size where
+smaller, 16 training steps, the sharded one at one rank) on the card and
+with ``--device cpu``: their checks (dups, flags, estimates, load
+history, the trainer's dedup state) equal bit for bit, and the serving
+example's recorded schedule replayed on the CPU to the card's digest.
+Then ``python -m repro_torch.launch.hillclimb --overlap-worker`` once
+on the card in a subprocess (the dedup-overlap sweep's baseline): exit 0
+and a positive elems/s.
+
 Then it times each kernel beside its bound and the card's latency floor
 (an empty launch, and 1 - 3 dependent scattered loads per thread; each
 kernel's time, scatter_delta's zero fill included, averaged over the
@@ -300,7 +319,10 @@ import ctypes
 import dataclasses
 import functools
 import hashlib
+import importlib.util
+import io
 import json
+import math
 import os
 import subprocess
 import sys
@@ -426,7 +448,7 @@ TRAIN_FP64_TOL = 1e-8            # the float64 card vs the float64 referee
 TRAIN_NOISE = 1e4                # an update is held where |g| > this x noise
 QWEN_TRAIN_LAYERS = 8            # qwen3-8b train_4k: the depth cut (of 36)
 QWEN_TRAIN = (4, 4096)           # its batch (4 microbatches of 1) and seq
-QWEN_TRAIN_STEPS = 2
+QWEN_TRAIN_STEPS = 1             # (cut from 2 for the script's time)
 FREE_BYTES = 10 * 10**9          # the card left free by the cut depth
 STATE_BYTES = 16                 # training state per parameter: bf16 param
                                  # and gradient, fp32 accumulation, m and v
@@ -458,6 +480,14 @@ GR_FWD_TOL = 1e-5                # card vs CPU: forward and loss, of max |v|
 GR_GRAD_TOL = 1e-4               # card vs CPU: each gradient, of max |g|
 GR_UPDATE_LR = 1e-2              # ... params after AdamW: + this x lr
 GR_GATHER_TOL = 1e-6             # dedup_gather vs plain, of max |logit|
+EXAMPLE_CUT = 1 << 16            # records of the card-vs-CPU example runs
+EXAMPLE_QUICKSTART_N = 1 << 19   # quickstart's card run (2M cut for time)
+EXAMPLE_SERVE_N = 3000           # serving_frontend's requests (6000 cut)
+EXAMPLE_LOOP_N = 128             # its per-request loop (of all: 14 ms a
+#                                  synchronous call on the card)
+EXAMPLE_TRAIN_STEPS = 20         # dedup_training's card run (200 cut)
+EXAMPLE_TRAIN_CUT = 16           # dedup_training's steps on both devices
+OVERLAP_TIMEOUT = 300            # s, the hillclimb overlap worker
 BITSET = ("rsbf", "bsbf", "bsbfsd", "rlbsbf")
 COUNTER = ("sbf", "sbf_d1", "swbf", "cms", "hh")
 # each step kernel's device kernels, as the profiler names them
@@ -2755,8 +2785,11 @@ def phase_train(card):
         torch.cuda.synchronize()
         m_ms.append((time.perf_counter() - t0) * 1e3)
     peak_m = torch.cuda.max_memory_reserved()
-    mbusy, m_ops, m_k, m_top = profile_train_step(
-        lambda: float(mstep(mparams, mstate, tt, w)[2]["loss"]))
+    # the card alone: recording the step's ~88000 host ops took time the
+    # "examples" phase needed
+    mbusy, _, m_k, m_top = profile_train_step(
+        lambda: float(mstep(mparams, mstate, tt, w)[2]["loss"]),
+        host_ops=False)
     accum = arch.accum["train_4k"]
     # per microbatch each MoE layer routes once forward and once more
     # where remat "full" recomputes it in the backward
@@ -2789,7 +2822,7 @@ def phase_train(card):
         log(f"[train] mixtral-8x7b step profiled: device busy {mbusy:.4f} ms"
             f" in {m_k} kernels, idle share "
             f"{max(0.0, 1 - mbusy / m_ms[-1]):.4f} of the last unprofiled "
-            f"step; {m_ops} aten ops; costliest kernels (ms, launches) "
+            f"step; costliest kernels (ms, launches) "
             f"{m_top} ({card})")
     if not (all(np.isfinite(m_loss)) and all(np.isfinite(m_gn))
             and total - peak_m >= FREE_BYTES and len(fwd) == accum * n_l):
@@ -3271,6 +3304,190 @@ def smoke_batches(family: str, cfg, n: int = GR_CPU_STEPS) -> list:
         out.append(({k: b[k] for k in ("dense", "sparse_ids", "labels")},
                     w))
     return out
+
+
+# ------------------------------------------------------------ examples //
+def example_module(name: str):
+    """``examples/<name>_torch.py`` of this checkout as a module."""
+    path = os.path.join(ROOT, "examples", f"{name}_torch.py")
+    spec = importlib.util.spec_from_file_location(f"example_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def same_check(a, b) -> bool:
+    """Bit-for-bit equality of two examples' check records (dicts, lists,
+    arrays, numbers, strings)."""
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(
+            same_check(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return isinstance(b, (list, tuple)) and len(a) == len(b) and all(
+            same_check(x, y) for x, y in zip(a, b))
+    if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        a, b = np.asarray(a), np.asarray(b)
+        return a.dtype == b.dtype and a.shape == b.shape and \
+            a.tobytes() == b.tobytes()
+    return a == b
+
+
+def _batches(n: int, b: int) -> int:
+    return -(-n // b)
+
+
+# name -> (the card run's arguments past --device: the reference's size
+# unless a cut is listed; the cut runs' arguments; the kernel launches the
+# card run must make, from its result: "n" its records)
+EXAMPLES = {
+    "quickstart": (
+        ["--n", EXAMPLE_QUICKSTART_N], ["--n", EXAMPLE_CUT],
+        # five dense8 engines: one hashmix launch per batch of 8192
+        lambda out: {"hashmix": 5 * _batches(out["n"], 8192)}),
+    "click_fraud_stream": (
+        [], ["--n", EXAMPLE_CUT],
+        # the flag pipeline's whole batches of 4096, then one serve call
+        # of 1024 per 1024 of the first 65536 keys (dense8)
+        lambda out: {"hashmix": out["n"] // 4096
+                     + _batches(min(64 * 1024, out["n"]), 1024)}),
+    "sbf_vs_rlbsbf": (
+        [], ["--n", EXAMPLE_CUT],
+        # on the card a first and a timed run of each: sbf hashmix and the
+        # counter step per batch, rlbsbf the bitset step per batch (planes)
+        lambda out: dict.fromkeys(("hashmix", "counter_step",
+                                   "bitset_step"),
+                                  2 * _batches(out["n"], 8192))),
+    "sliding_window_dedup": (
+        [], ["--n", EXAMPLE_CUT],
+        # swbf on planes, a first and a timed run of batches of 4096
+        lambda out: dict.fromkeys(("hashmix", "counter_step"),
+                                  2 * _batches(out["n"], 4096))),
+    "count_min_heavy_hitters": (
+        [], ["--n", EXAMPLE_CUT],
+        # cms and hh over batches of 4096 (hashmix and the counter step
+        # each), and cms's estimate of 8 keys (one hashmix)
+        lambda out: {"hashmix": 2 * _batches(out["n"], 4096) + 1,
+                     "counter_step": 2 * _batches(out["n"], 4096)}),
+    "serving_frontend": (
+        ["--n", EXAMPLE_SERVE_N, "--loop-n", EXAMPLE_LOOP_N],
+        ["--n", EXAMPLE_SERVE_N, "--loop-n", EXAMPLE_LOOP_N],
+        # dense8: one hashmix per micro-batch, per recorded batch replayed
+        # and per synchronous serve call
+        lambda out: {"hashmix": out["stats"]["batches"]
+                     + len(out["schedule"]) + out["loop_n"]}),
+    "dedup_training": (
+        ["--steps", EXAMPLE_TRAIN_STEPS], ["--steps", EXAMPLE_TRAIN_CUT],
+        # the dedup stage (dense8): one hashmix launch per step
+        lambda out: {"hashmix": out["summary"]["steps"]}),
+    "sharded_dedup_multidevice": (
+        ["--ranks", 1], ["--n", EXAMPLE_CUT, "--ranks", 1],
+        # one NCCL rank, in this process: the static dense8 step's hashmix
+        # per batch, then the one-filter row's
+        lambda out: {"hashmix": 2 * _batches(out["n"], 8192)}),
+}
+
+
+def run_example(mod, name: str, argv: list) -> tuple:
+    """``main(argv)`` of an example, its printout logged line by line;
+    -> (its result, seconds)."""
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = mod.main([str(a) for a in argv])
+    dt = time.perf_counter() - t0
+    for line in buf.getvalue().splitlines():
+        log(f"[examples] {name}: {line}")
+    return out, dt
+
+
+def overlap_baseline(card) -> float:
+    """``hillclimb --overlap-worker`` once on the card in a subprocess
+    (the dedup-overlap sweep's F0: the pipelined swbf ingest at one NCCL
+    rank, best of 3); -> elems/s."""
+    src = os.path.join(ROOT, "src")
+    env = {**os.environ, "PYTHONPATH": src + (
+        os.pathsep + os.environ["PYTHONPATH"]
+        if os.environ.get("PYTHONPATH") else "")}
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.hillclimb",
+         "--overlap-worker"], cwd=ROOT, env=env, capture_output=True,
+        text=True, timeout=OVERLAP_TIMEOUT)
+    if proc.returncode != 0:
+        raise RuntimeError(f"overlap worker exited {proc.returncode}:\n"
+                           f"{proc.stderr[-3000:]}")
+    rec = json.loads(proc.stdout.strip().splitlines()[-1])
+    if not (rec["elems_per_s"] > 0 and math.isfinite(rec["elems_per_s"])):
+        raise AssertionError(f"overlap worker: {rec}")
+    log(f"[examples] hillclimb --overlap-worker (F0, the pipelined swbf "
+        f"ingest, window 8, 2^20 bits, batch 16384, {rec['n']} records, "
+        f"{rec['ranks']} {rec['backend']} rank(s), best of 3): "
+        f"{rec['elems_per_s']:.1f} elems/s, {rec['dups']} dups; the "
+        f"subprocess {time.perf_counter() - t0:.1f} s | {card}")
+    return rec["elems_per_s"]
+
+
+def phase_examples(card):
+    """The eight examples of the port (``examples/*_torch.py``) through
+    their ``main``: each on the card at the reference's size (for the
+    phase's time quickstart's stream cut to ``EXAMPLE_QUICKSTART_N``
+    records, the serving example to ``EXAMPLE_SERVE_N`` requests and its
+    per-request loop to ``EXAMPLE_LOOP_N``, the training to
+    ``EXAMPLE_TRAIN_STEPS`` steps) with its
+    kernel launches counted from 0 and held to their design, then at
+    a cut size (``EXAMPLE_CUT`` records, its own size where smaller; 16
+    steps of training; the sharded one at one rank) on the card and with
+    ``--device cpu``, whose checks must be equal bit for bit (the served
+    digest: the card's recorded schedule replayed on the CPU). Then the
+    hillclimb overlap worker once. -> the card runs' launches."""
+    from repro_torch.kernels.fused_template import bitset_step, counter_step
+    from repro_torch.kernels.hashmix import hashmix
+    from repro_torch.serve import replay_schedule
+    counters = (hashmix, bitset_step, counter_step)
+    total = {c.__name__: 0 for c in counters}
+    for name, (full_args, cut_args, want) in EXAMPLES.items():
+        mod = example_module(name)
+        t0 = time.perf_counter()
+        for c in counters:
+            c.launches = 0
+        out, dt_full = run_example(mod, name, ["--device", "cuda",
+                                               *full_args])
+        launches = {c.__name__: c.launches for c in counters}
+        expect = {**dict.fromkeys(total, 0), **want(out)}
+        if launches != expect:
+            raise AssertionError(f"{name}: launches {launches}, by design "
+                                 f"{expect}")
+        if out.get("match") is not None and not all(
+                (out["match"].values() if isinstance(out["match"], dict)
+                 else [out["match"]])):
+            raise AssertionError(f"{name}: the card diverged from the CPU "
+                                 f"in the example's own check: "
+                                 f"{out['match']}")
+        for k, v in launches.items():
+            total[k] += v
+        cut = out if cut_args == full_args else run_example(
+            mod, name, ["--device", "cuda", *cut_args])[0]
+        cpu, _ = run_example(mod, name, ["--device", "cpu", *cut_args])
+        if not same_check(cut["check"], cpu["check"]):
+            raise AssertionError(f"{name}: the card's check differs from "
+                                 f"the CPU's at the cut size")
+        what = ", ".join(sorted(cut["check"]))
+        if name == "serving_frontend":
+            replayed = replay_schedule(cut["cfg"], cut["schedule"],
+                                       device="cpu")
+            if replayed != cut["digest"]:
+                raise AssertionError("serving_frontend: the card's digest "
+                                     "differs from its schedule's replay "
+                                     "on the CPU")
+            what += ", the served digest (the card's schedule on the CPU)"
+        log(f"[examples] {name}: the card run {dt_full:.2f} s at "
+            f"{' '.join(map(str, full_args)) or 'the reference size'}; "
+            f"launches {launches} as designed; card == CPU bit for bit at "
+            f"{' '.join(map(str, cut_args))}: {what}; "
+            f"{time.perf_counter() - t0:.1f} s in all | {card}")
+    overlap_baseline(card)
+    log(f"[examples] launches of the card runs: {total} | {card}")
+    return total
 
 
 def phase_graph_recsys(card):
@@ -5097,6 +5314,8 @@ def main() -> int:
     gr_launches, gr_hash_err = phase_graph_recsys(card)
     err["hashmix"] = max(err["hashmix"], gr_hash_err)
     stamp("graph_recsys")
+    ex_launches = phase_examples(card)
+    stamp("examples")
     times = phase_timings(cfg, state, sbf_cfg, sbf_state, card,
                           ((fb, fb_state), (fc, fc_state)), floor_lib,
                           parent)
@@ -5125,20 +5344,26 @@ def main() -> int:
     # standalone bloom_probe the ops path's
     # hashmix: the sbf path's launches, the two LM-scored front ends', the
     # trainer's dedup stage's and the MoE train parts' (the "train" and
-    # "mesh" phases') and the rankers' click-fraud stages'
+    # "mesh" phases'), the rankers' click-fraud stages' and the examples'
     hashmix_launches = {"hashmix": sbf_launches["hashmix"]
                         + lm_launches["hashmix"]
                         + moe_launches["hashmix"]
                         + train_launches["hashmix"]
                         + mesh_launches["hashmix"]
-                        + gr_launches["hashmix"]}
+                        + gr_launches["hashmix"]
+                        + ex_launches["hashmix"]}
+    # the step kernels: their paths' launches and the examples' card runs'
+    bitset_launches = {"bitset_step": launches["bitset_step"]
+                       + ex_launches["bitset_step"]}
+    counter_launches = {"counter_step": sbf_launches["counter_step"]
+                        + ex_launches["counter_step"]}
     rows = [
         ("hashmix", "hashmix.cu", "hashmix.py:46", hashmix_launches,
          "hashmix"),
-        ("bitset_step", "bitset_step.cu", "fused_template.py:349", launches,
-         "bitset_step"),
+        ("bitset_step", "bitset_step.cu", "fused_template.py:349",
+         bitset_launches, "bitset_step"),
         ("counter_step", "counter_step.cu", "fused_template.py:131",
-         sbf_launches, "counter_step"),
+         counter_launches, "counter_step"),
         ("bloom_probe", "bloom_probe.cu", "bloom_probe.py:42", ops_launches,
          "bloom_probe"),
         # hashmix, the split, bloom_probe and the AND in one launch

@@ -7,11 +7,16 @@ they are (DTensors on a mesh, plain tensors on one device; real, or fake
 under ``FakeTensorMode`` on a fake process group, which is how the dry
 run plans a 256-rank mesh on one host), under three counting modes:
 
-  * ``cost`` — ``flops`` from ``torch.utils.flop_counter``'s formulas and
+  * ``cost`` — ``flops`` from ``torch.utils.flop_counter``'s formulas (an
+    einsum that arrives whole, as torch 2.11 hands DTensor's, by
+    ``einsum_flops``) and
     ``bytes_accessed``, the operand plus result bytes of every aten op
     that is not a view or a collective. An eager step has no fusion, so
     every op boundary touches device memory: the reference's own rule for
-    post-fusion HLO.
+    post-fusion HLO. ``bytes_by_op`` splits them by aten op
+    (``"aten.clone"``, ...); the bytes of ``aten.copy_``, ``aten.clone``
+    and ``aten._to_copy`` together are the reference's
+    ``essential_by_op["copy"]`` (``copy_bytes``).
   * ``memory`` — ``argument_size_in_bytes`` and ``output_size_in_bytes``
     (each storage once; ``alias_size_in_bytes`` the outputs that are
     arguments), and ``temp_size_in_bytes``: the peak that
@@ -22,7 +27,11 @@ run plans a 256-rank mesh on one host), under three counting modes:
     ``all-to-all``; ``total``): counts from
     ``torch.distributed.tensor.debug.CommDebugMode``, bytes the result
     bytes of each collective (a c10d op's output tensors, its first
-    argument).
+    argument). A redistribution from one split dimension to another
+    (DTensor's ``shard_dim_alltoall``) counts as the one all-to-all of
+    its local result that the card runs, on any mesh: on a CPU mesh
+    DTensor runs it as an all-gather and a chunk (gloo has no
+    all-to-all), and none of that is counted.
 
 Every mode lets DTensor run first and counts the local ops and the
 collectives it turns each op into, so every number is per device, as the
@@ -34,6 +43,7 @@ once, while these counters see every op that runs.
 
 from __future__ import annotations
 
+import contextlib
 import time
 from collections import defaultdict
 
@@ -41,6 +51,8 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all")
+# the aten ops whose bytes are the reference's essential_by_op["copy"]
+COPY_OPS = ("aten.copy_", "aten.clone", "aten._to_copy")
 
 
 def collective_kind(name: str):
@@ -95,6 +107,35 @@ def _storage_bytes(x) -> dict:
     return out
 
 
+def einsum_flops(equation: str, shapes) -> int:
+    """2 x the multiply-adds of ``torch.einsum(equation, *operands)`` of
+    these shapes, contracted left to right as torch lowers it: a step
+    that sums a letter both sides hold is a bmm over the letters it keeps
+    and sums; a step that sums none is an elementwise product, which
+    ``torch.utils.flop_counter`` counts as none; a letter one side holds
+    and no later term needs is summed first, for none. Where an einsum
+    reaches the counters whole (torch 2.11 hands DTensor's local einsums
+    to a dispatch mode undecomposed; 2.13 lowers them to bmm first), its
+    flops are counted from this. No ellipsis."""
+    import math
+    lhs, arrow, out = equation.replace(" ", "").partition("->")
+    terms = lhs.split(",")
+    if not arrow:
+        letters = "".join(terms)
+        out = "".join(sorted(c for c in set(letters)
+                             if letters.count(c) == 1))
+    size = {c: int(n) for t, shp in zip(terms, shapes)
+            for c, n in zip(t, shp)}
+    flops, cur = 0, set(terms[0])
+    for i, term in enumerate(terms[1:], 1):
+        later = set(out).union(*terms[i + 1:])
+        both, union = cur & set(term), cur | set(term)
+        if both - later:          # a contraction: a bmm; else a broadcast mul
+            flops += 2 * math.prod(size[c] for c in both | (union & later))
+        cur = union & later
+    return flops
+
+
 def _is_dtensor(types) -> bool:
     from torch.distributed.tensor import DTensor
     return any(issubclass(t, DTensor) for t in types)
@@ -142,6 +183,7 @@ class _OpCounter(TorchDispatchMode):
         self.registry = flop_registry
         self.flops = 0
         self.bytes = 0
+        self.by_op = defaultdict(int)
         self.coll = defaultdict(int)
 
     def __enter__(self):
@@ -175,8 +217,12 @@ class _OpCounter(TorchDispatchMode):
         packet = func.overloadpacket
         if packet in self.registry:
             self.flops += self.registry[packet](*args, **kwargs, out_val=out)
-        self.bytes += _nbytes(_tensors(args)) + _nbytes(_tensors(kwargs)) \
+        elif packet is torch.ops.aten.einsum:
+            self.flops += einsum_flops(args[0], [t.shape for t in args[1]])
+        nb = _nbytes(_tensors(args)) + _nbytes(_tensors(kwargs)) \
             + _nbytes(_tensors(out))
+        self.bytes += nb
+        self.by_op[str(packet)] += nb
         return out
 
 
@@ -186,6 +232,44 @@ def _by_kind(counts) -> dict:
         kind = collective_kind(str(op)) or str(op)
         out[kind] += int(n)
     return dict(out)
+
+
+def copy_bytes(cost: dict) -> int:
+    """The bytes of a record's copies (``COPY_OPS``): the reference's
+    ``essential_by_op["copy"]``."""
+    return sum(cost.get("bytes_by_op", {}).get(op, 0) for op in COPY_OPS)
+
+
+@contextlib.contextmanager
+def _alltoall_as_the_card_runs_it(propagating, mt, counter, comm):
+    """For the duration, DTensor's ``shard_dim_alltoall`` (a Shard(i) ->
+    Shard(j) redistribution) runs with nothing of it counted and is
+    then recorded as one all-to-all of its local result: count, bytes,
+    and the result's memory. ``Shard._to_new_shard_dim`` calls it by its
+    name in ``placement_types``."""
+    from torch.distributed.tensor import placement_types
+    orig = placement_types.shard_dim_alltoall
+    key = torch.ops._dtensor.shard_dim_alltoall
+
+    def counted(*args, **kwargs):
+        counts = dict(comm.comm_counts)
+        propagating.depth += 1
+        try:
+            out = orig(*args, **kwargs)
+        finally:
+            propagating.depth -= 1
+            comm.comm_counts.clear()
+            comm.comm_counts.update(counts)
+        comm.comm_counts[key] += 1
+        counter.coll["all-to-all"] += _nbytes([out])
+        mt.track_external(out)
+        return out
+
+    placement_types.shard_dim_alltoall = counted
+    try:
+        yield
+    finally:
+        placement_types.shard_dim_alltoall = orig
 
 
 def analyze_step(step_fn, args) -> dict:
@@ -205,7 +289,8 @@ def analyze_step(step_fn, args) -> dict:
         ShardingPropagator._fake_mode_lock = propagating
     t0 = time.perf_counter()
     try:
-        with mt, comm, counter:
+        with mt, comm, counter, _alltoall_as_the_card_runs_it(
+                propagating, mt, counter, comm):
             out = step_fn(*args)
     finally:
         if lock is not None:
@@ -219,7 +304,8 @@ def analyze_step(step_fn, args) -> dict:
     counts = _by_kind(comm.get_comm_counts())
     return {
         "cost": {"flops": float(counter.flops),
-                 "bytes_accessed": float(counter.bytes)},
+                 "bytes_accessed": float(counter.bytes),
+                 "bytes_by_op": dict(counter.by_op)},
         "memory": {
             "argument_size_in_bytes": sum(arg_st.values()),
             "output_size_in_bytes": sum(out_st.values()),

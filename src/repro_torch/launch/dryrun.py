@@ -21,13 +21,16 @@ cells resume; cells with a ``skip`` reason are skipped by rule. The exit
 code is 1 when any cell failed.
 
 The mesh and the fake tensors are on the CPU on any host: fake tensors
-hold no data, and bytes and flops do not depend on the device. On a CPU
-mesh DTensor runs a redistribution from one split dimension to another
-as an all-gather and a chunk (gloo has no all-to-all), so the records
-count those as all-gathers; the port's own ``all_to_all_single`` calls
-(the dedup dispatch, the microbatches of an accumulating step) count as
-all-to-alls. Fake tensors hold no data for a kernel launch, so the dedup
-cell runs its kernels' plain forms; the record says so.
+hold no data, and bytes and flops do not depend on the device. A
+redistribution from one split dimension to another counts as the one
+all-to-all of its local result that the card runs, though on a CPU mesh
+DTensor runs it as an all-gather and a chunk (``analyze_step``); the
+port's own ``all_to_all_single`` calls (the dedup dispatch, the
+microbatches of an accumulating step) count as all-to-alls. Fake tensors
+hold no data for a kernel launch, so the dedup cell runs its kernels'
+plain forms; the record says so. ``trace_cell`` traces one cell of any
+arch on a mesh that is up; ``launch.hillclimb`` traces mutated archs
+through it.
 """
 
 from __future__ import annotations
@@ -121,6 +124,56 @@ def _summary(rec: dict) -> None:
     print(f"[dryrun]   memory: {mem}")
 
 
+def trace_cell(arch, shape: str, mesh) -> dict:
+    """One cell of ``arch`` (an ``LMArch``, ``GNNArch`` or ``RecsysArch``)
+    placed on ``mesh`` (over a process group that is up) and its step run
+    once on fake tensors under ``analyze_step`` — the counterpart of the
+    reference's ``hillclimb.lower_lm_cell``. -> the analysis record with
+    ``trace_s`` and ``place_s``."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    cell = arch.shapes[shape]
+    dev = "cpu"
+    if arch.family == "gnn":
+        shape_tree = arch.params_shape(shape)
+        pspecs = arch.param_specs(mesh, shape)
+        ospecs = arch.opt_specs(mesh, shape)
+    else:
+        shape_tree = arch.params_shape()
+        pspecs = arch.param_specs(mesh)
+        ospecs = arch.opt_specs(mesh)
+    bspecs = arch.batch_specs(shape, mesh)
+    # the optimizer's step counter is a host scalar that the update reads
+    # back (its schedule), not device state: a real tensor
+    step0 = torch.zeros((), dtype=torch.int32)
+    t0 = time.perf_counter()
+    with _strided_offsets_on_host(), \
+            FakeTensorMode(allow_non_fake_inputs=True):
+        params = _fake_params(shape_tree, dev)
+        inputs = _fake_inputs(arch.input_specs(shape), dev)
+        step = arch.step(shape)
+        if cell.kind == "train":
+            opt = init_opt_state(arch.opt_config(), params)
+            opt = opt._replace(step=step0)
+            args = (params, opt, *inputs.values())
+            specs = (pspecs, ospecs, *(bspecs[k] for k in inputs))
+            donate = (0, 1)
+        else:
+            args = (params, *inputs.values())
+            specs = (pspecs, *(bspecs[k] for k in inputs))
+            donate = (1,) if cell.kind == "decode" else ()
+        fn = jit_sharded(step, mesh, specs, donate_argnums=donate)
+        # the serving steps run under inference mode: their arguments are
+        # placed as inference tensors, as they would be served
+        with torch.inference_mode(cell.kind != "train"):
+            placed = fn.place(*args)
+        t_place = time.perf_counter() - t0
+        rec = analyze_step(fn.placed, placed)
+    rec.pop("outputs")
+    rec["trace_s"] = round(rec.pop("run_s"), 2)
+    rec["place_s"] = round(t_place, 2)
+    return rec
+
+
 def dryrun_cell(arch_id: str, shape: str, multi_pod: bool) -> dict:
     arch = get_arch(arch_id)
     cell = arch.shapes[shape]
@@ -130,71 +183,35 @@ def dryrun_cell(arch_id: str, shape: str, multi_pod: bool) -> dict:
     if cell.skip:
         rec["skipped"] = cell.skip
         return rec
-    from torch._subclasses.fake_tensor import FakeTensorMode
-    dev = "cpu"
     with fake_world(_n_chips(multi_pod)):
-        mesh = make_production_mesh(multi_pod, device=dev)
+        mesh = make_production_mesh(multi_pod, device="cpu")
         rec["mesh_shape"] = dict(production_axes(multi_pod).shape)
-        if arch.family == "gnn":
-            shape_tree = arch.params_shape(shape)
-            pspecs = arch.param_specs(mesh, shape)
-            ospecs = arch.opt_specs(mesh, shape)
-        else:
-            shape_tree = arch.params_shape()
-            pspecs = arch.param_specs(mesh)
-            ospecs = arch.opt_specs(mesh)
-        bspecs = arch.batch_specs(shape, mesh)
-        # the optimizer's step counter is a host scalar that the update
-        # reads back (its schedule), not device state: a real tensor
-        step0 = torch.zeros((), dtype=torch.int32)
-        t0 = time.perf_counter()
-        with _strided_offsets_on_host(), \
-                FakeTensorMode(allow_non_fake_inputs=True):
-            params = _fake_params(shape_tree, dev)
-            inputs = _fake_inputs(arch.input_specs(shape), dev)
-            step = arch.step(shape)
-            if cell.kind == "train":
-                opt = init_opt_state(arch.opt_config(), params)
-                opt = opt._replace(step=step0)
-                args = (params, opt, *inputs.values())
-                specs = (pspecs, ospecs, *(bspecs[k] for k in inputs))
-                donate = (0, 1)
-            else:
-                args = (params, *inputs.values())
-                specs = (pspecs, *(bspecs[k] for k in inputs))
-                donate = (1,) if cell.kind == "decode" else ()
-            fn = jit_sharded(step, mesh, specs, donate_argnums=donate)
-            # the serving steps run under inference mode: their arguments
-            # are placed as inference tensors, as they would be served
-            with torch.inference_mode(cell.kind != "train"):
-                placed = fn.place(*args)
-            t_place = time.perf_counter() - t0
-            res = analyze_step(fn.placed, placed)
-    res.pop("outputs")
-    rec.update(res)
-    rec["trace_s"] = round(rec.pop("run_s"), 2)
-    rec["place_s"] = round(t_place, 2)
+        rec.update(trace_cell(arch, shape, mesh))
     rec["n_chips"] = _n_chips(multi_pod)
     _summary(rec)
     return rec
 
 
 def dedup_dryrun(multi_pod: bool, batch: int = 1 << 20,
-                 memory_mb: int = 512) -> dict:
+                 memory_mb: int = 512, packed: bool = False,
+                 capacity_factor: float = 2.0) -> dict:
     """The paper's technique on the production mesh: the sharded-filter
     dedup service (static routing, the ``all_to_all_single`` dispatch),
-    one rank's step of a global batch over every rank of the mesh."""
+    one rank's step of a global batch over every rank of the mesh.
+    ``packed`` and ``capacity_factor`` reach the configs as the
+    reference's ``hillclimb.dedup_variant`` passes them."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from ..core import DedupConfig
     from ..dedup import ShardedDedup, ShardedDedupConfig
     n = _n_chips(multi_pod)
     axes = production_axes(multi_pod)
     cfg = DedupConfig.for_variant(
-        "rlbsbf", memory_bits=memory_mb * 8 * 1024 * 1024, packed=False)
+        "rlbsbf", memory_bits=memory_mb * 8 * 1024 * 1024, packed=packed)
     dev = "cpu"
     with fake_world(n), _strided_offsets_on_host(), \
             FakeTensorMode(allow_non_fake_inputs=True):
-        sd = ShardedDedup(ShardedDedupConfig(base=cfg), device=dev)
+        sd = ShardedDedup(ShardedDedupConfig(
+            base=cfg, capacity_factor=capacity_factor), device=dev)
         local_batch = batch // sd.n_shards
         state = sd.init()
         keys = torch.empty((local_batch,), dtype=torch.int32, device=dev)
@@ -203,6 +220,7 @@ def dedup_dryrun(multi_pod: bool, batch: int = 1 << 20,
     rec = {"arch": "dedup-stream", "shape": f"ingest_{batch}",
            "kind": "dedup", "mesh": "multi" if multi_pod else "single",
            "dims": {"batch": batch, "memory_mb": memory_mb,
+                    "packed": packed, "capacity_factor": capacity_factor,
                     "per_shard_bits": sd.local_cfg.s * sd.local_cfg.k},
            "mesh_shape": dict(axes.shape), "n_chips": n,
            "kernels": "plain forms (fake tensors hold no data to launch "

@@ -1,8 +1,9 @@
 """The port's dry run and step analysis (``repro_torch.launch.dryrun``,
 ``repro_torch.launch.analysis``) against the reference's shapes.
 
-``analyze_step`` counts 2mnk flops for a lone matmul, and one all-gather
-of the tensor's bytes for a known redistribute. An accumulating step over
+``analyze_step`` counts 2mnk flops for a lone matmul, one all-gather of
+the tensor's bytes for a known redistribute, one all-to-all of the local
+result for a split-to-split one, and the bytes of each aten op. An accumulating step over
 a batch split over the production meshes moves its rows in all-to-alls
 and gathers none. On a fake 256-rank world,
 ``dryrun_cell`` on a full-width cell (qwen3-8b decode_32k, single mesh)
@@ -50,6 +51,12 @@ with dryrun.fake_world(4):
         lambda t: t.redistribute(mesh, [Replicate(), Replicate()]), (x,))
     out["redistribute"] = {k: r[k] for k in
                            ("collectives_counts", "collectives_bytes")}
+    r = analysis.analyze_step(
+        lambda t: t.redistribute(mesh, [Shard(1), Replicate()]), (x,))
+    out["split_to_split"] = {k: r[k] for k in
+                             ("collectives_counts", "collectives_bytes")}
+    out["split_to_split"]["local_bytes"] = \
+        r["outputs"].to_local().numel() * 4
 assert not dist.is_initialized()
 # an accumulating step over a batch split over the production mesh's
 # batch axes: 4 microbatches of 256 rows of 33 token ids, a replicated
@@ -125,6 +132,55 @@ def test_analyze_step_counts_one_all_gather(fake_runs):
     assert r["collectives_counts"] == {"all-gather": 1}
     assert r["collectives_bytes"] == {"all-gather": 64 * 32 * 4,
                                       "total": 64 * 32 * 4}
+
+
+def test_analyze_step_counts_split_to_split_as_one_all_to_all(fake_runs):
+    """Shard(0) -> Shard(1) over the (2, 2) mesh's first dimension: one
+    all-to-all of the local (64, 16) result, as the card runs it, and no
+    all-gather, though gloo's form of it is an all-gather and a chunk."""
+    r = fake_runs["split_to_split"]
+    assert r["local_bytes"] == 64 * 16 * 4
+    assert r["collectives_counts"] == {"all-to-all": 1}
+    assert r["collectives_bytes"] == {"all-to-all": 64 * 16 * 4,
+                                      "total": 64 * 16 * 4}
+
+
+# the port's einsum equations (models/), two and three operands
+EINSUMS = ("bhd,bfd->bhfd", "bhfd,ohf->bod", "bhgqk,bkhd->bqhgd",
+           "bhqk,bkc->bqhc", "bid,bjd->bij", "bqhc,bkc->bhqk",
+           "bqhc,chv->bqhv", "bqhgd,bkhd->bhgqk", "bqhn,chn->bqhc",
+           "bqhr,bkr->bhqk", "bqhv,hvd->bqd", "bsc,che->bshe",
+           "bsd,dhe->bshe", "bsd,dke->bske", "bsd,dv->bsv", "bshe,hed->bsd",
+           "bsl,lhe->bshe", "necd,edf->necf", "necf,efd->necd",
+           "ntec,necd->ntd", "ntec,ntd->necd", "ntke,ntkec,ntk->ntec",
+           "ntke,ntkec->ntec")
+
+
+@pytest.mark.parametrize("equation", EINSUMS)
+def test_einsum_flops_equal_the_lowered_count(equation):
+    """``einsum_flops`` — what an einsum that reaches the counters whole
+    (torch 2.11) is counted — equals the count of the bmm / mul lowering
+    torch 2.13 hands them, on every equation the models use."""
+    terms = equation.split("->")[0].split(",")
+    g = torch.Generator().manual_seed(len(equation))
+    dims = {c: int(torch.randint(2, 7, (1,), generator=g))
+            for c in sorted(set("".join(terms)))}
+    ops = [torch.randn([dims[c] for c in t]) for t in terms]
+    r = analysis.analyze_step(lambda *o: torch.einsum(equation, *o), ops)
+    assert analysis.einsum_flops(equation, [o.shape for o in ops]) == \
+        r["cost"]["flops"]
+
+
+def test_analyze_step_reports_bytes_by_op():
+    """One clone's operand and result bytes under ``bytes_by_op``, and
+    ``copy_bytes`` (the reference's ``essential_by_op["copy"]``) is
+    theirs."""
+    x = torch.randn(12, 10)
+    r = analysis.analyze_step(lambda t: t.clone().mul_(2), (x,))
+    by_op = r["cost"]["bytes_by_op"]
+    assert by_op["aten.clone"] == 2 * 12 * 10 * 4
+    assert sum(by_op.values()) == r["cost"]["bytes_accessed"]
+    assert analysis.copy_bytes(r["cost"]) == 2 * 12 * 10 * 4
 
 
 @pytest.mark.parametrize("mesh", ["single", "multi"])

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: no module of ``src/repro_torch`` (the
-hot-path linter ``repro_torch.analysis`` included), not ``chip_smoke.py``
-and not the card tests import jax, jaxlib or the JAX package ``repro`` —
+hot-path linter ``repro_torch.analysis`` included), not ``chip_smoke.py``,
+not the examples of the port (``examples/*_torch.py``) and not the card
+tests import jax, jaxlib or the JAX package ``repro`` —
 the port has to install and run on a GPU machine that has none of them."""
 
 import ast
@@ -16,7 +17,8 @@ FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "tests" / "test_torch_analysis_gpu.py",
     ROOT / "tests" / "test_torch_models_gpu.py",
     ROOT / "tests" / "test_torch_train_gpu.py",
-    ROOT / "tests" / "torch_lm_scorer.py"]
+    ROOT / "tests" / "torch_lm_scorer.py"] + sorted(
+    (ROOT / "examples").glob("*_torch.py"))
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -48,7 +50,12 @@ def test_port_files_found():
             "lm.py", "train.py", "test_torch_train_gpu.py", "gnn.py",
             "recsys.py", "graphs.py", "recsys_data.py", "gnn_archs.py",
             "recsys_archs.py", "hw.py", "mesh.py", "analysis.py",
-            "dryrun.py", "collectives.py"} <= names
+            "dryrun.py", "collectives.py", "hillclimb.py",
+            "quickstart_torch.py", "click_fraud_stream_torch.py",
+            "sbf_vs_rlbsbf_torch.py", "sliding_window_dedup_torch.py",
+            "count_min_heavy_hitters_torch.py", "serving_frontend_torch.py",
+            "dedup_training_torch.py",
+            "sharded_dedup_multidevice_torch.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))

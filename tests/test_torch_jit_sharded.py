@@ -390,9 +390,10 @@ def test_private_dtensor_parts_are_the_checked_ones():
     private parts: its dispatcher's table of op handlers
     (``train.steps._sharding_handlers``), its view rule
     (``_view_placements``), ``_StridedShard.local_shard_size_and_offset``
-    (``launch.dryrun``) and ``ShardingPropagator._fake_mode_lock``
-    (``launch.analysis``). This pins the torch versions they were checked
-    against and the forms the port relies on."""
+    (``launch.dryrun``), ``ShardingPropagator._fake_mode_lock`` and
+    ``placement_types.shard_dim_alltoall`` (``launch.analysis``). This
+    pins the torch versions they were checked against and the forms the
+    port relies on."""
     import inspect
 
     import torch
@@ -411,3 +412,7 @@ def test_private_dtensor_parts_are_the_checked_ones():
         "from_size", "to_size"]
     assert callable(_StridedShard.local_shard_size_and_offset)
     assert hasattr(ShardingPropagator, "_fake_mode_lock")
+    from torch.distributed.tensor import placement_types
+    assert list(inspect.signature(placement_types.shard_dim_alltoall)
+                .parameters) == ["input", "gather_dim", "shard_dim", "mesh",
+                                 "mesh_dim"]
