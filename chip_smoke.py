@@ -225,7 +225,19 @@ sharded step profiled (device busy, idle share) and one under
 ``launch.analysis.analyze_step`` (its collective counts, flops and
 memory), and ``compressed_psum`` of the 100m gradients over the mesh's
 "data" group equal bit for bit to the one-rank form of the reference's
-formula (quantize, then dequantize), its error state finite.
+formula (quantize, then dequantize), its error state finite. Last, on
+this machine's CPU by design (the card is not used; its torch is the one
+the checks are for), ``repro_torch.launch.meshcheck``'s three parts as
+three processes at once: the (2, 2) gloo steps of the smoke configs
+(qwen3-8b, qwen3-8b at accumulation 2, mixtral-8x7b, deepseek-v2-236b
+routed in groups, MeshGraphNet, DLRM-RM2) and the sequence-split decode,
+each sharded within 1e-5 of its plain step's max |value| with no
+``index_add`` / ``index_put`` passed on to DTensor's own dispatch; the
+fake-world traces of molecule-meshgraphnet (multi), dlrm-rm2 train_batch
+(single) and serve_p99 (multi), and qwen3-8b's decode_32k, its flops
+within 1% of the count of its shapes and its temp within 10% of
+``MESH_DECODE_TEMP``; the smoke MoE train steps on a fake (4, 1) mesh,
+their flops a 4x split of (1, 1)'s within 2%.
 
 Then the "graph_recsys" phase: GNN and recsys (``repro_torch.models.gnn``
 and ``.recsys``), fp32 with TF32 off, weights from the port's seeded init.
@@ -465,6 +477,10 @@ MOE_LOCKSTEP = ("deepseek-v2-236b", 4, 40, 2)   # the MoE card-vs-CPU check:
 # the "mesh" phase: the 100m step through jit_sharded on the (1, 1) mesh
 MESH_STEPS = 2                   # steps of each form from one state
 MESH_TOL = 1e-5                  # sharded vs plain, of max |value|
+MESH_CHECK_TIMEOUT = 600         # s, each part of repro_torch.launch.meshcheck
+MESH_DECODE_TEMP = 69683264      # qwen3-8b decode_32k temp bytes per device
+                                 # under torch 2.13 (PERF.md, section 6)
+MESH_DECODE_TEMP_TOL = 0.10
 # the "graph_recsys" phase: MeshGraphNet and the four recsys rankers at
 # their published widths (gnn_archs.py, recsys_archs.py), fp32, seeded
 GNN_ARCH = "meshgraphnet"
@@ -3086,7 +3102,60 @@ def phase_mesh(card, kept):
                              "form of the reference's formula")
     del p, grads, synced, err, loss, ps, os_, fs, batches
     torch.cuda.empty_cache()
+    mesh_checks_on_cpu()
+    log(f"[mesh] the phase {time.perf_counter() - t_phase:.1f} s ({card})")
     return launches
+
+
+def mesh_checks_on_cpu() -> dict:
+    """``repro_torch.launch.meshcheck``'s three parts, each a process of
+    its own (the steps' four gloo ranks theirs), all at once on this
+    machine's CPU with no card visible: the sharding checks run under
+    this machine's torch, port against port. Fails on any miss."""
+    t0 = time.perf_counter()
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src"),
+           "CUDA_VISIBLE_DEVICES": ""}
+    procs = {part: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.meshcheck", "--part",
+         part], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+        for part in ("steps", "traces", "moe")}
+    res, errs = {}, {}
+    try:
+        for part, p in procs.items():
+            out, err = p.communicate(timeout=MESH_CHECK_TIMEOUT)
+            lines = out.strip().splitlines()
+            if p.returncode or not lines:
+                errs[part] = f"exit {p.returncode}: {err[-3000:]}"
+            res[part] = json.loads(lines[-1])[part] if lines else {}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    steps, traces, moe = res["steps"], res["traces"], res["moe"]
+    import torch
+    log(f"[mesh] on this machine's CPU, by design (torch {torch.__version__}"
+        f"; no card): the (2, 2) gloo steps, sharded vs plain, largest "
+        f"distances of max |value| {steps.get('distances')}; index ops "
+        f"passed on to DTensor's dispatch {steps.get('unhandled')} "
+        f"({steps.get('s')} s)")
+    dec = traces.get("decode", {})
+    temp = dec.get("temp_bytes", 0)
+    log(f"[mesh] fake-world traces on the CPU: {traces.get('cells')}; "
+        f"qwen3-8b decode_32k flops {dec.get('flops')} against the shape "
+        f"count {dec.get('shape_count')} (ratio {dec.get('ratio')}), temp "
+        f"{temp} B against {MESH_DECODE_TEMP} ({traces.get('s')} s)")
+    log(f"[mesh] the smoke MoE train steps, fake (1, 1) -> (4, 1): "
+        f"{ {a: moe[a] for a in moe if a not in ('ok', 's')} } "
+        f"({moe.get('s')} s); the three parts at once "
+        f"{time.perf_counter() - t0:.1f} s")
+    temp_ok = abs(temp / MESH_DECODE_TEMP - 1) <= MESH_DECODE_TEMP_TOL
+    if errs or not (steps.get("ok") and traces.get("ok") and moe.get("ok")
+                    and temp_ok):
+        raise AssertionError(f"mesh: the CPU sharding checks failed: "
+                             f"{errs or 'a check missed'}")
+    return res
 
 
 def host_graph(n_nodes: int, n_edges: int, d_feat: int, d_out: int, seed):

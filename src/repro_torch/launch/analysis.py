@@ -13,9 +13,9 @@ run plans a 256-rank mesh on one host), under three counting modes:
     ``bytes_accessed``, the operand plus result bytes of every aten op
     that is not a view or a collective. An eager step has no fusion, so
     every op boundary touches device memory: the reference's own rule for
-    post-fusion HLO. ``bytes_by_op`` splits them by aten op
-    (``"aten.clone"``, ...); the bytes of ``aten.copy_``, ``aten.clone``
-    and ``aten._to_copy`` together are the reference's
+    post-fusion HLO. ``bytes_by_op`` and ``flops_by_op`` split them by
+    aten op (``"aten.clone"``, ...); the bytes of ``aten.copy_``,
+    ``aten.clone`` and ``aten._to_copy`` together are the reference's
     ``essential_by_op["copy"]`` (``copy_bytes``).
   * ``memory`` — ``argument_size_in_bytes`` and ``output_size_in_bytes``
     (each storage once; ``alias_size_in_bytes`` the outputs that are
@@ -31,7 +31,10 @@ run plans a 256-rank mesh on one host), under three counting modes:
     (DTensor's ``shard_dim_alltoall``) counts as the one all-to-all of
     its local result that the card runs, on any mesh: on a CPU mesh
     DTensor runs it as an all-gather and a chunk (gloo has no
-    all-to-all), and none of that is counted.
+    all-to-all), and none of that is counted. ``collectives_by_op``
+    splits the bytes by the DTensor op dispatched last before each
+    collective (the op whose redistribution it is; ``"step"`` before
+    any), {op: {kind: bytes}}.
 
 Every mode lets DTensor run first and counts the local ops and the
 collectives it turns each op into, so every number is per device, as the
@@ -142,20 +145,55 @@ def _is_dtensor(types) -> bool:
 
 
 class _Propagating:
-    """Set as DTensor's ``ShardingPropagator._fake_mode_lock`` while a step
-    is counted: DTensor holds it while it runs an op on fake tensors of
+    """The depth of DTensor's sharding propagation while a step is
+    counted (``_as_propagation``): DTensor runs an op on fake tensors of
     the global shapes to learn the output's, which under an outer
-    ``FakeTensorMode`` (the dry run) the counters would otherwise take for
-    the step's own ops."""
+    ``FakeTensorMode`` (the dry run; torch 2.11 runs it under any fake
+    mode it finds) the counters would otherwise take for the step's own
+    ops."""
 
     def __init__(self):
         self.depth = 0
 
-    def __enter__(self):
-        self.depth += 1
 
-    def __exit__(self, *exc):
-        self.depth -= 1
+@contextlib.contextmanager
+def _as_propagation(cls, name: str, propagating: _Propagating):
+    """For the duration, ``cls.name`` (a method or a static method) runs
+    as propagation: nothing it runs is counted."""
+    raw = vars(cls)[name]
+    fn = raw.__func__ if isinstance(raw, staticmethod) else raw
+
+    def uncounted(*args, **kwargs):
+        propagating.depth += 1
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            propagating.depth -= 1
+
+    setattr(cls, name, staticmethod(uncounted)
+            if isinstance(raw, staticmethod) else uncounted)
+    try:
+        yield
+    finally:
+        setattr(cls, name, raw)
+
+
+@contextlib.contextmanager
+def _propagation_uncounted(propagating: _Propagating):
+    """DTensor's two propagations that run ops, uncounted: an op's output
+    metadata (``ShardingPropagator._propagate_tensor_meta_non_cached``)
+    and a composite op's placements learned from its decomposition at
+    the global shapes on a one-rank mesh
+    (``DecompShardingStrategy.propagate_strategy``; torch 2.13 uses it
+    for an einsum that reaches DTensor whole)."""
+    from torch.distributed.tensor._decompositions import \
+        DecompShardingStrategy
+    from torch.distributed.tensor._sharding_prop import ShardingPropagator
+    with _as_propagation(ShardingPropagator,
+                         "_propagate_tensor_meta_non_cached", propagating), \
+            _as_propagation(DecompShardingStrategy, "propagate_strategy",
+                            propagating):
+        yield
 
 
 def _mem_tracker(propagating: _Propagating):
@@ -184,7 +222,10 @@ class _OpCounter(TorchDispatchMode):
         self.flops = 0
         self.bytes = 0
         self.by_op = defaultdict(int)
+        self.flops_by_op = defaultdict(int)
         self.coll = defaultdict(int)
+        self.coll_by_op = defaultdict(lambda: defaultdict(int))
+        self.owner = "step"
 
     def __enter__(self):
         # DTensor works out an op's output placement by running it under a
@@ -196,8 +237,16 @@ class _OpCounter(TorchDispatchMode):
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         from torch._guards import active_fake_mode
         if _is_dtensor(types):
+            if not self.propagating.depth:
+                self.owner = str(func.overloadpacket)
             return NotImplemented
         kwargs = kwargs or {}
+        if self._arrives_whole(func):
+            # a composite op (``matmul``, ...) that inference mode hands
+            # over undecomposed: its pieces are counted, as autograd's
+            # lowering hands them over elsewhere
+            with self:
+                return func.decompose(*args, **kwargs)
         out = func(*args, **kwargs)
         if isinstance(func, torch._ops.HigherOrderOperator) or \
                 self.propagating.depth or \
@@ -210,20 +259,40 @@ class _OpCounter(TorchDispatchMode):
             # first argument (its output tensors)
             res = out if name.startswith("_c10d_functional") or \
                 name.startswith("c10d_functional") else args[0]
-            self.coll[kind] += _nbytes(_tensors(res))
+            self.add_collective(kind, _nbytes(_tensors(res)))
             return out
-        if "wait_tensor" in name or func.is_view:
-            return out
+        if "wait_tensor" in name or func.is_view or \
+                func.namespace != "aten":
+            return out                # no memory touched (``prim.device``)
         packet = func.overloadpacket
+        flops = 0
         if packet in self.registry:
-            self.flops += self.registry[packet](*args, **kwargs, out_val=out)
+            flops = self.registry[packet](*args, **kwargs, out_val=out)
         elif packet is torch.ops.aten.einsum:
-            self.flops += einsum_flops(args[0], [t.shape for t in args[1]])
+            flops = einsum_flops(args[0], [t.shape for t in args[1]])
+        if flops:
+            self.flops += flops
+            self.flops_by_op[str(packet)] += flops
         nb = _nbytes(_tensors(args)) + _nbytes(_tensors(kwargs)) \
             + _nbytes(_tensors(out))
         self.bytes += nb
         self.by_op[str(packet)] += nb
         return out
+
+    def _arrives_whole(self, func) -> bool:
+        """``func`` a CompositeImplicitAutograd op that has no flop formula
+        of its own (``aten.einsum`` is counted by ``einsum_flops``)."""
+        if not isinstance(func, torch._ops.OpOverload) or \
+                func.namespace != "aten" or \
+                func.overloadpacket in self.registry or \
+                func.overloadpacket is torch.ops.aten.einsum:
+            return False
+        return torch._C._dispatch_has_kernel_for_dispatch_key(
+            func.name(), torch._C.DispatchKey.CompositeImplicitAutograd)
+
+    def add_collective(self, kind: str, nbytes: int) -> None:
+        self.coll[kind] += nbytes
+        self.coll_by_op[self.owner][kind] += nbytes
 
 
 def _by_kind(counts) -> dict:
@@ -261,7 +330,7 @@ def _alltoall_as_the_card_runs_it(propagating, mt, counter, comm):
             comm.comm_counts.clear()
             comm.comm_counts.update(counts)
         comm.comm_counts[key] += 1
-        counter.coll["all-to-all"] += _nbytes([out])
+        counter.add_collective("all-to-all", _nbytes([out]))
         mt.track_external(out)
         return out
 
@@ -276,7 +345,6 @@ def analyze_step(step_fn, args) -> dict:
     """Run ``step_fn(*args)`` once and count it, per device. -> {"cost",
     "memory", "collectives_bytes", "collectives_counts", "run_s",
     "outputs"} (the step's outputs, for the caller to use or drop)."""
-    from torch.distributed.tensor._sharding_prop import ShardingPropagator
     from torch.distributed.tensor.debug import CommDebugMode
     arg_st = _storage_bytes(args)
     propagating = _Propagating()
@@ -284,17 +352,10 @@ def analyze_step(step_fn, args) -> dict:
     mt.track_external(*_tensors(args))
     counter = _OpCounter(propagating)
     comm = CommDebugMode()
-    lock = getattr(ShardingPropagator, "_fake_mode_lock", None)
-    if lock is not None:
-        ShardingPropagator._fake_mode_lock = propagating
     t0 = time.perf_counter()
-    try:
-        with mt, comm, counter, _alltoall_as_the_card_runs_it(
-                propagating, mt, counter, comm):
-            out = step_fn(*args)
-    finally:
-        if lock is not None:
-            ShardingPropagator._fake_mode_lock = lock
+    with mt, comm, counter, _propagation_uncounted(propagating), \
+            _alltoall_as_the_card_runs_it(propagating, mt, counter, comm):
+        out = step_fn(*args)
     run_s = time.perf_counter() - t0
     peak = max((snap["Total"] for snap in
                 mt.get_tracker_snapshot("peak").values()), default=0)
@@ -305,7 +366,8 @@ def analyze_step(step_fn, args) -> dict:
     return {
         "cost": {"flops": float(counter.flops),
                  "bytes_accessed": float(counter.bytes),
-                 "bytes_by_op": dict(counter.by_op)},
+                 "bytes_by_op": dict(counter.by_op),
+                 "flops_by_op": dict(counter.flops_by_op)},
         "memory": {
             "argument_size_in_bytes": sum(arg_st.values()),
             "output_size_in_bytes": sum(out_st.values()),
@@ -313,6 +375,8 @@ def analyze_step(step_fn, args) -> dict:
                                        if s in arg_st),
             "temp_size_in_bytes": max(0, peak - sum(arg_st.values()))},
         "collectives_bytes": coll_bytes,
+        "collectives_by_op": {op: dict(k) for op, k in
+                              counter.coll_by_op.items()},
         "collectives_counts": counts,
         "run_s": run_s,
         "outputs": out,

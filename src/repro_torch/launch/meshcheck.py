@@ -1,0 +1,603 @@
+"""The model sharding held to the unplaced step, port against port, on
+the CPU of any host (gloo ranks, fake process groups): the checks that
+``tests/test_torch_jit_sharded.py`` and ``tests/test_torch_dryrun.py``
+make against the reference, in a form that needs no JAX, so that the
+card machine's torch runs them too.
+
+    PYTHONPATH=src python -m repro_torch.launch.meshcheck            # all
+    PYTHONPATH=src python -m repro_torch.launch.meshcheck --part steps
+
+``steps``: one train step of each family's smoke config (``FAMILIES``)
+through ``train.jit_sharded`` on a (2, 2) ("data", "model") mesh of four
+gloo ranks, each rank a process of its own meeting at a ``FileStore``,
+against the same step unplaced from the same seeded state, and three
+decode steps of a one-KV-head qwen3-8b with the reference's
+sequence-parallel cache; every parameter leaf (logit, cache entry)
+within ``TOL`` of the tree's max |value|, the loss and grad norm within
+``TOL`` of theirs. It also counts the ``index_add`` / ``index_put`` ops
+that went past the port's own handlers to DTensor's dispatch (must be
+none).
+
+``traces``: on fake process groups, the cells that torch 2.11's DTensor
+refused before the port placed the index ops itself (``TRACE_CELLS``),
+and qwen3-8b's decode_32k against the count of its shapes
+(``decode_flops``). ``moe``: the smoke MoE train steps on a fake (4, 1)
+mesh against (1, 1), whose flops must split 4x (``moe_split``). Each
+part takes about a minute on one core; the three run apart as
+processes of their own (``--part``) where time counts.
+
+Prints one JSON object as its last line; exit 0 when every check
+passes. Nothing here touches a card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import contextlib
+import dataclasses
+import json
+import os
+import pickle
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+
+# family: (arch id, gradient accumulation steps)
+FAMILIES = {"lm": ("qwen3-8b", 1), "lm_accum": ("qwen3-8b", 2),
+            "moe": ("mixtral-8x7b", 1), "moe_grouped": ("deepseek-v2-236b", 1),
+            "gnn": ("meshgraphnet", 1), "recsys": ("dlrm-rm2", 1)}
+TOL = 1e-5
+LR = 1e-4
+RANKS, MODEL = 4, 2
+# the cells torch 2.11's DTensor refused (an index_add of split indices,
+# index_put_ with no strategy, index_select over a dimension split twice)
+TRACE_CELLS = (("meshgraphnet", "molecule", True),
+               ("dlrm-rm2", "train_batch", False),
+               ("dlrm-rm2", "serve_p99", True))
+# the smoke MoE train step of the split check: batch x seq tokens, routed
+# in groups of MOE_GROUP (128 groups; 32 per "data" rank of 4)
+MOE_SPLIT = {"batch": 64, "seq": 128}
+MOE_GROUP = 64
+SPLIT_TOL = 0.02
+DECODE_TOL = 0.01
+
+
+def smoke_config(family: str):
+    """The port's smoke config of a family. ``moe_grouped`` is
+    deepseek-v2-236b's (MLA, shared experts, the dense first layer) with
+    8 routed experts and ``moe_group_size`` 20, so that a batch of 4 x 40
+    tokens routes in 8 groups, 4 on each "data" rank of 2, and pairs
+    drop (capacity 13 per expert)."""
+    from ..configs import get_arch
+    cfg = get_arch(FAMILIES[family][0]).smoke()
+    if family == "moe_grouped":
+        cfg = dataclasses.replace(cfg, n_experts=8, moe_group_size=20)
+    return cfg
+
+
+def family_inputs(family: str, cfg) -> dict:
+    """The step's inputs as numpy arrays from a fixed seed: ``cfg`` is
+    either package's config of the family (only its sizes are read)."""
+    rng = np.random.default_rng(11)
+    if family in ("lm", "lm_accum", "moe", "moe_grouped"):
+        toks = rng.integers(0, cfg.vocab, (4, 41)).astype(np.int32)
+        return {"tokens": toks,
+                "weights": np.array([1.0, 0.0, 0.5, 1.0], np.float32)}
+    if family == "gnn":
+        n, e = 64, 128
+        return {"batch": {
+            "nodes": rng.standard_normal((n, cfg.d_node_in)).astype(
+                np.float32),
+            "edges": rng.standard_normal((e, 8)).astype(np.float32),
+            "src": rng.integers(0, n, e).astype(np.int32),
+            "dst": rng.integers(0, n, e).astype(np.int32),
+            "edge_mask": rng.random(e) < 0.9,
+            "node_mask": rng.random(n) < 0.9,
+            "targets": rng.standard_normal((n, cfg.d_out)).astype(
+                np.float32)}, "weights": None}
+    b = 16
+    ids = np.stack([rng.integers(0, v, b) for v in cfg.vocab_sizes],
+                   1).astype(np.int32)
+    w = np.ones(b, np.float32)
+    w[3] = 0.0
+    return {"batch": {"dense": rng.standard_normal((b, cfg.n_dense)).astype(
+        np.float32), "sparse_ids": ids,
+        "labels": (rng.random(b) < 0.3).astype(np.float32)}, "weights": w}
+
+
+def config_dict(cfg) -> dict:
+    """A config as plain fields (``dtype`` by name), to cross a pickle
+    into a rank or from the reference's config."""
+    def name(dtype):
+        try:
+            return np.dtype(dtype).name
+        except TypeError:                         # a torch dtype
+            return str(dtype).rsplit(".", 1)[-1]
+
+    return {k: (name(v) if k == "dtype" else v)
+            for k, v in dataclasses.asdict(cfg).items()}
+
+
+def _kind(arch_id: str) -> str:
+    from ..configs import get_arch
+    return {"lm": "transformer", "gnn": "gnn",
+            "recsys": "recsys"}[get_arch(arch_id).family]
+
+
+def seeded_params(arch_id: str, cfg, seed: int) -> dict:
+    """The port's seeded params of ``cfg`` as the reference's numpy tree."""
+    from .. import convert
+    from ..models import gnn, recsys, transformer
+    kind = _kind(arch_id)
+    mod = {"transformer": transformer, "gnn": gnn, "recsys": recsys}[kind]
+    return getattr(convert, f"{kind}_params_to_numpy")(
+        cfg, mod.init(cfg, seed, "cpu"))
+
+
+def decode_case(params=None) -> tuple:
+    """(arch id, config fields, params, inputs, 1) of the decode check:
+    qwen3-8b's smoke config with one KV head (its cache's sequence splits
+    over "model", its batch over "data"), 4 rows at three positions each,
+    16 slots. ``params``: a numpy tree (the reference's), else the
+    port's seeded one."""
+    from ..configs import get_arch
+    cfg = dataclasses.replace(get_arch("qwen3-8b").smoke(), n_kv_heads=1)
+    rng = np.random.default_rng(5)
+    inp = {"token": rng.integers(0, cfg.vocab, (4, 3)).astype(np.int32),
+           "pos": np.array([[0, 1, 2], [5, 6, 7], [0, 3, 9], [11, 12, 13]],
+                           np.int32),
+           "slots": 16}
+    if params is None:
+        params = seeded_params("qwen3-8b", cfg, 1)
+    return "qwen3-8b", config_dict(cfg), params, inp, 1
+
+
+def port_cases() -> dict:
+    """Every family's case from the port's own seeded params."""
+    cases = {}
+    for family, (arch_id, accum) in FAMILIES.items():
+        cfg = smoke_config(family)
+        cases[family] = (arch_id, config_dict(cfg),
+                         seeded_params(arch_id, cfg, 0),
+                         family_inputs(family, cfg), accum)
+    cases["decode"] = decode_case()
+    return cases
+
+
+@contextlib.contextmanager
+def counting_unhandled(counts: collections.Counter):
+    """For the duration, each op that one of ``train.steps``' handlers
+    passes on to DTensor's own dispatch is counted in ``counts`` by
+    name."""
+    from ..train import steps
+    orig = steps._dispatch_unhandled
+
+    def counted(op_call, args, kwargs):
+        counts[str(op_call)] += 1
+        return orig(op_call, args, kwargs)
+
+    steps._dispatch_unhandled = counted
+    try:
+        yield
+    finally:
+        steps._dispatch_unhandled = orig
+
+
+def _whole(x):
+    return x.full_tensor() if hasattr(x, "full_tensor") else x
+
+
+def _whole_params(params):
+    """Every DTensor parameter gathered whole, in one order on every
+    rank."""
+    import torch
+    for name, p in list(params.named_parameters()):
+        if hasattr(p, "full_tensor"):
+            owner, _, leaf = name.rpartition(".")
+            setattr(params.get_submodule(owner), leaf,
+                    torch.nn.Parameter(p.full_tensor()))
+    return params
+
+
+def run_family(mesh, family: str, case: tuple, lr: float) -> dict:
+    """One train step of ``case`` (arch id, config fields, numpy params,
+    numpy inputs, accumulation) plain and through ``jit_sharded`` on
+    ``mesh``, each from the same state -> {form: (numpy params after,
+    loss, grad norm, the stacked leaves whose moments ZeRO-1 split by
+    layer)}."""
+    import torch
+    from .. import convert
+    from ..configs import get_arch
+    from ..distributed import sharding as shr
+    from ..models import gnn
+    from ..models.layers import module_leaves, tensor_batch
+    from ..optim import OptState, init_opt_state, optimizers
+    from ..train import jit_sharded, make_train_step
+    arch_id, cfg_dict, rp, inp, accum = case
+    arch = get_arch(arch_id)
+    cfg = type(arch.smoke())(**cfg_dict)
+    # no warmup, a peak lr of ``lr``: a wrong update shows
+    opt_cfg = dataclasses.replace(arch.opt_config(), warmup_steps=0, lr=lr)
+    if arch.family == "lm":
+        arch = type(arch)(arch_id, cfg, accum={"train_4k": accum})
+        arch.opt_config = lambda: opt_cfg
+        step = arch.step("train_4k")
+        pspecs, ospecs = arch.param_specs(mesh), arch.opt_specs(mesh)
+        bs = arch.batch_specs("train_4k", mesh)
+        args = (torch.from_numpy(inp["tokens"]),
+                torch.from_numpy(inp["weights"]))
+        specs = (bs["tokens"], bs["weights"])
+    elif arch.family == "gnn":
+        step = make_train_step(lambda p, b, w: gnn.loss_fn(cfg, p, b, w),
+                               opt_cfg)
+        pspecs = shr.gnn_param_specs(mesh, gnn._build(cfg, None, "meta"))
+        ospecs = OptState(step=shr.P(), m=pspecs, v=pspecs)
+        args = (tensor_batch(inp["batch"], "cpu"), None)
+        specs = (shr.gnn_batch_specs(mesh, True), None)
+    else:
+        arch = type(arch)(arch_id, cfg)
+        arch.opt_config = lambda: opt_cfg
+        step = arch.step("train_batch")
+        pspecs, ospecs = arch.param_specs(mesh), arch.opt_specs(mesh)
+        bs = shr.recsys_batch_specs(mesh)
+        args = (tensor_batch(inp["batch"], "cpu"),
+                torch.from_numpy(inp["weights"]))
+        specs = ({k: bs[k] for k in inp["batch"]}, bs["labels"])
+    kind = _kind(arch_id)
+    to_port = getattr(convert, f"{kind}_params_from_numpy")
+    to_numpy = getattr(convert, f"{kind}_params_to_numpy")
+    res = {}
+    for form in ("plain", "sharded"):
+        params = to_port(cfg, rp, "cpu")
+        opt = init_opt_state(opt_cfg, params)
+        fn = step if form == "plain" else jit_sharded(
+            step, mesh, (pspecs, ospecs) + specs)
+        params, opt, m = fn(params, opt, *args)
+        split = [lf.path for lf in module_leaves(params) if lf.stacked
+                 and optimizers._layers_split(optimizers._leaf(opt.m, lf))]
+        res[form] = (to_numpy(cfg, _whole_params(params)),
+                     float(_whole(m["loss"])), float(_whole(m["grad_norm"])),
+                     split)
+    return res
+
+
+def run_decode(mesh, case: tuple) -> dict:
+    """Three decode steps of ``case`` (``decode_case``) plain and through
+    ``jit_sharded`` on ``mesh`` -> {form: (logits per step, the cache)},
+    numpy."""
+    import torch
+    from .. import convert
+    from ..configs import get_arch
+    from ..distributed import sharding as shr
+    from ..models import transformer
+    from ..train import jit_sharded
+    arch_id, cfg_dict, rp, inp, _ = case
+    cfg = transformer.TransformerConfig(**cfg_dict)
+    arch = type(get_arch(arch_id))(arch_id, cfg)
+    step = arch.step("decode_32k")
+    B, S = inp["token"].shape[0], inp["slots"]
+    cspecs = shr.transformer_cache_specs(cfg, mesh,
+                                         transformer.cache_spec(cfg, B, S))
+    bspec = shr.P(shr.batch_axes(mesh))
+    res = {}
+    for form in ("plain", "sharded"):
+        params = convert.transformer_params_from_numpy(cfg, rp, "cpu")
+        cache = transformer.init_cache(cfg, B, S, "cpu")
+        fn = step if form == "plain" else jit_sharded(
+            step, mesh, (arch.param_specs(mesh), cspecs, bspec, bspec),
+            donate_argnums=(1,))
+        logits = []
+        # a serving step runs under inference mode: so is its placement
+        with torch.inference_mode():
+            for t, p in zip(inp["token"].T, inp["pos"].T):
+                lg, cache = fn(params, cache, torch.from_numpy(t.copy()),
+                               torch.from_numpy(p.copy()))
+                logits.append(_whole(lg).numpy())
+            cache = {k: _whole(v).float().numpy() for k, v in cache.items()}
+        res[form] = (logits, cache)
+    return res
+
+
+def run_cases(mesh, cases: dict, lr: float) -> dict:
+    """What each rank runs: every family of ``cases`` and the decode ->
+    {family: run_family's result, "decode": run_decode's, "unhandled":
+    {op: count} of the index ops passed on to DTensor's dispatch}."""
+    counts = collections.Counter()
+    out = {}
+    with counting_unhandled(counts):
+        for family, case in cases.items():
+            out[family] = (run_decode(mesh, case) if family == "decode"
+                           else run_family(mesh, family, case, lr))
+    out["unhandled"] = {op: n for op, n in counts.items()
+                        if "index_add" in op or "index_put" in op}
+    return out
+
+
+def flat(tree, path=()) -> dict:
+    """{path: array} of a tree of dicts and lists."""
+    if isinstance(tree, dict):
+        return {k: v for key in tree
+                for k, v in flat(tree[key], path + (key,)).items()}
+    if isinstance(tree, (list, tuple)):
+        return {k: v for i, t in enumerate(tree)
+                for k, v in flat(t, path + (i,)).items()}
+    return {path: np.asarray(tree)}
+
+
+def mismatches(after: dict, want: dict) -> dict:
+    """{leaf: its distance} for each leaf of ``after`` further from
+    ``want``'s than TOL of the whole tree's largest |value|."""
+    scale = max(np.abs(w).max() for w in want.values())
+    dist = {k: np.abs(after[k] - w).max() / scale for k, w in want.items()}
+    return {k: d for k, d in dist.items() if not d <= TOL}
+
+
+def distances(res: dict) -> dict:
+    """Sharded against plain: {family: the largest distance of a leaf,
+    of the loss, of the grad norm (decode: of a step's logits, of a cache
+    entry)}, each relative to the plain tree's max |value|."""
+    out = {}
+    for family, forms in res.items():
+        if family == "decode":
+            (p_lg, p_cache), (s_lg, s_cache) = forms["plain"], \
+                forms["sharded"]
+            out[family] = {
+                "logits": max(float(np.abs(a - b).max() / np.abs(b).max())
+                              for a, b in zip(s_lg, p_lg)),
+                "cache": max(float(np.abs(s_cache[k] - b).max()
+                                   / max(np.abs(b).max(), 1.0))
+                             for k, b in p_cache.items())}
+            continue
+        (pp, pl, pn, _), (sp, sl, sn, _) = forms["plain"], forms["sharded"]
+        pp, sp = flat(pp), flat(sp)
+        scale = max(np.abs(v).max() for v in pp.values())
+        out[family] = {
+            "params": max(float(np.abs(sp[k] - v).max() / scale)
+                          for k, v in pp.items()),
+            "loss": abs(sl - pl) / abs(pl), "grad_norm": abs(sn - pn) / pn}
+    return out
+
+
+RANK_WORKER = """
+import os, pickle, sys
+import torch, torch.distributed as dist
+torch.set_num_threads(1)
+from repro_torch.launch import meshcheck
+from repro_torch.launch.mesh import make_local_mesh
+tmp = sys.argv[1]
+rank, world = int(os.environ["RANK"]), int(os.environ["WORLD"])
+dist.init_process_group("gloo", init_method="file://" + os.environ["STORE"],
+                        rank=rank, world_size=world)
+lr, cases = pickle.load(open(os.path.join(tmp, "cases.pkl"), "rb"))
+out = meshcheck.run_cases(make_local_mesh(model=meshcheck.MODEL,
+                                          device="cpu"), cases, lr)
+if rank == 0:
+    with open(os.path.join(tmp, "out.pkl"), "wb") as f:
+        pickle.dump(out, f)
+dist.destroy_process_group()
+"""
+
+
+def start_ranks(code: str, tmp: str, world: int = RANKS) -> list:
+    """``code`` as ``world`` gloo ranks on the CPU, each a process of its
+    own (one thread) meeting at a ``FileStore`` in ``tmp``."""
+    root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    store = os.path.join(tmp, f"store-{os.urandom(4).hex()}")
+    env = {**os.environ, "PYTHONPATH": root, "WORLD": str(world),
+           "STORE": store, "OMP_NUM_THREADS": "1"}
+    return [subprocess.Popen([sys.executable, "-c", code, tmp],
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                             text=True, env={**env, "RANK": str(r)})
+            for r in range(world)]
+
+
+def finish_ranks(procs: list, timeout: float = 900) -> None:
+    """Waits for the ranks; any still running at ``timeout`` is killed.
+    Raises with the first failing rank's error output."""
+    try:
+        outs = [p.communicate(timeout=timeout) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, (_, err) in zip(procs, outs):
+        if p.returncode:
+            raise RuntimeError(f"a rank exited {p.returncode}: "
+                               f"{err[-3000:]}")
+
+
+def check_steps(timeout: float = 900) -> dict:
+    """The (2, 2) gloo steps of every family and the decode, port against
+    port -> {"distances", "unhandled", "ok", "s"}."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(os.path.join(tmp, "cases.pkl"), "wb") as f:
+            pickle.dump((LR, port_cases()), f)
+        finish_ranks(start_ranks(RANK_WORKER, tmp), timeout)
+        with open(os.path.join(tmp, "out.pkl"), "rb") as f:
+            out = pickle.load(f)
+    unhandled = out.pop("unhandled")
+    dist = distances(out)
+    ok = not unhandled and all(v <= TOL for d in dist.values()
+                               for v in d.values())
+    return {"distances": dist, "unhandled": unhandled, "ok": ok,
+            "s": round(time.perf_counter() - t0, 1)}
+
+
+# ------------------------------------------------------------ traces --- //
+
+def decode_flops(cfg, batch: int, seq: int, data: int, model: int) -> int:
+    """Per-device flops of one decode step of a dense GQA config at
+    ``batch`` rows over ``data`` ranks against a ``seq``-long cache, each
+    weight's and the cache's model-split dimension over ``model`` ranks
+    (heads, or head_dim where the KV heads do not divide it; the FFN; the
+    vocab; the cache's sequence): 2 flops a multiply-add of every matmul
+    and both attention products."""
+    b = batch // data
+    d, hd = cfg.d_model, cfg.hd
+    q, kv = cfg.n_heads * hd, cfg.n_kv_heads * hd
+    layer = 2 * b * d * (q + 2 * kv + q) + 2 * 2 * b * q * seq \
+        + 3 * 2 * b * d * cfg.d_ff
+    return (cfg.n_layers * layer + 2 * b * d * cfg.vocab) // model
+
+
+def _summary(rec: dict) -> dict:
+    keep = {"flops": rec["cost"]["flops"],
+            "temp_bytes": rec["memory"]["temp_size_in_bytes"],
+            "collectives_bytes": rec["collectives_bytes"],
+            "trace_s": rec.get("trace_s")}
+    return keep
+
+
+def moe_step_arch(arch_id: str, batch: int, seq: int, group: int):
+    """The smoke config's ``LMArch`` with its ``train_4k`` cell cut to
+    ``batch`` x ``seq`` tokens in one microbatch, routed in groups of
+    ``group``."""
+    from ..configs import get_arch
+    from ..configs.registry import ShapeCell
+    arch = get_arch(arch_id)
+    cfg = dataclasses.replace(arch.smoke(), moe_group_size=group)
+    arch = type(arch)(arch_id, cfg, accum={"train_4k": 1})
+    arch.shapes["train_4k"] = ShapeCell("train_4k", "train",
+                                        {"batch": batch, "seq": seq})
+    return arch
+
+
+def moe_apply_trace(arch_id: str, dispatch: str, mesh=None,
+                    batch: int = 4, seq: int = 64, group: int = 32) -> dict:
+    """``moe_apply`` alone, forward and backward (the gradients of its
+    params, placed as the params are, and of its input), of the smoke
+    config's MoE layer with ``dispatch`` and groups of ``group`` tokens,
+    on fake (batch, seq, d) tokens split by rows over ``mesh``'s batch
+    axes, under ``analysis.analyze_step``; ``mesh`` None runs it unplaced.
+    The record's ``param_bytes`` are the MoE params' bytes."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from ..configs import get_arch
+    from ..distributed import sharding as shr
+    from ..models.moe import moe_apply, moe_init
+    from ..train import jit_sharded
+    from .analysis import analyze_step
+    from .dryrun import _fake_params, _strided_offsets_on_host
+    arch = get_arch(arch_id)
+    tcfg = dataclasses.replace(arch.smoke(), moe_dispatch=dispatch,
+                               moe_group_size=group)
+    cfg = tcfg.moe_cfg
+    params = moe_init(None, cfg, tcfg.dtype, "meta")
+    names = [n for n, _ in params.named_parameters()]
+
+    def step(p, x):
+        x = x.requires_grad_()
+        loss = moe_apply(p, x, cfg).float().pow(2).sum()
+        return torch.autograd.grad(
+            loss, [q for _, q in p.named_parameters()] + [x])
+
+    with _strided_offsets_on_host(), \
+            FakeTensorMode(allow_non_fake_inputs=True):
+        params = _fake_params(params, "cpu")
+        x = torch.empty((batch, seq, cfg.d_model), dtype=tcfg.dtype)
+        if mesh is None:
+            rec = analyze_step(step, (params, x))
+        else:
+            stacked = shr.transformer_param_specs(
+                tcfg, mesh, type(arch)(arch_id, tcfg).params_shape()
+            )["layers"]["moe"]
+            specs = shr.map_specs(lambda sp: shr.P(*sp[1:]), stacked)
+            xs = shr.P(shr.batch_axes(mesh), None, None)
+            grads = tuple(_spec_of(specs, n) for n in names) + (xs,)
+            fn = jit_sharded(step, mesh, (specs, xs), out_specs=grads,
+                             donate_argnums=())
+            rec = analyze_step(fn.placed, fn.place(params, x))
+    rec.pop("outputs")
+    rec["param_bytes"] = sum(q.numel() * q.element_size()
+                             for q in params.parameters())
+    return rec
+
+
+def _spec_of(specs: dict, name: str):
+    """A parameter's spec by its module name (``shared.w_gate``)."""
+    for k in name.split("."):
+        specs = specs[k]
+    return specs
+
+
+def moe_split(arch_id: str) -> dict:
+    """The smoke train step of ``moe_step_arch`` traced on a fake (1, 1)
+    and a fake (4, 1) mesh -> {"flops": per device on each, "split":
+    their ratio, "collectives_bytes" on (4, 1)}."""
+    from .dryrun import fake_world, trace_cell
+    from .mesh import make_local_mesh
+    arch = moe_step_arch(arch_id, MOE_SPLIT["batch"], MOE_SPLIT["seq"],
+                         MOE_GROUP)
+    recs = {}
+    for n in (1, 4):
+        with fake_world(n):
+            recs[n] = trace_cell(arch, "train_4k",
+                                 make_local_mesh(model=1, device="cpu"))
+    return {"flops": [recs[1]["cost"]["flops"], recs[4]["cost"]["flops"]],
+            "split": recs[1]["cost"]["flops"] / recs[4]["cost"]["flops"],
+            "collectives_bytes": recs[4]["collectives_bytes"]}
+
+
+def check_traces() -> dict:
+    """The fake-world traces of ``TRACE_CELLS`` and of qwen3-8b's
+    decode_32k -> {"cells", "decode", "ok", "s"}."""
+    from ..configs import get_arch
+    from .dryrun import dryrun_cell
+    t0 = time.perf_counter()
+    cells, ok = {}, True
+    for arch_id, shape, multi in TRACE_CELLS:
+        key = f"{arch_id}/{shape}/{'multi' if multi else 'single'}"
+        try:
+            cells[key] = _summary(dryrun_cell(arch_id, shape, multi))
+        except Exception as e:                    # noqa: BLE001 — reported
+            cells[key] = {"error": f"{type(e).__name__}: {e}"[:600]}
+            ok = False
+    rec = dryrun_cell("qwen3-8b", "decode_32k", False)
+    arch = get_arch("qwen3-8b")
+    dims = arch.shapes["decode_32k"].dims
+    want = decode_flops(arch.cfg, dims["batch"], dims["seq"],
+                        rec["mesh_shape"]["data"], rec["mesh_shape"]["model"])
+    decode = {**_summary(rec), "shape_count": want,
+              "ratio": rec["cost"]["flops"] / want}
+    ok = ok and abs(decode["ratio"] - 1) <= DECODE_TOL
+    return {"cells": cells, "decode": decode, "ok": ok,
+            "s": round(time.perf_counter() - t0, 1)}
+
+
+def check_moe() -> dict:
+    """``moe_split`` of both MoE archs -> {arch: its record, "ok", "s"}."""
+    t0 = time.perf_counter()
+    out = {a: moe_split(a) for a in ("mixtral-8x7b", "deepseek-v2-236b")}
+    out["ok"] = all(abs(m["split"] / 4 - 1) <= SPLIT_TOL
+                    for m in out.values())
+    out["s"] = round(time.perf_counter() - t0, 1)
+    return out
+
+
+PARTS = {"steps": check_steps, "traces": check_traces, "moe": check_moe}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--part", choices=[*PARTS, "all"], default="all")
+    args = ap.parse_args(argv)
+    import torch
+    out = {"torch": torch.__version__}
+    for part, check in PARTS.items():
+        if args.part in (part, "all"):
+            out[part] = check()
+    ok = all(out[k]["ok"] for k in PARTS if k in out)
+    out["ok"] = ok
+    print(json.dumps(out, default=float))
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -277,6 +277,29 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # ------------------------------------------------------------ attention -- //
 
 
+def einsum(equation: str, *operands) -> torch.Tensor:
+    """``torch.einsum``; on DTensors (a step placed by
+    ``train.jit_sharded``) the port's own plan,
+    ``train.steps.placed_einsum``, which places the whole einsum and
+    its gradients the same way on every torch, where autograd would
+    first lower it to views and ``bmm`` for DTensor to place."""
+    from torch.distributed.tensor import DTensor
+    if any(isinstance(o, DTensor) for o in operands):
+        from ..train.steps import placed_einsum
+        return placed_einsum(equation, *operands)
+    return torch.einsum(equation, *operands)
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b``; on DTensors the einsum it is, on the port's own plan
+    (``einsum``)."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(a, DTensor) or isinstance(b, DTensor):
+        from ..train.steps import placed_matmul
+        return placed_matmul(a, b)
+    return a @ b
+
+
 def attention_scores_mask(q_pos: torch.Tensor, k_pos: torch.Tensor,
                           window: Optional[int] = None) -> torch.Tensor:
     """(..., Sq, Sk) bool mask: causal, optionally sliding-window."""
@@ -297,10 +320,10 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """
     d = q.shape[-1]
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
-    scores = _wide(torch.einsum("bqhgd,bkhd->bhgqk", q, k)) * scale
+    scores = _wide(einsum("bqhgd,bkhd->bhgqk", q, k)) * scale
     scores = scores.masked_fill(~mask[:, None, None, :, :], _NEG)
     probs = torch.softmax(scores, dim=-1)
-    return torch.einsum("bhgqk,bkhd->bqhgd", probs.to(v.dtype), v)
+    return einsum("bhgqk,bkhd->bqhgd", probs.to(v.dtype), v)
 
 
 def flash_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -346,7 +369,7 @@ def flash_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             ki = k[:, j * kb:(j + 1) * kb]                # (B,kb,Kv,D)
             vi = v[:, j * kb:(j + 1) * kb]
             kpi = k_pos_p[:, j * kb:(j + 1) * kb]
-            s = _wide(torch.einsum("bqhgd,bkhd->bhgqk", qi, ki)) * scale
+            s = _wide(einsum("bqhgd,bkhd->bhgqk", qi, ki)) * scale
             msk = ((qpi[:, :, None] >= kpi[:, None, :])
                    & (kpi >= 0)[:, None, :])
             if window is not None:
@@ -356,7 +379,7 @@ def flash_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             p = torch.exp(s - m_new[..., None])
             corr = torch.exp(m - m_new)
             l = l * corr + p.sum(-1)
-            acc = acc * corr[..., None] + torch.einsum(
+            acc = acc * corr[..., None] + einsum(
                 "bhgqk,bkhd->bhgqd", p.to(vi.dtype), vi).to(wide)
             m = m_new
         out = acc / torch.clamp(l, min=1e-30)[..., None]  # (B,Kv,G,qb,Dv)
@@ -413,8 +436,8 @@ def swiglu_init(gen, d_model: int, d_ff: int, dtype, device=None
 
 
 def swiglu_apply(p, x: torch.Tensor) -> torch.Tensor:
-    g = torch.nn.functional.silu(x @ p["w_gate"])
-    return (g * (x @ p["w_up"])) @ p["w_down"]
+    g = torch.nn.functional.silu(matmul(x, p["w_gate"]))
+    return matmul(g * matmul(x, p["w_up"]), p["w_down"])
 
 
 # ------------------------------------------------ weighted cross entropy -- //

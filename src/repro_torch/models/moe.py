@@ -7,7 +7,7 @@ densely, and the reference's two dispatches, selected per config:
     (tokens, E, capacity), the classic formulation;
   * ``sort`` — token copies stably sorted by expert, written into an
     (E, C, d) buffer, one grouped einsum per weight, added back to their
-    tokens (``index_add``).
+    tokens (``scatter_add``).
 
 Both drop the (token, slot) pairs past an expert's capacity
 ``max(4, ceil(T·k·cf / E))`` over the T tokens routed together, and
@@ -29,7 +29,8 @@ from typing import NamedTuple
 
 import torch
 
-from .layers import Params, _wide, fan_in_init, swiglu_apply, swiglu_init
+from .layers import (Params, _wide, einsum, fan_in_init, matmul,
+                     swiglu_apply, swiglu_init)
 
 
 class MoEConfig(NamedTuple):
@@ -66,7 +67,7 @@ def _route(params, x, cfg: MoEConfig):
     ``torch.topk`` promises no order among ties, so the top k are the
     first k of a stable descending sort: the same ids in the same order,
     ties included."""
-    logits = _wide(x) @ _wide(params["router"])               # (..., T, E)
+    logits = matmul(_wide(x), _wide(params["router"]))        # (..., T, E)
     probs = torch.softmax(logits, dim=-1)
     w, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
     w, ids = w[..., :cfg.top_k], ids[..., :cfg.top_k]
@@ -84,9 +85,9 @@ def _experts(params, xin):
     """(n, E, C, d) expert inputs -> (n, E, C, d) outputs: every expert's
     swiglu on its C slots, one grouped einsum per weight."""
     g = torch.nn.functional.silu(
-        torch.einsum("necd,edf->necf", xin, params["w_gate"]))
-    u = torch.einsum("necd,edf->necf", xin, params["w_up"])
-    return torch.einsum("necf,efd->necd", g * u, params["w_down"])
+        einsum("necd,edf->necf", xin, params["w_gate"]))
+    u = einsum("necd,edf->necf", xin, params["w_up"])
+    return einsum("necf,efd->necd", g * u, params["w_down"])
 
 
 # ------------------------------------------------ einsum (GShard) path -- //
@@ -105,20 +106,24 @@ def _moe_einsum(params, x, cfg: MoEConfig):
     # the reference's one_hot(where(keep, pos, -1), C): a -1 is a zero row
     pos_oh = (pos[..., None] == torch.arange(C, device=x.device)) \
         & keep[..., None]                                     # (n,T,k,E,C)
-    disp = torch.einsum("ntke,ntkec->ntec", onehot.to(x.dtype),
+    disp = einsum("ntke,ntkec->ntec", onehot.to(x.dtype),
                         pos_oh.to(x.dtype))
     wide = w.dtype
-    comb = torch.einsum("ntke,ntkec,ntk->ntec", onehot.to(wide),
+    comb = einsum("ntke,ntkec,ntk->ntec", onehot.to(wide),
                         pos_oh.to(wide), w).to(x.dtype)
-    xin = torch.einsum("ntec,ntd->necd", disp, x)             # all-to-all
+    xin = einsum("ntec,ntd->necd", disp, x)             # all-to-all
     out_e = _experts(params, xin)
-    return torch.einsum("ntec,necd->ntd", comb, out_e)        # all-to-all
+    return einsum("ntec,necd->ntd", comb, out_e)        # all-to-all
 
 
 # --------------------------------------------------- sort-based path --- //
 
 def _moe_sort(params, x, cfg: MoEConfig):
-    """x (n, T, d): n groups of T tokens -> (n, T, d)."""
+    """x (n, T, d): n groups of T tokens -> (n, T, d). The group axis n is
+    a batch dimension of every op, as the reference's ``vmap`` has it:
+    each group's tokens are gathered, its (E·C + 1, d) buffer written and
+    its tokens' outputs added back along dim 1, so that a split of the
+    groups (over "data") stays a split through the dispatch."""
     n, T, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
     C = _capacity(T, cfg)
@@ -131,9 +136,9 @@ def _moe_sort(params, x, cfg: MoEConfig):
     e_sorted = torch.gather(flat_e, 1, order)
     t_sorted = order // k                        # repeat(arange(T), k)[order]
     w_sorted = torch.gather(flat_w, 1, order)
-    # the buffers are made with ``new_zeros`` (their source's tensor type)
-    # and written out of place, so under ``jit_sharded`` they are DTensors
-    # and each write is a DTensor op whose result DTensor places itself
+    # the buffers are made with ``new_zeros`` (their source's tensor type),
+    # so under ``jit_sharded`` they are DTensors and each write is a
+    # DTensor op whose result DTensor places itself
     counts = flat_e.new_zeros((n, E)).scatter_add(1, flat_e,
                                                   torch.ones_like(flat_e))
     starts = torch.cumsum(counts, dim=1) - counts
@@ -143,16 +148,16 @@ def _moe_sort(params, x, cfg: MoEConfig):
     # the reference writes a dropped pair to slot E·C with mode="drop":
     # here one spare row per group takes them and is never read
     slot = torch.where(keep, e_sorted * C + rank, E * C)      # (n,T*k)
-    base = torch.arange(n, device=x.device)[:, None]
-    tok = (base * T + t_sorted).reshape(-1)                   # into (n·T, d)
-    buf = x.new_zeros((n * (E * C + 1), d)).index_put(
-        ((base * (E * C + 1) + slot).reshape(-1),), x.reshape(n * T, d)[tok])
-    xin = buf.reshape(n, E * C + 1, d)[:, :E * C].reshape(n, E, C, d)
-    out_e = _experts(params, xin).reshape(n * E * C, d)
-    src = (base * (E * C) + torch.where(keep, slot, 0)).reshape(-1)
-    gathered = out_e[src] * (w_sorted * keep).to(x.dtype).reshape(-1, 1)
-    out = x.new_zeros((n * T, d)).index_add(0, tok, gathered)
-    return out.reshape(n, T, d)
+    rows = (n, T * k, d)
+    tok = t_sorted[..., None].expand(rows)
+    buf = x.new_zeros((n, E * C + 1, d)).scatter(
+        1, slot[..., None].expand(rows), torch.gather(x, 1, tok))
+    xin = buf[:, :E * C].reshape(n, E, C, d)
+    out_e = _experts(params, xin).reshape(n, E * C, d)
+    src = torch.where(keep, slot, 0)[..., None].expand(rows)
+    gathered = torch.gather(out_e, 1, src) * (w_sorted * keep).to(
+        x.dtype)[..., None]
+    return x.new_zeros((n, T, d)).scatter_add(1, tok, gathered)
 
 
 # ----------------------------------------------------------- public ---- //

@@ -37,8 +37,9 @@ from torch import nn
 from ..core.device import resolve_device
 from ..dedup.pipeline import unique_gather
 from .gnn import gather_rows
-from .layers import (LayerList, Params, _wide, as_torch_dtype, fan_in_init,
-                     mlp_apply, mlp_init, normal_init, zeros_init)
+from .layers import (LayerList, Params, _wide, as_torch_dtype, einsum,
+                     fan_in_init, mlp_apply, mlp_init, normal_init,
+                     zeros_init)
 
 WIDE_ROWS = 1 << 20            # the wide tower's shared hashed table
 _GOLDEN = 0x9E3779B9
@@ -130,8 +131,8 @@ def _cin_apply(ws, x0: torch.Tensor) -> torch.Tensor:
     xl = x0
     pooled = []
     for w in ws:
-        z = torch.einsum("bhd,bfd->bhfd", xl, x0)         # outer product
-        xl = torch.einsum("bhfd,ohf->bod", z, w)
+        z = einsum("bhd,bfd->bhfd", xl, x0)         # outer product
+        xl = einsum("bhfd,ohf->bod", z, w)
         pooled.append(xl.sum(-1))                         # sum over D
     return torch.cat(pooled, -1)
 
@@ -154,7 +155,7 @@ def _dot_interaction(emb: torch.Tensor, bot: torch.Tensor) -> torch.Tensor:
     """DLRM: pairwise dots of the F+1 feature vectors, lower triangle in
     row-major order (``jnp.tril_indices(n, k=-1)``'s)."""
     z = torch.cat([bot[:, None, :], emb], 1)             # (B, F+1, D)
-    dots = torch.einsum("bid,bjd->bij", z, z)
+    dots = einsum("bid,bjd->bij", z, z)
     n = z.shape[1]
     ii, jj = torch.tril_indices(n, n, offset=-1, device=z.device)
     return dots[:, ii, jj]                                # (B, n(n-1)/2)

@@ -49,9 +49,9 @@ from torch import nn
 
 from ..core.device import resolve_device
 from .layers import (_NEG, LayerList, Params, _wide, apply_rope,
-                     as_torch_dtype, attention_scores_mask, fan_in_init,
-                     flash_sdpa, normal_init, rmsnorm, sdpa, swiglu_apply,
-                     swiglu_init, weighted_xent)
+                     as_torch_dtype, attention_scores_mask, einsum,
+                     fan_in_init, flash_sdpa, matmul, normal_init, rmsnorm,
+                     sdpa, swiglu_apply, swiglu_init, weighted_xent)
 from .moe import MoEConfig, moe_apply, moe_init
 
 
@@ -173,9 +173,9 @@ def _attn_init(cfg: TransformerConfig, gen, device) -> Params:
 def _gqa_qkv(p, cfg: TransformerConfig, x, positions):
     """-> q (B,S,Kv,G,hd), k (B,S,Kv,hd), v (B,S,Kv,hd)."""
     H, Kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = torch.einsum("bsd,dhe->bshe", x, p["wq"])         # (B,S,H,hd)
-    k = torch.einsum("bsd,dke->bske", x, p["wk"])
-    v = torch.einsum("bsd,dke->bske", x, p["wv"])
+    q = einsum("bsd,dhe->bshe", x, p["wq"])         # (B,S,H,hd)
+    k = einsum("bsd,dke->bske", x, p["wk"])
+    v = einsum("bsd,dke->bske", x, p["wv"])
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"])
         k = rmsnorm(k, p["k_norm"])
@@ -197,10 +197,10 @@ def _expand_kv(cfg: TransformerConfig, q, k, v):
 def _mla_q(p, cfg: TransformerConfig, x, positions):
     """-> q_nope (B,S,H,nope), q_pe (B,S,H,rope)."""
     if cfg.q_lora_rank:
-        q = rmsnorm(x @ p["wq_a"], p["q_norm"])
-        q = torch.einsum("bsl,lhe->bshe", q, p["wq_b"])
+        q = rmsnorm(matmul(x, p["wq_a"]), p["q_norm"])
+        q = einsum("bsl,lhe->bshe", q, p["wq_b"])
     else:
-        q = torch.einsum("bsd,dhe->bshe", x, p["wq"])
+        q = einsum("bsd,dhe->bshe", x, p["wq"])
     q_nope = q[..., :cfg.qk_nope_dim]
     q_pe = apply_rope(q[..., cfg.qk_nope_dim:], positions, cfg.rope_theta)
     return q_nope, q_pe
@@ -209,7 +209,7 @@ def _mla_q(p, cfg: TransformerConfig, x, positions):
 def _mla_latent(p, cfg: TransformerConfig, x, positions):
     """-> c_kv (B,S,c) normalized latent, k_pe (B,S,rope) shared-rope
     key."""
-    kv = x @ p["wkv_a"]                                   # (B,S,c+r)
+    kv = matmul(x, p["wkv_a"])                           # (B,S,c+r)
     c_kv = rmsnorm(kv[..., :cfg.kv_lora_rank], p["kv_norm"])
     k_pe = apply_rope(kv[..., None, cfg.kv_lora_rank:],   # 1 shared "head"
                       positions, cfg.rope_theta)[..., 0, :]
@@ -220,7 +220,7 @@ def _mla_kv_heads(p, cfg: TransformerConfig, c_kv, k_pe):
     """Per-head K/V materialized from the latent (train, prefill, naive
     decode): k (B,S,H,nope+rope), v (B,S,H,vd)."""
     nope = cfg.qk_nope_dim
-    kvb = torch.einsum("bsc,che->bshe", c_kv, p["wkv_b"])  # (B,S,H,nope+vd)
+    kvb = einsum("bsc,che->bshe", c_kv, p["wkv_b"])  # (B,S,H,nope+vd)
     k_nope, v = kvb[..., :nope], kvb[..., nope:]
     H = k_nope.shape[2]
     k = torch.cat([k_nope, k_pe[:, :, None, :].expand(
@@ -242,7 +242,7 @@ def _mla_attention(p, cfg: TransformerConfig, x, positions, k_positions,
     ctx = sdpa(q.reshape(B, Sq, H, 1, -1), k, v, mask,
                scale=_mla_scale(cfg))
     ctx = ctx.reshape(B, Sq, H, cfg.v_head_dim)
-    return torch.einsum("bqhv,hvd->bqd", ctx, p["wo"])
+    return einsum("bqhv,hvd->bqd", ctx, p["wo"])
 
 
 def _mla_attention_absorbed(p, cfg: TransformerConfig, x, positions, c_kv,
@@ -253,15 +253,15 @@ def _mla_attention_absorbed(p, cfg: TransformerConfig, x, positions, c_kv,
     nope = cfg.qk_nope_dim
     w_k = p["wkv_b"][..., :nope]                          # (c,H,nope)
     w_v = p["wkv_b"][..., nope:]                          # (c,H,vd)
-    q_lat = torch.einsum("bqhn,chn->bqhc", q_nope, w_k)
-    scores = _wide(torch.einsum("bqhc,bkc->bhqk", q_lat, c_kv)
-                   + torch.einsum("bqhr,bkr->bhqk", q_pe, k_pe)
+    q_lat = einsum("bqhn,chn->bqhc", q_nope, w_k)
+    scores = _wide(einsum("bqhc,bkc->bhqk", q_lat, c_kv)
+                   + einsum("bqhr,bkr->bhqk", q_pe, k_pe)
                    ) * _mla_scale(cfg)
     scores = scores.masked_fill(~mask[:, None, :, :], _NEG)
     probs = torch.softmax(scores, dim=-1).to(x.dtype)
-    ctx_lat = torch.einsum("bhqk,bkc->bqhc", probs, c_kv)
-    ctx = torch.einsum("bqhc,chv->bqhv", ctx_lat, w_v)
-    return torch.einsum("bqhv,hvd->bqd", ctx, p["wo"])
+    ctx_lat = einsum("bhqk,bkc->bqhc", probs, c_kv)
+    ctx = einsum("bqhc,chv->bqhv", ctx_lat, w_v)
+    return einsum("bqhv,hvd->bqd", ctx, p["wo"])
 
 
 def _attn_apply(p, cfg: TransformerConfig, x, positions):
@@ -277,14 +277,14 @@ def _attn_apply(p, cfg: TransformerConfig, x, positions):
                          positions, positions, cfg.sliding_window,
                          _mla_scale(cfg), cfg.attn_q_block, cfg.attn_k_block)
         ctx = ctx.reshape(B, S, cfg.n_heads, cfg.v_head_dim)
-        return torch.einsum("bqhv,hvd->bqd", ctx, p["wo"])
+        return einsum("bqhv,hvd->bqd", ctx, p["wo"])
     q, k, v = _gqa_qkv(p, cfg, x, positions)
     if cfg.gqa_expand_kv:
         q, k, v = _expand_kv(cfg, q, k, v)
     out = flash_sdpa(q, k, v, positions, positions, cfg.sliding_window,
                      None, cfg.attn_q_block, cfg.attn_k_block)
     out = out.reshape(B, S, cfg.n_heads, cfg.hd)
-    return torch.einsum("bshe,hed->bsd", out, p["wo"])
+    return einsum("bshe,hed->bsd", out, p["wo"])
 
 
 # ------------------------------------------------------------- layer ----- //
@@ -411,7 +411,7 @@ def forward(cfg: TransformerConfig, params, tokens, weights=None):
     x = _embed(params, inp)
     x = _stack_apply(cfg, params, x, positions)
     x = rmsnorm(x, params["final_norm"])
-    logits = torch.einsum("bsd,dv->bsv", x, params["lm_head"])
+    logits = einsum("bsd,dv->bsv", x, params["lm_head"])
     if weights is None:
         weights = torch.ones((B,), dtype=torch.float32,
                              device=tokens.device)
@@ -494,7 +494,7 @@ def _layer_decode(cfg: TransformerConfig, p, cache_l: dict, x, pos,
         else:
             out = sdpa(q, k_l, v_l, mask)
         out = out.reshape(B, 1, cfg.n_heads, cfg.hd)
-        out = torch.einsum("bshe,hed->bsd", out, p["attn"]["wo"])
+        out = einsum("bshe,hed->bsd", out, p["attn"]["wo"])
     x = x + out
     h2 = rmsnorm(x, p["ffn_norm"])
     return x + _ffn_apply(p, cfg, h2, moe)
@@ -513,7 +513,7 @@ def decode_step(cfg: TransformerConfig, params, cache: dict, token, pos):
         x = _layer_decode(cfg, lp, {n: c[i] for n, c in cache.items()},
                           x, pos, moe)
     x = rmsnorm(x, params["final_norm"])
-    return torch.einsum("bsd,dv->bsv", x, params["lm_head"])[:, 0], cache
+    return einsum("bsd,dv->bsv", x, params["lm_head"])[:, 0], cache
 
 
 @torch.inference_mode()
@@ -527,4 +527,4 @@ def prefill(cfg: TransformerConfig, params, tokens):
     x = _embed(params, tokens)
     x = _stack_apply(cfg, params, x, positions)
     x = rmsnorm(x, params["final_norm"])
-    return torch.einsum("bsd,dv->bsv", x, params["lm_head"])
+    return einsum("bsd,dv->bsv", x, params["lm_head"])

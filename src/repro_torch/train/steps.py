@@ -283,7 +283,13 @@ def _register_rules() -> None:
       * ``aten.constant_pad_nd`` (``flash_sdpa``'s padding of its query
         and key blocks): torch 2.11's rule gives its output one
         placement whatever the mesh's rank; the rule here keeps each
-        dimension that is not padded split as it was.
+        dimension that is not padded split as it was;
+      * ``aten.scatter`` and ``aten.scatter_add`` (the sort dispatch's
+        expert buffer and combine, the backward of ``aten.gather``):
+        each dimension other than the scattered one that the three
+        operands share whole may stay split in all three, a local
+        scatter per rank (the group axis of the MoE dispatch over
+        "data"), as the gather rule keeps it for the gather.
 
     The ops that need more than a placement rule go to handlers that
     ``_sharding_handlers`` installs only while a placed step runs."""
@@ -310,23 +316,46 @@ def _register_rules() -> None:
                 for d in range(x.ndim) if d not in padded]
         return out
 
-    _RULES.extend((gather_rule, pad_rule))
+    def scatter_rule(x, dim, index, src, *rest):
+        dim %= x.ndim
+        tail = [None] * len(rest)
+        out = [([Replicate()], [Replicate(), None, Replicate(), Replicate()]
+                + tail)]
+        out += [([Shard(d)], [Shard(d), None, Shard(d), Shard(d)] + tail)
+                for d in range(x.ndim)
+                if d != dim and x.shape[d] == index.shape[d] == src.shape[d]]
+        return out
+
+    for op in (aten.scatter.src, aten.scatter_add.default):
+        register_sharding(op)(scatter_rule)
+    _RULES.extend((gather_rule, pad_rule, scatter_rule))
 
 
 def _handlers() -> dict:
-    """{aten op: handler} for the ops DTensor's dispatch gets wrong for
-    the port's steps:
+    """{aten op: handler} for the ops whose placement the port decides
+    itself, the same on every torch it was checked against, rather than
+    through DTensor's own per-version strategy (torch 2.11 has none, or a
+    wrong one, for several of them):
 
-      * ``aten.index_put_`` into a DTensor split along an indexed
-        dimension (the decode cache's slot write, its batch over "data"
-        and its sequence over "model"): DTensor has no in-place rule for
-        it, so ``_sharded_index_put`` writes each rank's own entries;
-      * ``aten.embedding`` from a table split by rows (the vocab over
-        "model"): DTensor leaves the rows a masked partial sum whose mask
-        it frees at its first reduction, so a second reader of the same
-        rows (the residual and the norm of the first layer) fails;
-        ``_reduced_embedding`` reduces them at once (the all-reduce of
-        the looked-up rows that the reference's partitioner makes);
+      * ``aten.index_select`` (``gnn.gather_rows``: node states by edge,
+        table rows by id), ``aten.index_add`` / ``index_add_`` (the GNN's
+        scatter-sum and the gather's backward) and ``aten.index_put`` /
+        ``index_put_`` (the decode cache's slot writes, an indexing's
+        backward with ``accumulate``): ``_sharded_index_select``,
+        ``_sharded_index_add``, ``_sharded_index_put``, each a local op
+        per rank between explicit redistributions;
+      * ``aten.matmul`` where it reaches DTensor whole (under inference
+        mode; autograd lowers it otherwise): ``_planned_matmul``, the
+        einsum it is on ``plan_einsum``'s plan (the models' einsums call
+        ``placed_einsum`` themselves, ``models.layers.einsum``);
+      * ``aten.embedding`` (the token embedding: rows over "model", a
+        big model's features over "data"): ``_sharded_embedding``, the
+        index_select it is, so that the looked-up rows keep the ids'
+        batch split (DTensor's own rule leaves them split by features
+        where the table is, and every later op of the step then holds
+        the whole batch) and the rows' partial sums over a split vocab
+        are reduced at once (the all-reduce of the looked-up rows that
+        the reference's partitioner makes);
       * the bitwise operators ``&``, ``|`` and ``^`` (``aten.__and__``
         and the others; the attention masks, the wide crosses): DTensor
         takes them for in-place ops by their trailing underscore, and
@@ -337,10 +366,18 @@ def _handlers() -> dict:
         redistributed (GQA's 32 query heads over "model" 16 regrouped as
         8 KV heads x 4; the flattening of a strided shard in the gradient
         of deepseek's MoE groups); ``_view_or_gather`` redistributes the
-        input as DTensor's rule for a reshape asks first."""
+        input as DTensor's rule for a reshape asks first.
+
+    None of them reads data, and no shape depends on it: they run on the
+    dry run's fake tensors as on real ones."""
     aten = torch.ops.aten
     out = {aten.index_put_.default: _sharded_index_put,
-           aten.embedding.default: _reduced_embedding,
+           aten.index_put.default: _sharded_index_put,
+           aten.index_add.default: _sharded_index_add,
+           aten.index_add_.default: _sharded_index_add,
+           aten.index_select.default: _sharded_index_select,
+           aten.matmul.default: _planned_matmul,
+           aten.embedding.default: _sharded_embedding,
            aten.view.default: _view_or_gather,
            aten._unsafe_view.default: _view_or_gather}
     for name, fn in (("__and__", torch.bitwise_and),
@@ -415,14 +452,16 @@ def _as_function(fn, op_call, args, kwargs):
     return fn(*args, **kwargs)
 
 
-def _reduced_embedding(op_call, args, kwargs):
-    """``aten.embedding`` with any partial sum in its output reduced."""
-    from torch.distributed.tensor import Replicate
-    out = _dispatch_unhandled(op_call, args, kwargs)
-    if any(pl.is_partial() for pl in out.placements):
-        out = out.redistribute(placements=[
-            Replicate() if pl.is_partial() else pl for pl in out.placements])
-    return out
+def _sharded_embedding(op_call, args, kwargs):
+    """``aten.embedding(table, ids)`` as ``_sharded_index_select`` of the
+    ids' rows, shaped as the ids (its backward stays autograd's
+    ``embedding_dense_backward``)."""
+    table, ids = args[:2]
+    mesh = _mesh_of(table, ids)
+    ids = _as_dtensor(ids, mesh)
+    rows = _sharded_index_select(torch.ops.aten.index_select.default,
+                                 (table, 0, ids.reshape(-1)), {})
+    return rows.view(*ids.shape, table.shape[-1])
 
 
 def _resolved(shape, numel: int) -> tuple:
@@ -516,9 +555,7 @@ def _view_or_gather(op_call, args, kwargs):
     from torch.distributed.tensor import DTensor
     x = args[0]
     if any(_splits(pl) for pl in x.placements):
-        want = _view_placements(x, args[1])
-        if want != tuple(x.placements):
-            x = x.redistribute(placements=want)
+        x = _placed_as(x, _view_placements(x, args[1]))
     local = x._local_tensor
     if not local.is_contiguous() and (
             any(_splits(pl) for pl in x.placements)
@@ -530,58 +567,501 @@ def _view_or_gather(op_call, args, kwargs):
     return _dispatch_unhandled(op_call, (x, *args[1:]), kwargs)
 
 
+# ----------------------------------------- the port's own placements --- //
+
+def _as_dtensor(t, mesh):
+    """A plain tensor as a replicated DTensor on ``mesh`` (every rank
+    holds the same: the step made it); a DTensor as it is."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if isinstance(t, DTensor):
+        return t
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def _mesh_of(*xs):
+    from torch.distributed.tensor import DTensor
+    return next(x.device_mesh for x in xs if isinstance(x, DTensor))
+
+
+def _plain_placements(t) -> list:
+    """``t``'s placements with each split that is not a plain ``Shard``
+    (a ``_StridedShard``, left by a view that flattened a split
+    dimension behind another) as ``Replicate``: the handlers below work
+    out offsets for plain splits only."""
+    from torch.distributed.tensor import Replicate, Shard
+    return [Replicate() if isinstance(pl, Shard) and type(pl) is not Shard
+            else pl for pl in t.placements]
+
+
+def _placed_as(t, pls):
+    """``t`` redistributed to ``pls`` (the collectives DTensor runs for
+    it, which the analysis counts), or ``t`` where it is placed so. With
+    no graph to record (inference mode), a ``t`` that requires grad (a
+    parameter) is redistributed detached: torch 2.11's autograd would
+    detach the result in place, an op DTensor has no strategy for
+    there."""
+    pls = tuple(pls)
+    if tuple(t.placements) == pls:
+        return t
+    if t.requires_grad and not torch.is_grad_enabled():
+        t = t.detach()
+    return t.redistribute(t.device_mesh, pls)
+
+
+def _wrap(local, mesh, pls, shape):
+    """A DTensor of global ``shape`` from each rank's ``local`` part."""
+    from torch.distributed.tensor import DTensor
+    shape = torch.Size(shape)
+    return DTensor.from_local(local, mesh, tuple(pls), run_check=False,
+                              shape=shape, stride=_contiguous_strides(shape))
+
+
+def _split_dim(pl, ndim: int):
+    """The tensor dimension a placement splits, or None."""
+    from torch.distributed.tensor import Shard
+    return pl.dim % ndim if isinstance(pl, Shard) else None
+
+
+def _extent(shape, pls, mesh) -> tuple:
+    """(local shape, global offset) of this rank's part of a tensor of
+    ``shape`` under ``pls`` (a partial part is whole)."""
+    return shard_extent(tuple(shape), pls, tuple(mesh.mesh.shape),
+                        mesh.get_coordinate())
+
+
+def _own_rows(idx, dim: int, lshape, offset):
+    """Global indices into dimension ``dim`` as indices into this rank's
+    part (``offset``, ``lshape``): -> (local indices, where one falls
+    outside the part 0, whether it falls inside)."""
+    t = idx - offset[dim]
+    inside = (t >= 0) & (t < lshape[dim])
+    return torch.where(inside, t, 0), inside
+
+
+def _along(mask, dim: int, ndim: int):
+    """A 1-D mask shaped to broadcast along ``dim`` of an ``ndim`` tensor."""
+    return mask.reshape([-1 if d == dim else 1 for d in range(ndim)])
+
+
+def _sharded_index_select(op_call, args, kwargs):
+    """``self.index_select(dim, index)`` on DTensors, per mesh dimension:
+
+      * index split, ``self``'s rows whole there: each rank looks up its
+        own indices; the output is split as the index is;
+      * ``self``'s rows split (a table over "model"), the index whole
+        there: each rank looks up the rows it holds, zeros for the
+        others, and the partial sums are reduced at once (the all-reduce
+        of the looked-up rows that the reference's partitioner makes);
+      * both split (a graph's node states and its edges over the same
+        mesh dimensions): whichever of ``self`` and the index-and-output
+        moves fewer bytes is made whole first, the node states for a
+        graph (an all-gather), the ids for a table;
+      * ``self`` split along another dimension (a big model's table by
+        features over "data"): the output split as ``self`` is, or,
+        where the index is split there too, ``self`` made whole there (an
+        FSDP gather), the output split as the index is."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    self_, dim, index = args[:3]
+    mesh = _mesh_of(self_, index)
+    self_, index = _as_dtensor(self_, mesh), _as_dtensor(index, mesh)
+    nd = self_.ndim
+    dim %= nd
+    sp, ip = _plain_placements(self_), _plain_placements(index)
+    row_bytes = self_.numel() // max(1, self_.shape[dim]) * \
+        self_.element_size()
+    gather_self = self_.numel() * self_.element_size() <= \
+        index.numel() * (row_bytes + index.element_size())
+    out_p = []
+    for j in range(mesh.ndim):
+        if sp[j].is_partial():
+            sp[j] = Replicate()
+        s_dim = _split_dim(sp[j], nd)
+        i_split = isinstance(ip[j], Shard)
+        if s_dim == dim and i_split:
+            if gather_self:
+                sp[j] = Replicate()
+            else:
+                ip[j] = Replicate()
+        elif s_dim is not None and s_dim != dim and i_split:
+            sp[j] = Replicate()
+        s_dim = _split_dim(sp[j], nd)
+        out_p.append(Partial() if s_dim == dim else sp[j] if s_dim is not None
+                     else Shard(dim) if isinstance(ip[j], Shard)
+                     else Replicate())
+    self_n, index_n = _placed_as(self_, sp), _placed_as(index, ip)
+    local, li = self_n._local_tensor, index_n._local_tensor.long()
+    shape = list(self_.shape)
+    shape[dim] = index.shape[0]
+    if any(_split_dim(pl, nd) == dim for pl in sp):
+        lshape, off = _extent(self_.shape, sp, mesh)
+        li, inside = _own_rows(li, dim, lshape, off)
+        out = torch.where(_along(inside, dim, nd),
+                          local.index_select(dim, li), 0)
+    else:
+        out = local.index_select(dim, li)
+    out = _wrap(out, mesh, out_p, shape)
+    return _placed_as(out, [Replicate() if pl.is_partial() else pl
+                            for pl in out_p])
+
+
+def _sharded_index_add(op_call, args, kwargs):
+    """``self.index_add(dim, index, source, alpha)`` (and ``index_add_``)
+    on DTensors, per mesh dimension:
+
+      * source rows (and the index) split along ``dim`` (a split graph's
+        edges, a split batch's looked-up rows): each rank adds its rows
+        into zeros whole along ``dim``, a partial sum, reduced into
+        ``self``'s placement at once (an all-reduce, or a reduce-scatter
+        where ``self`` is split) — the collective that the reference's
+        partitioner makes for a ``segment_sum`` over split rows;
+      * ``self``'s rows split (a table's gradient over "model"), source
+        whole there: each rank adds the entries whose index falls in its
+        rows, zeros at its first row for the others;
+      * ``self`` and source split alike along another dimension: a local
+        ``index_add``;
+    any other placement is first redistributed into one of these (the
+    index and the source are what move)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    in_place = op_call is torch.ops.aten.index_add_.default
+    self_, dim, index, src = args[:4]
+    alpha = args[4] if len(args) > 4 else kwargs.get("alpha", 1)
+    mesh = _mesh_of(self_, index, src)
+    self_, index, src = (_as_dtensor(t, mesh) for t in (self_, index, src))
+    nd = self_.ndim
+    dim %= nd
+    sp, xp, ip, wp = (_plain_placements(self_), _plain_placements(src),
+                      [], [])
+    for j in range(mesh.ndim):
+        if sp[j].is_partial():
+            if in_place:
+                raise NotImplementedError(
+                    f"{op_call} into a partial sum ({self_.placements})")
+            sp[j] = Replicate()
+        s, x = sp[j], xp[j]
+        x_dim = _split_dim(x, nd)
+        if x_dim == dim or x.is_partial():
+            w = Partial()
+        elif x_dim is not None and (s == x or (s.is_replicate()
+                                               and not in_place)):
+            s = w = x
+        else:
+            s_dim = _split_dim(s, nd)
+            x = s if s_dim is not None and s_dim != dim else Replicate()
+            w = s
+        sp[j], xp[j] = s, x
+        wp.append(w)
+        ip.append(Shard(0) if _split_dim(x, nd) == dim else Replicate())
+    self_n = _placed_as(self_, sp)
+    if in_place and self_n is not self_:
+        raise NotImplementedError(f"{op_call} into {self_.placements}")
+    li = _placed_as(index, ip)._local_tensor.long()
+    ls = _placed_as(src, xp)._local_tensor
+    if alpha != 1:
+        ls = ls * alpha
+    lshape, off = _extent(self_.shape, wp, mesh)
+    if any(_split_dim(pl, nd) == dim for pl in wp):
+        li, inside = _own_rows(li, dim, lshape, off)
+        ls = torch.where(_along(inside, dim, nd), ls, 0)
+    if not any(pl.is_partial() for pl in wp):
+        if in_place:
+            self_n._local_tensor.index_add_(dim, li, ls)
+            return self_
+        return _wrap(self_n._local_tensor.index_add(dim, li, ls), mesh, sp,
+                     self_.shape)
+    part = _wrap(ls.new_zeros(lshape).index_add_(dim, li, ls), mesh, wp,
+                 self_.shape)
+    part = _placed_as(part, sp)
+    return self_n.add_(part) if in_place else self_n + part
+
+
 def _sharded_index_put(op_call, args, kwargs):
-    """``self.index_put_(indices, values)`` (no accumulate) where ``self``
-    is a DTensor split along an indexed dimension: the indices and values
-    made whole (all-gathers of a few entries), each index shifted into
-    this rank's shard, and the entries outside it written as duplicates
-    of an entry inside it (or, with none inside, of the value already at
-    the shard's first position), so every write stays a plain local
-    ``index_put_`` with no data-dependent shape. Any other case goes to
-    DTensor's own dispatch."""
-    from torch.distributed.tensor import DTensor, Shard
+    """``self.index_put(indices, values, accumulate)`` (and
+    ``index_put_``) on DTensors, for indices of one run of dimensions
+    (leading ``None``s allowed), per mesh dimension:
+
+      * ``self`` split along a dimension that is not indexed: the values
+        split alike, the indices whole, a local write;
+      * ``self`` split along an indexed dimension (the decode cache's
+        batch over "data", its sequence over "model"): the indices and
+        values made whole (all-gathers of a few entries), each index
+        shifted into this rank's part, and an entry outside it written as
+        a zero added (``accumulate``) or as a duplicate of an entry
+        inside it (or, with none inside, of the value already at the
+        part's first position);
+      * with ``accumulate``, values split along the indexed entries (an
+        indexing's backward over a split batch): each rank adds its
+        entries into zeros, a partial sum reduced into ``self``'s
+        placement;
+      * anything else: the values and indices made whole."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    aten = torch.ops.aten
+    in_place = op_call is aten.index_put_.default
     self_, indices, values = args[:3]
     accumulate = args[3] if len(args) > 3 else kwargs.get("accumulate",
                                                           False)
-    split = {pl.dim % self_.ndim for pl in self_.placements
-             if isinstance(pl, Shard)}
-    if (accumulate or any(i is None for i in indices)
-            or not split & set(range(len(indices)))):
-        return _dispatch_unhandled(op_call, args, kwargs)
+    idx = list(indices)
+    while idx and idx[-1] is None:
+        idx.pop()
+    lead = 0
+    while lead < len(idx) and idx[lead] is None:
+        lead += 1
+    block = idx[lead:]
+    if not block or any(t is None for t in block):
+        raise NotImplementedError(
+            f"{op_call}: indices other than one run of dimensions")
+    mesh = _mesh_of(self_, values, *block)
+    self_, values = _as_dtensor(self_, mesh), _as_dtensor(values, mesh)
+    block = [_as_dtensor(t, mesh) for t in block]
+    nd, r = self_.ndim, len(block)
+    bshape = tuple(torch.broadcast_shapes(*(t.shape for t in block)))
+    nb = len(bshape)
+    shape = tuple(self_.shape)
+    vshape = shape[:lead] + bshape + shape[lead + r:]
+    if tuple(values.shape) != vshape:
+        values = values.expand(vshape)
+    nv = len(vshape)
 
-    def whole(t):
-        return t.full_tensor() if isinstance(t, DTensor) else t
+    def indexed(d):
+        return lead <= d < lead + r
 
-    local = self_._local_tensor
-    shape = self_.shape
-    mesh = self_.device_mesh
-    lshape, offset = shard_extent(shape, self_.placements, mesh.mesh.shape,
-                                  mesh.get_coordinate())
-    idx = torch.broadcast_tensors(*(whole(i).long() for i in indices))
-    n, lead = len(idx), idx[0].dim()
-    vals = whole(values).to(local.dtype).expand(*idx[0].shape, *shape[n:])
-    for d in range(n, self_.ndim):               # the value's own shard
-        vals = vals.narrow(lead + d - n, offset[d], lshape[d])
-    inside, li = None, []
-    for d, t in enumerate(idx):
-        t = torch.where(t < 0, t + shape[d], t) - offset[d]
-        ok = (t >= 0) & (t < lshape[d])
-        inside = ok if inside is None else inside & ok
-        li.append(t.reshape(-1))
-    inside = inside.reshape(-1)
-    vals = vals.reshape(-1, *vals.shape[lead:])
-    any_in = inside.any()
-    # index tensors of one entry throughout: a 0-d index would be read
-    # back to the host as a Python int
-    first = inside.to(torch.int8).argmax().reshape(1)
-    pivot = [torch.where(any_in, t.index_select(0, first), 0) for t in li]
-    pivot_val = torch.where(any_in, vals.index_select(0, first),
-                            local[tuple(pivot)])
-    keep = inside.reshape(-1, *([1] * (vals.dim() - 1)))
-    local.index_put_(tuple(torch.where(inside, t, p)
-                           for t, p in zip(li, pivot)),
-                     torch.where(keep, vals, pivot_val))
-    return self_
+    def vdim(d):                    # a dimension of self's in the values
+        return d if d < lead else d - r + nb
+
+    even = all(tuple(t.shape) == bshape for t in block)
+    sp, vp = _plain_placements(self_), _plain_placements(values)
+    ip, wp = [], []
+    for j in range(mesh.ndim):
+        if sp[j].is_partial():
+            if in_place:
+                raise NotImplementedError(
+                    f"{op_call} into a partial sum ({self_.placements})")
+            sp[j] = Replicate()
+        s, v = sp[j], vp[j]
+        s_dim, v_dim = _split_dim(s, nd), _split_dim(v, nv)
+        i, w = Replicate(), s
+        if s_dim is not None:
+            v = Shard(vdim(s_dim)) if not indexed(s_dim) else Replicate()
+        elif accumulate and even and v_dim is not None and \
+                lead <= v_dim < lead + nb:
+            i, w = Shard(v_dim - lead), Partial()
+        elif accumulate and v.is_partial():
+            w = Partial()
+        elif v_dim is not None and not lead <= v_dim < lead + nb \
+                and not in_place:
+            s = w = Shard(v_dim if v_dim < lead else v_dim - nb + r)
+        else:
+            v = Replicate()
+        sp[j], vp[j] = s, v
+        ip.append(i)
+        wp.append(w)
+    self_n = _placed_as(self_, sp)
+    if in_place and self_n is not self_:
+        raise NotImplementedError(f"{op_call} into {self_.placements}")
+    lv = _placed_as(values, vp)._local_tensor.to(self_.dtype)
+    li = list(torch.broadcast_tensors(
+        *(_placed_as(t, ip)._local_tensor.long() for t in block)))
+    lshape, off = _extent(shape, wp, mesh)
+    inside = None
+    for p, t in enumerate(li):
+        d = lead + p
+        t = torch.where(t < 0, t + shape[d], t)
+        if any(_split_dim(pl, nd) == d for pl in wp):
+            t, ok = _own_rows(t, d, lshape, off)
+            inside = ok if inside is None else inside & ok
+        li[p] = t
+    if inside is not None and accumulate:
+        li = [torch.where(inside, t, 0) for t in li]
+        lv = torch.where(inside.reshape((1,) * lead + inside.shape
+                                        + (1,) * (nv - lead - nb)), lv, 0)
+    if any(pl.is_partial() for pl in wp):
+        buf = lv.new_zeros(lshape)
+        aten.index_put_.default(buf, [None] * lead + li, lv, True)
+        part = _placed_as(_wrap(buf, mesh, wp, shape), sp)
+        return self_n.add_(part) if in_place else self_n + part
+    local = self_n._local_tensor if in_place else \
+        self_n._local_tensor.clone()
+    if inside is not None and not accumulate:
+        if lead:
+            raise NotImplementedError(
+                f"{op_call}: a write into a split indexed dimension "
+                f"behind {lead} whole ones")
+        # index tensors of one entry throughout: a 0-d index would be
+        # read back to the host as a Python int
+        inside = inside.reshape(-1)
+        li = [t.reshape(-1) for t in li]
+        lv = lv.reshape(-1, *lv.shape[nb:])
+        any_in = inside.any()
+        first = inside.to(torch.int8).argmax().reshape(1)
+        pivot = [torch.where(any_in, t.index_select(0, first), 0)
+                 for t in li]
+        pivot_val = torch.where(any_in, lv.index_select(0, first),
+                                local[tuple(pivot)])
+        keep = inside.reshape(-1, *([1] * (lv.dim() - 1)))
+        li = [torch.where(inside, t, p) for t, p in zip(li, pivot)]
+        lv = torch.where(keep, lv, pivot_val)
+    aten.index_put_.default(local, [None] * lead + li, lv, accumulate)
+    return self_ if in_place else _wrap(local, mesh, sp, shape)
+
+
+def _einsum_terms(equation: str, n: int) -> tuple:
+    """(input terms, output term) of an explicit einsum equation of ``n``
+    operands, each letter once per term, no ellipsis."""
+    lhs, arrow, out_t = equation.replace(" ", "").partition("->")
+    terms = lhs.split(",")
+    if not arrow or "." in equation or len(terms) != n or \
+            any(len(set(t)) != len(t) for t in terms + [out_t]):
+        raise NotImplementedError(f"einsum {equation!r} on DTensors")
+    return terms, out_t
+
+
+def plan_einsum(equation: str, operands):
+    """``torch.einsum(equation, *operands)`` on DTensors, on a plan the
+    port makes itself, per mesh dimension: of the letters some operand
+    holds split there (and every operand holds at one size), the one
+    whose plan moves the fewest bytes stays split in every operand that
+    holds it, so that no rank computes another's share. An operand whole
+    there is cut for free; one split on another letter moves by an
+    all-to-all (holding the letter) or an all-gather; a partial sum is reduced; a summed letter leaves
+    the output a partial sum, whose reduction counts as its bytes. An
+    operand that is a partial sum passes through as a partial output
+    where no other operand is placed on that mesh dimension. Each rank
+    then runs the einsum on its parts. DTensor would place the einsum's
+    lowering (views and ``bmm``) instead, each torch version its own
+    way, and a view keeps a split only on the outer dimension it
+    flattens: the heads behind a split batch are gathered and every
+    "model" rank computes all of them."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    operands = list(operands)
+    terms, out_t = _einsum_terms(equation, len(operands))
+    mesh = _mesh_of(*operands)
+    ops = [_as_dtensor(o, mesh) for o in operands]
+    pls = [_plain_placements(o) for o in ops]
+    sizes = {}
+    for t, o in zip(terms, ops):
+        for c, n in zip(t, o.shape):
+            sizes.setdefault(c, set()).add(n)
+    nbytes = [o.numel() * o.element_size() for o in ops]
+    out_bytes = math.prod(max(sizes[c]) for c in out_t) * max(
+        o.element_size() for o in ops)
+    out_p = []
+    for j in range(mesh.ndim):
+        placed = [i for i, p in enumerate(pls) if not p[j].is_replicate()]
+        if len(placed) == 1 and pls[placed[0]][j].is_partial():
+            out_p.append(Partial())
+            continue
+        n = mesh.size(j)
+
+        def cost(letter):
+            c = 0 if letter in out_t else out_bytes
+            for t, p, b in zip(terms, pls, nbytes):
+                d = _split_dim(p[j], len(t))
+                if p[j].is_partial():
+                    c += b
+                elif d is not None and t[d] != letter:
+                    c += b / n if letter in t else b * (n - 1) / n
+            return c
+
+        candidates = list(dict.fromkeys(
+            t[d] for t, p in zip(terms, pls)
+            for d in [_split_dim(p[j], len(t))]
+            if d is not None and len(sizes[t[d]]) == 1))
+        letter = min(candidates, key=cost) if candidates else ""
+        for t, p in zip(terms, pls):
+            p[j] = Shard(t.index(letter)) if letter and letter in t \
+                else Replicate()
+        out_p.append(Replicate() if not letter else
+                     Shard(out_t.index(letter)) if letter in out_t
+                     else Partial())
+    local = torch.einsum(equation, *(_placed_as(o, p)._local_tensor
+                                     for o, p in zip(ops, pls)))
+    return _wrap(local, mesh, out_p, [max(sizes[c]) for c in out_t])
+
+
+class _PlannedEinsum(torch.autograd.Function):
+    """``plan_einsum`` with its backward: each operand's gradient the
+    einsum of the output's gradient with the other operands, on the same
+    kind of plan (a letter that only that operand holds is summed in the
+    forward, so its gradient is the same along it)."""
+
+    @staticmethod
+    def forward(ctx, equation, *operands):
+        ctx.terms, ctx.out_t = _einsum_terms(equation, len(operands))
+        ctx.save_for_backward(*operands)
+        return plan_einsum(equation, operands)
+
+    @staticmethod
+    def backward(ctx, grad):
+        ops, terms, out_t = ctx.saved_tensors, ctx.terms, ctx.out_t
+        grads = []
+        for i, t in enumerate(terms):
+            if not ctx.needs_input_grad[1 + i]:
+                grads.append(None)
+                continue
+            others = [j for j in range(len(terms)) if j != i]
+            present = set(out_t).union(*(terms[j] for j in others))
+            kept = "".join(c for c in t if c in present)
+            g = plan_einsum(",".join([out_t] + [terms[j] for j in others])
+                            + "->" + kept, [grad] + [ops[j] for j in others])
+            if kept != t:
+                for d, c in enumerate(t):
+                    if c not in present:
+                        g = g.unsqueeze(d)
+                g = g.expand(ops[i].shape)
+            grads.append(g)
+        return (None, *grads)
+
+
+def _replicated(operands) -> bool:
+    """Whether no operand is split or a partial sum over more than one
+    rank."""
+    from torch.distributed.tensor import DTensor
+    return all(not isinstance(o, DTensor) or all(
+        pl.is_replicate() or o.device_mesh.size(j) == 1
+        for j, pl in enumerate(o.placements)) for o in operands)
+
+
+def placed_einsum(equation: str, *operands):
+    """``plan_einsum``, differentiable where autograd records (a placed
+    train step) — what ``models.layers.einsum`` runs on DTensors. Where
+    nothing is split (a one-rank mesh) there is nothing to plan: the
+    einsum runs as the unplaced step runs it, gradients and all, so the
+    two agree bit for bit."""
+    if _replicated(operands):
+        return torch.einsum(equation, *operands)
+    if torch.is_grad_enabled() and any(o.requires_grad for o in operands):
+        return _PlannedEinsum.apply(equation, *operands)
+    return plan_einsum(equation, operands)
+
+
+def _matmul_equation(a, b) -> str:
+    """``a @ b`` as an einsum equation: ``b`` a matrix or a vector, or a
+    batch of matrices of ``a``'s batch shape."""
+    letters = "abcdefghijlopqrstuvwxyz"          # none of m, k, n
+    if a.dim() == 0 or b.dim() == 0 or b.dim() > 2 and (
+            a.dim() != b.dim() or a.shape[:-2] != b.shape[:-2]):
+        raise NotImplementedError(
+            f"matmul of {tuple(a.shape)} and {tuple(b.shape)} on DTensors")
+    batch = letters[:max(a.dim(), b.dim()) - 2]
+    ta = batch[:a.dim() - 2] + ("mk" if a.dim() > 1 else "k")
+    tb = (batch if b.dim() > 2 else "") + ("kn" if b.dim() > 1 else "k")
+    to = batch + ("m" if a.dim() > 1 else "") + ("n" if b.dim() > 1 else "")
+    return f"{ta},{tb}->{to}"
+
+
+def placed_matmul(a, b):
+    """``a @ b`` as ``placed_einsum`` of the einsum it is — what
+    ``models.layers.matmul`` runs on DTensors (as ``a @ b`` where nothing
+    is split)."""
+    if _replicated((a, b)):
+        return a @ b
+    return placed_einsum(_matmul_equation(a, b), a, b)
+
+
+def _planned_matmul(op_call, args, kwargs):
+    """``a @ b`` where it reaches DTensor whole (inference mode), on
+    ``plan_einsum``'s plan."""
+    return plan_einsum(_matmul_equation(*args[:2]), args[:2])
 
 
 @contextlib.contextmanager

@@ -95,6 +95,23 @@ for name, rec in (("decode", dryrun.dryrun_cell("qwen3-8b", "decode_32k",
                   ("dedup", dryrun.dedup_dryrun(False))):
     out[name] = {k: rec[k] for k in ("memory", "n_chips", "mesh_shape",
                                      "collectives_counts", "kind")}
+    out[name]["flops"] = rec["cost"]["flops"]
+# moe_apply alone, forward and backward, both dispatches, unplaced and on
+# fake (4, 1) and (2, 2) meshes: its token groups split over "data"
+from repro_torch.launch import meshcheck
+out["moe"] = {}
+for disp in ("sort", "einsum"):
+    rec = {"plain": meshcheck.moe_apply_trace("mixtral-8x7b", disp)}
+    for model in (1, 2):
+        with dryrun.fake_world(4):
+            rec[f"4x{model}" if model == 1 else "2x2"] = \
+                meshcheck.moe_apply_trace("mixtral-8x7b", disp,
+                                          make_local_mesh(model=model,
+                                                          device="cpu"))
+    out["moe"][disp] = {k: {"flops": r["cost"]["flops"],
+                            "collectives_bytes": r["collectives_bytes"],
+                            "param_bytes": r["param_bytes"]}
+                        for k, r in rec.items()}
 print(json.dumps(out))
 """
 
@@ -221,6 +238,41 @@ def test_decode_cell_argument_bytes_equal_the_reference(fake_runs):
         want += _shard_bytes(mesh, sd.shape, sd.dtype, spec)
     assert rec["memory"]["argument_size_in_bytes"] == want
     assert rec["memory"]["temp_size_in_bytes"] > 0
+
+
+def test_decode_cell_flops_equal_the_shape_count(fake_runs):
+    """qwen3-8b's decode_32k per device on the (16, 16) mesh: the flops
+    of its matmuls and both attention products with the batch over
+    "data" and the heads (head_dim where the 8 KV heads do not divide
+    16), the FFN, the vocab and the cache's sequence over "model", within
+    1% (torch 2.13 counted its einsums' propagation at the global shapes,
+    inference mode hid its matmuls)."""
+    cfg = j_get_arch("qwen3-8b").cfg
+    b, s = 128 // 16, 32768
+    d, hd = cfg.d_model, cfg.head_dim
+    q, kv = cfg.n_heads * hd, cfg.n_kv_heads * hd
+    per_layer = (2 * b * d * (2 * q + 2 * kv)       # wq, wo; wk, wv
+                 + 2 * 2 * b * q * s                # q k^T and p v
+                 + 3 * 2 * b * d * cfg.d_ff)         # the SwiGLU
+    want = (cfg.n_layers * per_layer + 2 * b * d * cfg.vocab) / 16
+    got = fake_runs["decode"]["flops"]
+    assert abs(got / want - 1) <= 0.01, (got, want)
+
+
+@pytest.mark.parametrize("dispatch", ["sort", "einsum"])
+def test_moe_apply_splits_its_groups_over_data(fake_runs, dispatch):
+    """mixtral-8x7b's smoke MoE layer forward and backward, 4 x 64 tokens
+    in 8 groups of 32: on a fake (4, 1) mesh each rank does a quarter of
+    the unplaced flops (within 2%) and moves only the params' gradients
+    (one all-reduce of their bytes, no all-gather or all-to-all of
+    activations); on (2, 2) at least half of them."""
+    r = fake_runs["moe"][dispatch]
+    plain, split, both = r["plain"], r["4x1"], r["2x2"]
+    assert abs(plain["flops"] / split["flops"] / 4 - 1) <= 0.02
+    assert set(split["collectives_bytes"]) <= {"all-reduce", "total"}
+    assert split["collectives_bytes"].get("all-reduce", 0) <= \
+        split["param_bytes"]
+    assert both["flops"] <= plain["flops"] / 2
 
 
 def test_dedup_dryrun_argument_bytes_equal_the_reference(fake_runs):
