@@ -227,17 +227,25 @@ memory), and ``compressed_psum`` of the 100m gradients over the mesh's
 "data" group equal bit for bit to the one-rank form of the reference's
 formula (quantize, then dequantize), its error state finite. Last, on
 this machine's CPU by design (the card is not used; its torch is the one
-the checks are for), ``repro_torch.launch.meshcheck``'s three parts as
-three processes at once: the (2, 2) gloo steps of the smoke configs
-(qwen3-8b, qwen3-8b at accumulation 2, mixtral-8x7b, deepseek-v2-236b
-routed in groups, MeshGraphNet, DLRM-RM2) and the sequence-split decode,
-each sharded within 1e-5 of its plain step's max |value| with no
-``index_add`` / ``index_put`` passed on to DTensor's own dispatch; the
-fake-world traces of molecule-meshgraphnet (multi), dlrm-rm2 train_batch
-(single) and serve_p99 (multi), and qwen3-8b's decode_32k, its flops
-within 1% of the count of its shapes and its temp within 10% of
-``MESH_DECODE_TEMP``; the smoke MoE train steps on a fake (4, 1) mesh,
-their flops a 4x split of (1, 1)'s within 2%.
+the checks are for), ``repro_torch.launch.meshcheck``'s five parts as
+five processes at once: the (2, 2) gloo steps of the smoke configs
+(qwen3-8b, qwen3-8b at accumulation 2, qwen3-8b with one KV head — its
+queries regrouped —, mixtral-8x7b, deepseek-v2-236b routed in groups,
+MeshGraphNet, DLRM-RM2) and the sequence-split decode, each sharded
+within 1e-5 of its plain step's max |value| with no ``index_add`` /
+``index_put`` passed on to DTensor's own dispatch; the fake-world traces
+of molecule-meshgraphnet (multi), dlrm-rm2 train_batch (single) and
+serve_p99 (multi), mixtral-8x7b long_500k (multi, its flops within 1%
+of the same cell's on the single mesh, ``meshcheck.TRACE_SAME_FLOPS``),
+and qwen3-8b's decode_32k, its flops within 1% of the count of its
+shapes and its temp within 10% of ``MESH_DECODE_TEMP``; the smoke MoE
+train steps on a fake (4, 1) mesh, their flops a 4x split of (1, 1)'s
+within 2%; the GQA analogs (8 query heads, 2 KV heads) of mixtral-8x7b
+and qwen3-8b on a fake (1, 4) mesh, their attention split 4x with
+nothing of the queries gathered (``meshcheck.attention_sublayer_ok``)
+and their steps' flops within 5% of the reference's plan; and the
+per-layer count of three smoke cells equal to their full-depth traces
+(every additive term, temp within 5%).
 
 Then the "graph_recsys" phase: GNN and recsys (``repro_torch.models.gnn``
 and ``.recsys``), fp32 with TF32 off, weights from the port's seeded init.
@@ -478,6 +486,7 @@ MOE_LOCKSTEP = ("deepseek-v2-236b", 4, 40, 2)   # the MoE card-vs-CPU check:
 MESH_STEPS = 2                   # steps of each form from one state
 MESH_TOL = 1e-5                  # sharded vs plain, of max |value|
 MESH_CHECK_TIMEOUT = 600         # s, each part of repro_torch.launch.meshcheck
+MESH_CHECK_PARTS = ("steps", "traces", "moe", "attention", "depth")
 MESH_DECODE_TEMP = 69683264      # qwen3-8b decode_32k temp bytes per device
                                  # under torch 2.13 (PERF.md, section 6)
 MESH_DECODE_TEMP_TOL = 0.10
@@ -3108,7 +3117,7 @@ def phase_mesh(card, kept):
 
 
 def mesh_checks_on_cpu() -> dict:
-    """``repro_torch.launch.meshcheck``'s three parts, each a process of
+    """``repro_torch.launch.meshcheck``'s five parts, each a process of
     its own (the steps' four gloo ranks theirs), all at once on this
     machine's CPU with no card visible: the sharding checks run under
     this machine's torch, port against port. Fails on any miss."""
@@ -3119,7 +3128,7 @@ def mesh_checks_on_cpu() -> dict:
         [sys.executable, "-m", "repro_torch.launch.meshcheck", "--part",
          part], cwd=ROOT, env=env, stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True)
-        for part in ("steps", "traces", "moe")}
+        for part in MESH_CHECK_PARTS}
     res, errs = {}, {}
     try:
         for part, p in procs.items():
@@ -3133,7 +3142,8 @@ def mesh_checks_on_cpu() -> dict:
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    steps, traces, moe = res["steps"], res["traces"], res["moe"]
+    steps, traces, moe, attn, depth = (res.get(p, {})
+                                       for p in MESH_CHECK_PARTS)
     import torch
     log(f"[mesh] on this machine's CPU, by design (torch {torch.__version__}"
         f"; no card): the (2, 2) gloo steps, sharded vs plain, largest "
@@ -3148,11 +3158,20 @@ def mesh_checks_on_cpu() -> dict:
         f"{temp} B against {MESH_DECODE_TEMP} ({traces.get('s')} s)")
     log(f"[mesh] the smoke MoE train steps, fake (1, 1) -> (4, 1): "
         f"{ {a: moe[a] for a in moe if a not in ('ok', 's')} } "
-        f"({moe.get('s')} s); the three parts at once "
+        f"({moe.get('s')} s)")
+    log(f"[mesh] the GQA analogs on a fake (1, 4) mesh (attention flops "
+        f"plain and split, its all-gather against K and V's bytes, the "
+        f"step's flops against the reference's plan): "
+        f"{ {a: attn[a] for a in attn if a not in ('ok', 's')} } "
+        f"({attn.get('s')} s)")
+    log(f"[mesh] the per-layer count against full-depth traces of the "
+        f"smoke cells (terms that differ; temp ratio): "
+        f"{ {c: depth[c] for c in depth if c not in ('ok', 's')} } "
+        f"({depth.get('s')} s); the five parts at once "
         f"{time.perf_counter() - t0:.1f} s")
     temp_ok = abs(temp / MESH_DECODE_TEMP - 1) <= MESH_DECODE_TEMP_TOL
-    if errs or not (steps.get("ok") and traces.get("ok") and moe.get("ok")
-                    and temp_ok):
+    if errs or not (all(r.get("ok") for r in (steps, traces, moe, attn,
+                                               depth)) and temp_ok):
         raise AssertionError(f"mesh: the CPU sharding checks failed: "
                              f"{errs or 'a check missed'}")
     return res

@@ -11,6 +11,8 @@ the full sequence, 4 passes (forward, its recompute, twice in the
 backward); and the bound on its all-gathers of parameters split over
 "data" (FSDP): 3 x accumulation x their bytes per device once gathered,
 one gather per use in the forward, its recompute and the backward.
+For a prefill cell, the count of its shapes as ``lm_prefill_count``
+makes it. The cell is traced at full depth (``--layers`` cuts it).
 Computed from shapes on the host, never measured.
 
     PYTHONPATH=src python scripts/dryrun_breakdown.py --arch mixtral-8x7b \\
@@ -30,23 +32,68 @@ from repro_torch.launch import analysis, dryrun
 from repro_torch.launch.mesh import make_production_mesh
 
 
-def lm_train_count(arch, n_chips: int) -> float:
+def lm_train_count(arch, n_chips: int, as_computed: bool = False) -> float:
     """The count of a train cell's shapes per device of ``n_chips`` (see
-    the module's docstring)."""
+    the module's docstring). ``as_computed``: as both packages compute
+    it instead — the routed experts at their capacity slots (E·C a
+    group of g tokens of a microbatch, C = max(4, ceil(g k cf / E))) and
+    each attention product in 5 passes (the forward, the layer's remat,
+    the blocked attention's own checkpoint — per Q block in the port,
+    per KV step in the reference — and 2 in the backward)."""
+    from repro_torch.models.moe import _capacity
     cfg = arch.cfg
+    dims = arch.shapes["train_4k"].dims
+    T = dims["batch"] // arch.accum.get("train_4k", 1) * dims["seq"]
+    g = cfg.moe_group_size if cfg.is_moe and cfg.moe_group_size and \
+        T > cfg.moe_group_size and T % cfg.moe_group_size == 0 else T
     active = 0
     for name, p in arch.params_shape().named_parameters():
         if p.dim() < 2 or "embed" in name:
             continue
         n = p.numel()
         if "moe" in name and "shared" not in name and "router" not in name:
-            n = n * cfg.moe_top_k // cfg.n_experts
+            n = n * _capacity(g, cfg.moe_cfg) / g if as_computed else \
+                n * cfg.moe_top_k // cfg.n_experts
         active += n
-    dims = arch.shapes["train_4k"].dims
     qk, v = ((cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.v_head_dim)
              if cfg.use_mla else (cfg.hd, cfg.hd))
-    attn = 4 * 2 * dims["seq"] * cfg.n_heads * (qk + v) * cfg.n_layers
+    passes = 5 if as_computed else 4
+    attn = passes * 2 * dims["seq"] * cfg.n_heads * (qk + v) * cfg.n_layers
     return (8 * active + attn) * dims["batch"] * dims["seq"] / n_chips
+
+
+def lm_prefill_count(arch, n_chips: int, shape: str = "prefill_32k"
+                     ) -> float:
+    """The count of a prefill cell's shapes per device of ``n_chips``: 2
+    flops a multiply-add of every weight each token passes through (the
+    lm_head at every position; the routed experts at their capacity
+    slots, E·C a group of g tokens with C = max(4, ceil(g k cf / E)), as
+    both packages' dispatch runs them; the embedding's lookup not a
+    matmul), plus the attention's two products over every (q_block,
+    k_block) tile that both packages' ``flash_sdpa`` computes, masked or
+    not: the padded sequence squared, per head and layer."""
+    from repro_torch.models.moe import _capacity
+    cfg = arch.cfg
+    dims = arch.shapes[shape].dims
+    B, S = dims["batch"], dims["seq"]
+    T = B * S
+    g = cfg.moe_group_size if cfg.is_moe and cfg.moe_group_size and \
+        T > cfg.moe_group_size and T % cfg.moe_group_size == 0 else T
+    per_token = 0
+    for name, p in arch.params_shape().named_parameters():
+        if p.dim() < 2 or "embed" in name:
+            continue
+        n = p.numel()
+        if ".moe." in name and "shared" not in name and \
+                "router" not in name:
+            n = n * _capacity(g, cfg.moe_cfg) / g
+        per_token += n
+    qk, v = ((cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.v_head_dim)
+             if cfg.use_mla else (cfg.hd, cfg.hd))
+    qb, kb = min(cfg.attn_q_block, S), min(cfg.attn_k_block, S)
+    pad = (-(-S // qb) * qb, -(-S // kb) * kb)
+    attn = 2 * pad[0] * pad[1] * cfg.n_heads * (qk + v) * cfg.n_layers * B
+    return (2 * per_token * T + attn) / n_chips
 
 
 def fsdp_gather_bound(arch, mesh, shape: str) -> float:
@@ -135,7 +182,7 @@ def main() -> None:
         if args.bound_only:
             print(json.dumps({"fsdp_gather_bound": bound}))
             return
-        rec = dryrun.trace_cell(arch, args.shape, mesh)
+        rec = dryrun.trace_cell(arch, args.shape, mesh, full_depth=True)
     out = {"flops": rec["cost"]["flops"],
            "temp_bytes": rec["memory"]["temp_size_in_bytes"],
            "collectives_bytes": rec["collectives_bytes"],
@@ -144,7 +191,12 @@ def main() -> None:
                          for k, v in flops.most_common(args.top)]}
     if arch.family == "lm" and arch.shapes[args.shape].kind == "train":
         out["shape_count"] = lm_train_count(arch, 512 if multi else 256)
+        out["count_as_computed"] = lm_train_count(
+            arch, 512 if multi else 256, as_computed=True)
         out["fsdp_gather_bound"] = bound
+    if arch.family == "lm" and arch.shapes[args.shape].kind == "prefill":
+        out["shape_count"] = lm_prefill_count(arch, 512 if multi else 256,
+                                              args.shape)
     print(json.dumps(out, indent=1))
 
 

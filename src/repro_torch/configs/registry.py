@@ -101,9 +101,10 @@ class LMArch:
         return shr.transformer_param_specs(self.cfg, mesh,
                                            self.params_shape(), fsdp=fsdp)
 
-    def opt_specs(self, mesh) -> OptState:
-        """ZeRO-1: each moment sharded by ``zero_shard_spec``."""
-        pspecs = self.param_specs(mesh)
+    def opt_specs(self, mesh, fsdp: Optional[bool] = None) -> OptState:
+        """ZeRO-1: each moment sharded by ``zero_shard_spec`` (of the
+        params' specs, FSDP or not as ``param_specs``)."""
+        pspecs = self.param_specs(mesh, fsdp)
         shapes = shr.shape_tree(self.params_shape())
         m_specs = shr.map_specs(
             lambda s, sh: shr.zero_shard_spec(s, sh, mesh), pspecs, shapes)
@@ -150,12 +151,14 @@ class LMArch:
         return {"cache": cache_specs, "token": P(b_ax), "pos": P(b_ax)}
 
     # ------------------------------------------------------------------ //
-    def step(self, shape: str) -> Callable:
+    def step(self, shape: str, update_fn: Optional[Callable] = None
+             ) -> Callable:
         """The cell's step: ``train_step(params, opt_state, tokens,
         weights)`` -> (params, opt_state, metrics) with the cell's
-        gradient accumulation; ``prefill_step(params, tokens)`` ->
-        last-token logits (serving emits those); or ``serve_step(params,
-        cache, token, pos)`` -> (logits, cache)."""
+        gradient accumulation (its update ``update_fn``, by default
+        ``train.steps.apply_updates``); ``prefill_step(params, tokens)``
+        -> last-token logits (serving emits those); or
+        ``serve_step(params, cache, token, pos)`` -> (logits, cache)."""
         cell = self.shapes[shape]
         cfg = self.cfg
         if cell.kind == "train":
@@ -165,8 +168,10 @@ class LMArch:
                 loss, _ = tfm.forward(cfg, params, batch, weights)
                 return loss
 
+            update = {} if update_fn is None else {"update_fn": update_fn}
             return make_train_step(loss_fn, self.opt_config(),
-                                   accum_steps=self.accum.get(shape, 1))
+                                   accum_steps=self.accum.get(shape, 1),
+                                   **update)
         if cell.kind == "prefill":
             def prefill_step(params, tokens):
                 return tfm.prefill(cfg, params, tokens)[:, -1]

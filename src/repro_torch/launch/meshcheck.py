@@ -14,17 +14,26 @@ against the same step unplaced from the same seeded state, and three
 decode steps of a one-KV-head qwen3-8b with the reference's
 sequence-parallel cache; every parameter leaf (logit, cache entry)
 within ``TOL`` of the tree's max |value|, the loss and grad norm within
-``TOL`` of theirs. It also counts the ``index_add`` / ``index_put`` ops
+``TOL`` of theirs. It also counts the index ops, slices and selects
 that went past the port's own handlers to DTensor's dispatch (must be
 none).
 
 ``traces``: on fake process groups, the cells that torch 2.11's DTensor
-refused before the port placed the index ops itself (``TRACE_CELLS``),
-and qwen3-8b's decode_32k against the count of its shapes
-(``decode_flops``). ``moe``: the smoke MoE train steps on a fake (4, 1)
-mesh against (1, 1), whose flops must split 4x (``moe_split``). Each
-part takes about a minute on one core; the three run apart as
-processes of their own (``--part``) where time counts.
+refused before the port placed the index ops itself and mixtral-8x7b's
+long_500k on the multi mesh, which each torch's DTensor read at other
+flops before the port placed the elementwise ops, against the same cell
+on the single mesh (``TRACE_CELLS``, ``TRACE_SAME_FLOPS``), and
+qwen3-8b's decode_32k against the count of its shapes
+(``decode_flops``). ``moe``: the smoke MoE train steps on a fake
+(4, 1) mesh against (1, 1), whose flops must split 4x (``moe_split``).
+``attention``: the GQA analogs of mixtral-8x7b and qwen3-8b (8 query
+heads, 2 KV heads) on a fake (1, 4) mesh: the attention split 4x,
+nothing of the queries gathered, the step's flops against the
+reference's plan (``attention_split``). ``depth``: the dry run's
+per-layer count of ``DEPTH_CELLS`` against their full-depth traces
+(``depth_differences``). Each part takes about a minute on one core;
+they run apart as processes of their own (``--part``) where time
+counts.
 
 Prints one JSON object as its last line; exit 0 when every check
 passes. Nothing here touches a card.
@@ -48,22 +57,49 @@ import numpy as np
 
 # family: (arch id, gradient accumulation steps)
 FAMILIES = {"lm": ("qwen3-8b", 1), "lm_accum": ("qwen3-8b", 2),
+            "lm_gqa": ("qwen3-8b", 1),
             "moe": ("mixtral-8x7b", 1), "moe_grouped": ("deepseek-v2-236b", 1),
             "gnn": ("meshgraphnet", 1), "recsys": ("dlrm-rm2", 1)}
 TOL = 1e-5
 LR = 1e-4
+# the ops whose passing on to DTensor's own dispatch the steps check
+# counts (none may pass): the index ops, slices and selects
+UNHANDLED_WATCHED = ("index_add", "index_put", "index_select", "slice",
+                     "select")
 RANKS, MODEL = 4, 2
 # the cells torch 2.11's DTensor refused (an index_add of split indices,
 # index_put_ with no strategy, index_select over a dimension split twice)
 TRACE_CELLS = (("meshgraphnet", "molecule", True),
                ("dlrm-rm2", "train_batch", False),
-               ("dlrm-rm2", "serve_p99", True))
+               ("dlrm-rm2", "serve_p99", True),
+               ("mixtral-8x7b", "long_500k", True))
+# the cells whose flops per device must equal another cell's, traced in
+# the same part, within TRACE_TOL: the mixtral cell's batch of one splits
+# over no mesh dimension, so the multi mesh's "pod" leaves each device the
+# work it has on the single mesh (torch 2.13 read 4.468e9 flops and 2.11
+# 8.143e9 while DTensor placed the elementwise ops and softmax, each
+# reducing the batch-of-one's partial sums at other ops)
+TRACE_SAME_FLOPS = {"mixtral-8x7b/long_500k/multi": ("mixtral-8x7b",
+                                                     "long_500k", False)}
+TRACE_TOL = 0.01
 # the smoke MoE train step of the split check: batch x seq tokens, routed
 # in groups of MOE_GROUP (128 groups; 32 per "data" rank of 4)
 MOE_SPLIT = {"batch": 64, "seq": 128}
 MOE_GROUP = 64
 SPLIT_TOL = 0.02
 DECODE_TOL = 0.01
+# the smoke GQA analog of the attention check: 8 query heads, 2 KV heads,
+# head_dim 16, so that a "model" split of 4 divides the query heads but
+# not the KV heads, as 16 does mixtral-8x7b's and qwen3-8b's 32 and 8;
+# one microbatch of 16 x 128 tokens in the smoke config's 32-token blocks
+ATTN_HEADS = {"n_heads": 8, "n_kv_heads": 2, "head_dim": 16}
+ATTN_SPLIT = {"batch": 16, "seq": 128}
+# the reference's per-device flops of those steps on a (1, 4) mesh
+# (``scripts/reference_attn_plan.py``: XLA for 4 host devices, Auto axes,
+# loop-aware; computed from shapes, jax 0.9.0)
+REFERENCE_ATTN_FLOPS = {"qwen3-8b": 624951296.0,
+                        "mixtral-8x7b": 587202560.0}
+ATTN_TOL = 0.05
 
 
 def smoke_config(family: str):
@@ -71,9 +107,14 @@ def smoke_config(family: str):
     deepseek-v2-236b's (MLA, shared experts, the dense first layer) with
     8 routed experts and ``moe_group_size`` 20, so that a batch of 4 x 40
     tokens routes in 8 groups, 4 on each "data" rank of 2, and pairs
-    drop (capacity 13 per expert)."""
+    drop (capacity 13 per expert). ``lm_gqa`` is qwen3-8b's with one KV
+    head for its 4 query heads: on "model" 2 the KV heads do not divide
+    the split, so the attention regroups its queries as 2 x 2 and
+    repeats K and V twice (``models.transformer._gqa_factor``)."""
     from ..configs import get_arch
     cfg = get_arch(FAMILIES[family][0]).smoke()
+    if family == "lm_gqa":
+        cfg = dataclasses.replace(cfg, n_kv_heads=1)
     if family == "moe_grouped":
         cfg = dataclasses.replace(cfg, n_experts=8, moe_group_size=20)
     return cfg
@@ -83,7 +124,7 @@ def family_inputs(family: str, cfg) -> dict:
     """The step's inputs as numpy arrays from a fixed seed: ``cfg`` is
     either package's config of the family (only its sizes are read)."""
     rng = np.random.default_rng(11)
-    if family in ("lm", "lm_accum", "moe", "moe_grouped"):
+    if family in ("lm", "lm_accum", "lm_gqa", "moe", "moe_grouped"):
         toks = rng.integers(0, cfg.vocab, (4, 41)).astype(np.int32)
         return {"tokens": toks,
                 "weights": np.array([1.0, 0.0, 0.5, 1.0], np.float32)}
@@ -305,7 +346,8 @@ def run_decode(mesh, case: tuple) -> dict:
 def run_cases(mesh, cases: dict, lr: float) -> dict:
     """What each rank runs: every family of ``cases`` and the decode ->
     {family: run_family's result, "decode": run_decode's, "unhandled":
-    {op: count} of the index ops passed on to DTensor's dispatch}."""
+    {op: count} of the index ops, slices and selects passed on to
+    DTensor's dispatch}."""
     counts = collections.Counter()
     out = {}
     with counting_unhandled(counts):
@@ -313,7 +355,7 @@ def run_cases(mesh, cases: dict, lr: float) -> dict:
             out[family] = (run_decode(mesh, case) if family == "decode"
                            else run_family(mesh, family, case, lr))
     out["unhandled"] = {op: n for op, n in counts.items()
-                        if "index_add" in op or "index_put" in op}
+                        if any(k in op for k in UNHANDLED_WATCHED)}
     return out
 
 
@@ -545,20 +587,33 @@ def moe_split(arch_id: str) -> dict:
             "collectives_bytes": recs[4]["collectives_bytes"]}
 
 
+def _cell_key(arch_id: str, shape: str, multi: bool) -> str:
+    return f"{arch_id}/{shape}/{'multi' if multi else 'single'}"
+
+
 def check_traces() -> dict:
-    """The fake-world traces of ``TRACE_CELLS`` and of qwen3-8b's
-    decode_32k -> {"cells", "decode", "ok", "s"}."""
+    """The fake-world traces of ``TRACE_CELLS``, of the cells that
+    ``TRACE_SAME_FLOPS`` holds them to, and of qwen3-8b's decode_32k ->
+    {"cells", "decode", "ok", "s"}."""
     from ..configs import get_arch
     from .dryrun import dryrun_cell
     t0 = time.perf_counter()
     cells, ok = {}, True
     for arch_id, shape, multi in TRACE_CELLS:
-        key = f"{arch_id}/{shape}/{'multi' if multi else 'single'}"
+        key = _cell_key(arch_id, shape, multi)
         try:
             cells[key] = _summary(dryrun_cell(arch_id, shape, multi))
+            if key in TRACE_SAME_FLOPS:
+                other = _cell_key(*TRACE_SAME_FLOPS[key])
+                cells[other] = _summary(dryrun_cell(*TRACE_SAME_FLOPS[key]))
         except Exception as e:                    # noqa: BLE001 — reported
             cells[key] = {"error": f"{type(e).__name__}: {e}"[:600]}
             ok = False
+            continue
+        if key in TRACE_SAME_FLOPS:
+            want = cells[other]["flops"]
+            cells[key]["expected_flops"] = want
+            ok = ok and abs(cells[key]["flops"] / want - 1) <= TRACE_TOL
     rec = dryrun_cell("qwen3-8b", "decode_32k", False)
     arch = get_arch("qwen3-8b")
     dims = arch.shapes["decode_32k"].dims
@@ -581,7 +636,236 @@ def check_moe() -> dict:
     return out
 
 
-PARTS = {"steps": check_steps, "traces": check_traces, "moe": check_moe}
+# ---------------------------------------------------------- attention --- //
+
+def gqa_config(arch_id: str):
+    """The smoke config of ``arch_id`` with ``ATTN_HEADS``."""
+    from ..configs import get_arch
+    return dataclasses.replace(get_arch(arch_id).smoke(), **ATTN_HEADS)
+
+
+def attention_trace(arch_id: str, mesh=None, batch: int = 4,
+                    seq: int = 64) -> dict:
+    """The attention sublayer alone (``transformer._attn_apply``: the
+    projections, RoPE, the regroup, the blocked attention and the output
+    projection), forward and backward (its params' and its input's
+    gradients), of ``gqa_config(arch_id)`` on fake (batch, seq, d)
+    inputs split by rows over ``mesh``'s batch axes, under
+    ``analysis.analyze_step``; ``mesh`` None runs it unplaced. The
+    record's ``kv_bytes`` are the bytes of K and V (B, S, Kv, hd), what
+    gathering their head_dim moves, ``norm_bytes`` those of the q / k
+    norm scales (qk_norm), whose gradients are gathered from the split
+    head_dim."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from ..configs import get_arch
+    from ..distributed import sharding as shr
+    from ..models import transformer as tfm
+    from ..train import jit_sharded
+    from .analysis import analyze_step
+    from .dryrun import _fake_params, _strided_offsets_on_host
+    cfg = gqa_config(arch_id)
+    params = tfm._attn_init(cfg, None, "meta")
+    # the sublayer's own norm scale is applied before it, by the layer
+    names = [n for n, _ in params.named_parameters() if n != "norm"]
+
+    def step(p, x):
+        x = x.requires_grad_()
+        pos = torch.arange(seq, dtype=torch.int32).expand(batch, seq)
+        loss = tfm._attn_apply(p, cfg, x, pos).float().pow(2).sum()
+        return torch.autograd.grad(loss, [p[n] for n in names] + [x])
+
+    with _strided_offsets_on_host(), \
+            FakeTensorMode(allow_non_fake_inputs=True):
+        params = _fake_params(params, "cpu")
+        x = torch.empty((batch, seq, cfg.d_model), dtype=cfg.dtype)
+        if mesh is None:
+            rec = analyze_step(step, (params, x))
+        else:
+            stacked = shr.transformer_param_specs(
+                cfg, mesh, type(get_arch(arch_id))(arch_id, cfg)
+                .params_shape())["layers"]["attn"]
+            specs = shr.map_specs(lambda sp: shr.P(*sp[1:]), stacked)
+            xs = shr.P(shr.batch_axes(mesh), None, None)
+            grads = tuple(_spec_of(specs, n) for n in names) + (xs,)
+            fn = jit_sharded(step, mesh, (specs, xs), out_specs=grads,
+                             donate_argnums=())
+            rec = analyze_step(fn.placed, fn.place(params, x))
+    rec.pop("outputs")
+    item = torch.finfo(cfg.dtype).bits // 8
+    rec["kv_bytes"] = 2 * batch * seq * cfg.n_kv_heads * cfg.hd * item
+    # the q / k norm scales' gradients, summed over a split head_dim
+    rec["norm_bytes"] = 2 * cfg.hd * 4 if cfg.qk_norm else 0
+    return rec
+
+
+def attention_sublayer_ok(whole: dict, split: dict) -> bool:
+    """Whether the GQA analog's attention sublayer (``attention_trace``)
+    split over "model" 4 does a quarter of its flops whole and gathers
+    K and V's head_dim and at most the q / k norm scales' gradients
+    besides (no query)."""
+    gathered = split["collectives_bytes"].get("all-gather", 0)
+    return whole["cost"]["flops"] == 4 * split["cost"]["flops"] and \
+        split["kv_bytes"] <= gathered <= \
+        split["kv_bytes"] + split["norm_bytes"]
+
+
+def gqa_step_arch(arch_id: str):
+    """``gqa_config``'s ``LMArch`` with its ``train_4k`` cell cut to
+    ``ATTN_SPLIT`` in one microbatch (``scripts/reference_attn_plan.py``
+    compiles the reference's)."""
+    from ..configs import get_arch
+    from ..configs.registry import ShapeCell
+    arch = type(get_arch(arch_id))(arch_id, gqa_config(arch_id),
+                                   accum={"train_4k": 1})
+    arch.shapes["train_4k"] = ShapeCell("train_4k", "train",
+                                        dict(ATTN_SPLIT))
+    return arch
+
+
+def attention_split(arch_id: str) -> dict:
+    """The GQA analog's attention sublayer (``attention_trace``) and its
+    whole smoke train step (``gqa_step_arch``) on fake (1, 1) and (1, 4)
+    meshes -> {"attn_flops": per device on each, "attn_split",
+    "attn_all_gather": its all-gather bytes on (1, 4), "kv_bytes",
+    "attn_ok": ``attention_sublayer_ok``, "flops": the step's on each,
+    "reference_flops", "collectives_bytes" and "temp_bytes" on (1, 4)}."""
+    from .dryrun import fake_world, trace_cell
+    from .mesh import make_local_mesh
+    attn, steps = {}, {}
+    arch = gqa_step_arch(arch_id)
+    for n in (1, 4):
+        with fake_world(n):
+            mesh = make_local_mesh(model=n, device="cpu")
+            attn[n] = attention_trace(arch_id, mesh)
+            steps[n] = trace_cell(arch, "train_4k", mesh)
+    a1, a4 = attn[1]["cost"]["flops"], attn[4]["cost"]["flops"]
+    return {"attn_flops": [a1, a4], "attn_split": a1 / a4,
+            "attn_all_gather": attn[4]["collectives_bytes"].get(
+                "all-gather", 0),
+            "kv_bytes": attn[4]["kv_bytes"] + attn[4]["norm_bytes"],
+            "attn_ok": attention_sublayer_ok(attn[1], attn[4]),
+            "flops": [steps[1]["cost"]["flops"], steps[4]["cost"]["flops"]],
+            "reference_flops": REFERENCE_ATTN_FLOPS[arch_id],
+            "collectives_bytes": steps[4]["collectives_bytes"],
+            "temp_bytes": steps[4]["memory"]["temp_size_in_bytes"]}
+
+
+def check_attention() -> dict:
+    """``attention_split`` of mixtral-8x7b's and qwen3-8b's GQA analogs:
+    the attention split 4x, nothing gathered but K and V's head_dim and
+    the norm scales' gradients (``attention_sublayer_ok``), the step's
+    flops on (1, 4) within ``ATTN_TOL`` of the reference's -> {arch: its
+    record, "ok", "s"}."""
+    t0 = time.perf_counter()
+    out = {a: attention_split(a) for a in ("mixtral-8x7b", "qwen3-8b")}
+    out["ok"] = all(
+        m["attn_ok"]
+        and abs(m["flops"][1] / m["reference_flops"] - 1) <= ATTN_TOL
+        for m in out.values())
+    out["s"] = round(time.perf_counter() - t0, 1)
+    return out
+
+
+# -------------------------------------------------------------- depth --- //
+
+# the smoke cells of the per-layer count's check, each at DEPTH_LAYERS
+# layers on a fake (2, 2) mesh: (arch id, cell, its dims, config changes,
+# gradient accumulation). deepseek-v2-236b's has its dense first layer;
+# the prefill runs 256 tokens in 32-token blocks, 8 x 8 tiles a layer
+DEPTH_CELLS = {
+    "qwen3-8b/train_4k": ("qwen3-8b", "train_4k", {"batch": 8, "seq": 32},
+                          {}, 2),
+    "deepseek-v2-236b/train_4k": ("deepseek-v2-236b", "train_4k",
+                                  {"batch": 8, "seq": 32}, {}, 1),
+    "qwen3-8b/prefill_32k": ("qwen3-8b", "prefill_32k",
+                             {"batch": 4, "seq": 256},
+                             {"attn_q_block": 32, "attn_k_block": 32}, 1)}
+DEPTH_LAYERS = 4
+TEMP_TOL = 0.05
+
+
+def depth_arch(name: str):
+    """``DEPTH_CELLS[name]``'s ``LMArch`` at ``DEPTH_LAYERS`` layers."""
+    from ..configs import get_arch
+    from ..configs.registry import ShapeCell
+    arch_id, shape, dims, changes, accum = DEPTH_CELLS[name]
+    base = get_arch(arch_id)
+    cfg = dataclasses.replace(base.smoke(), n_layers=DEPTH_LAYERS, **changes)
+    arch = type(base)(arch_id, cfg, accum={"train_4k": accum})
+    arch.shapes[shape] = ShapeCell(shape, base.shapes[shape].kind, dims)
+    return arch, shape
+
+
+def depth_trace(name: str, full_depth: bool) -> dict:
+    """``depth_arch(name)``'s cell on a fake (2, 2) mesh, counted a layer
+    at a time (``dryrun.depth_count``) or traced at full depth."""
+    from .dryrun import fake_world, trace_cell
+    from .mesh import make_local_mesh
+    arch, shape = depth_arch(name)
+    with fake_world(4):
+        return trace_cell(arch, shape, make_local_mesh(model=2,
+                                                       device="cpu"),
+                          full_depth)
+
+
+def _flat_terms(rec: dict) -> dict:
+    from .dryrun import ADDITIVE
+    out = {}
+
+    def walk(x, path):
+        if isinstance(x, dict):
+            for k, v in x.items():
+                walk(v, path + (k,))
+        else:
+            out["/".join(path)] = x
+
+    for path in ADDITIVE:
+        x = rec
+        for k in path:
+            x = x.get(k, {})
+        walk(x, path)
+    for m in ("argument_size_in_bytes", "output_size_in_bytes",
+              "alias_size_in_bytes"):
+        out[f"memory/{m}"] = rec["memory"][m]
+    return out
+
+
+def depth_differences(count: dict, full: dict) -> dict:
+    """{term: (per-layer count, full-depth trace)} of every additive term
+    (and argument, output and alias bytes) that differs, and "temp": the
+    count's temp over the trace's."""
+    a, b = _flat_terms(count), _flat_terms(full)
+    out = {k: (a.get(k, 0), b.get(k, 0)) for k in sorted(set(a) | set(b))
+           if a.get(k, 0) != b.get(k, 0)}
+    out["temp"] = count["memory"]["temp_size_in_bytes"] / \
+        full["memory"]["temp_size_in_bytes"]
+    return out
+
+
+def depth_ok(diff: dict) -> bool:
+    """Whether ``depth_differences`` holds a per-layer count to its
+    full-depth trace: every additive term equal, temp within
+    ``TEMP_TOL``."""
+    return set(diff) == {"temp"} and abs(diff["temp"] - 1) <= TEMP_TOL
+
+
+def check_depth() -> dict:
+    """Each ``DEPTH_CELLS`` cell counted a layer at a time against its
+    full-depth trace: every additive term equal, temp within
+    ``TEMP_TOL`` -> {cell: its differences, "ok", "s"}."""
+    t0 = time.perf_counter()
+    out = {}
+    for name in DEPTH_CELLS:
+        out[name] = depth_differences(depth_trace(name, False),
+                                      depth_trace(name, True))
+    out["ok"] = all(depth_ok(d) for d in out.values())
+    out["s"] = round(time.perf_counter() - t0, 1)
+    return out
+
+
+PARTS = {"steps": check_steps, "traces": check_traces, "moe": check_moe,
+         "attention": check_attention, "depth": check_depth}
 
 
 def main(argv=None) -> int:

@@ -260,15 +260,20 @@ def rope_freqs(head_dim: int, theta: float = 10_000.0, device=None,
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float = 10_000.0) -> torch.Tensor:
     """x (..., S, H, D) with positions (..., S) — rotates pairs (even, odd),
-    interleaved as the reference does (not the half-split form)."""
+    interleaved as the reference does (not the half-split form). The
+    even and odd lanes are the two columns of x viewed as (..., D/2, 2),
+    not strided slices: the same values, and on a DTensor whose D is
+    split (a KV head_dim over "model") the view keeps the split where
+    each rank holds whole pairs, where a strided slice would gather D."""
     d = x.shape[-1]
     wide = torch.promote_types(x.dtype, torch.float32)
     freqs = rope_freqs(d, theta, x.device, wide)          # (D/2,)
     angles = positions[..., None].to(wide) * freqs        # (..., S, D/2)
     cos = torch.cos(angles)[..., None, :]                 # (..., S, 1, D/2)
     sin = torch.sin(angles)[..., None, :]
-    x1 = _wide(x[..., 0::2])
-    x2 = _wide(x[..., 1::2])
+    pairs = x.reshape(*x.shape[:-1], d // 2, 2)           # (..., D/2, 2)
+    x1 = _wide(pairs[..., 0])
+    x2 = _wide(pairs[..., 1])
     o1 = x1 * cos - x2 * sin
     o2 = x1 * sin + x2 * cos
     return torch.stack([o1, o2], dim=-1).reshape(x.shape).to(x.dtype)

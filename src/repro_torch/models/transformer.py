@@ -170,8 +170,10 @@ def _attn_init(cfg: TransformerConfig, gen, device) -> Params:
     return p
 
 
-def _gqa_qkv(p, cfg: TransformerConfig, x, positions):
-    """-> q (B,S,Kv,G,hd), k (B,S,Kv,hd), v (B,S,Kv,hd)."""
+def _gqa_qkv(p, cfg: TransformerConfig, x, positions, f: int = 1):
+    """-> q (B,S,Kv·f,G/f,hd), k (B,S,Kv,hd), v (B,S,Kv,hd): the query
+    heads grouped by KV head, each group cut into ``f`` (``_gqa_factor``;
+    1 but under a mesh)."""
     H, Kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     q = einsum("bsd,dhe->bshe", x, p["wq"])         # (B,S,H,hd)
     k = einsum("bsd,dke->bske", x, p["wk"])
@@ -182,7 +184,70 @@ def _gqa_qkv(p, cfg: TransformerConfig, x, positions):
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     B, S = x.shape[:2]
-    return q.reshape(B, S, Kv, H // Kv, hd), k, v
+    return q.reshape(B, S, Kv * f, H // Kv // f, hd), k, v
+
+
+def _gqa_factor(cfg: TransformerConfig, wq) -> int:
+    """How many parts each KV head's query group is cut into for the
+    attention under a mesh: on a DTensor ``wq`` whose heads are split m
+    ways ("model") where m divides the query heads but not the KV heads,
+    the least f that divides the group G = H / Kv and makes Kv·f a
+    multiple of m; then q is viewed as Kv·f groups of G/f heads, which
+    keeps the heads' split, and K and V are expanded f times
+    (``_repeat_kv``), so that each rank computes the scores of its own
+    query heads only (the reference's partitioner tiles one mesh axis
+    over the KV heads and the group, which DTensor cannot). 1 on a plain
+    tensor, where the KV heads divide the split, where a split of them is
+    strided, or where no such f exists (the step then runs as before:
+    q's view gathers its heads)."""
+    from torch.distributed.tensor import Shard
+    from ..train.steps import split_mesh_dims
+    split = split_mesh_dims(wq, 1)
+    if not split or any(type(wq.placements[j]) is not Shard for j in split):
+        return 1
+    return gqa_factor(cfg.n_heads, cfg.n_kv_heads,
+                      math.prod(wq.device_mesh.size(j) for j in split))
+
+
+def gqa_factor(n_heads: int, n_kv_heads: int, m: int) -> int:
+    """The least f with G = n_heads / n_kv_heads divisible by f and
+    n_kv_heads · f by m, where m divides the query heads and not the KV
+    heads; 1 otherwise (``_gqa_factor``)."""
+    G = n_heads // n_kv_heads
+    if m == 1 or n_kv_heads % m == 0 or n_heads % m:
+        return 1
+    return next((f for f in range(2, G + 1)
+                 if G % f == 0 and n_kv_heads * f % m == 0), 1)
+
+
+def _repeat_kv(t, f: int, like):
+    """K or V (B,S,Kv,hd) on a mesh as (B,S,Kv·f,hd), each KV head
+    repeated f times in place (head j of the result is head j // f),
+    split over the mesh dimensions that split ``like``'s (q's) heads
+    plainly (a strided split of them is left to the attention's einsum):
+    its head_dim and heads are first gathered (once a layer), and each
+    rank then looks up its own heads (``index_select`` by an index split
+    as q's heads are, the port's own placement)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from ..train.steps import split_mesh_dims
+    mesh, nd = t.device_mesh, t.ndim
+    whole = [Replicate() if isinstance(pl, Shard) and pl.dim % nd >= 2
+             else pl for pl in t.placements]
+    t = t.redistribute(mesh, whole)
+    n = t.shape[2] * f
+    split = [j for j in split_mesh_dims(like, 2)
+             if type(like.placements[j]) is Shard]
+    idx = torch.arange(n, device=t.device) // f
+    parts = math.prod(mesh.size(j) for j in split)
+    rank = 0
+    for j in split:
+        rank = rank * mesh.size(j) + mesh.get_coordinate()[j]
+    local = idx.view(parts, n // parts)[rank]
+    idx = DTensor.from_local(
+        local, mesh, [Shard(0) if j in split else Replicate()
+                      for j in range(mesh.ndim)], run_check=False,
+        shape=(n,), stride=(1,))
+    return torch.index_select(t, 2, idx)
 
 
 def _expand_kv(cfg: TransformerConfig, q, k, v):
@@ -278,7 +343,10 @@ def _attn_apply(p, cfg: TransformerConfig, x, positions):
                          _mla_scale(cfg), cfg.attn_q_block, cfg.attn_k_block)
         ctx = ctx.reshape(B, S, cfg.n_heads, cfg.v_head_dim)
         return einsum("bqhv,hvd->bqd", ctx, p["wo"])
-    q, k, v = _gqa_qkv(p, cfg, x, positions)
+    f = _gqa_factor(cfg, p["wq"])
+    q, k, v = _gqa_qkv(p, cfg, x, positions, f)
+    if f > 1:
+        k, v = _repeat_kv(k, f, q), _repeat_kv(v, f, q)
     if cfg.gqa_expand_kv:
         q, k, v = _expand_kv(cfg, q, k, v)
     out = flash_sdpa(q, k, v, positions, positions, cfg.sliding_window,

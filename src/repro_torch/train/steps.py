@@ -15,11 +15,14 @@ gating what the optimizer sees).
 
 ``jit_sharded`` places a step on a ``DeviceMesh``: its arguments become
 DTensors under their partition specs (``distributed.sharding``), and
-DTensor's sharding propagation turns every op into its local form plus
-the collectives it needs — the counterpart of the reference's jit with
-named shardings, where XLA's SPMD partitioner does that. There, an
-accumulating step takes each microbatch from the rows every rank holds
-(``_microbatches``), so that each rank computes its share of it.
+every op becomes its local form plus the collectives it needs — the
+counterpart of the reference's jit with named shardings, where XLA's
+SPMD partitioner does that. The port places the ops of the model steps
+itself (``_handlers``, ``plan_einsum``), the same on every torch it was
+checked against; DTensor's own sharding propagation places the rest.
+Under ``jit_sharded`` an accumulating step takes each microbatch from
+the rows every rank holds (``_microbatches``), so that each rank
+computes its share of it.
 """
 
 from __future__ import annotations
@@ -142,12 +145,17 @@ def _split_batch(batch, accum: int) -> list:
 
 
 def make_train_step(loss_fn: Callable, opt_cfg: OptimizerConfig,
-                    accum_steps: int = 1, accum_dtype=None):
+                    accum_steps: int = 1, accum_dtype=None,
+                    update_fn: Callable = None):
     """loss_fn(params, batch, weights) -> scalar loss; ``params`` is a
     module (``models.layers.Params``) whose parameters the step trains.
 
     ``accum_dtype``: dtype of the gradient-accumulation buffer (fp32 by
-    default; bf16 halves it, the update still runs on fp32 moments)."""
+    default; bf16 halves it, the update still runs on fp32 moments).
+    ``update_fn(opt_cfg, params, grads, opt_state)`` -> (params,
+    opt_state, metrics): the update, ``apply_updates`` by default (the
+    dry run's per-layer count takes the gradients instead)."""
+    update_fn = update_fn or apply_updates
 
     def train_step(params, opt_state, batch, weights=None):
         named = list(params.named_parameters())
@@ -188,8 +196,8 @@ def make_train_step(loss_fn: Callable, opt_cfg: OptimizerConfig,
                                 ).div_(accum_steps)
                      for (name, _), a in zip(named, acc)}
             del acc
-        params, opt_state, metrics = apply_updates(opt_cfg, params, grads,
-                                                   opt_state)
+        params, opt_state, metrics = update_fn(opt_cfg, params, grads,
+                                               opt_state)
         metrics["loss"] = loss.detach()
         return params, opt_state, metrics
 
@@ -279,7 +287,10 @@ def _register_rules() -> None:
         gold logit over a vocab split across "model"): DTensor's rule
         gives a masked partial whose mask does not fit the output, so the
         gathered dimension is replicated (an all-gather, which the
-        analysis counts), other dimensions stay split;
+        analysis counts), other dimensions stay split; a partial sum
+        gathered by a whole index stays one (a gather is linear: the MoE
+        combine reads the experts' partial outputs, reduced once at the
+        residual add);
       * ``aten.constant_pad_nd`` (``flash_sdpa``'s padding of its query
         and key blocks): torch 2.11's rule gives its output one
         placement whatever the mesh's rank; the rule here keeps each
@@ -289,20 +300,22 @@ def _register_rules() -> None:
         each dimension other than the scattered one that the three
         operands share whole may stay split in all three, a local
         scatter per rank (the group axis of the MoE dispatch over
-        "data"), as the gather rule keeps it for the gather.
+        "data"), as the gather rule keeps it for the gather; partial
+        sums of ``self`` and ``src`` by a whole index stay one.
 
     The ops that need more than a placement rule go to handlers that
     ``_sharding_handlers`` installs only while a placed step runs."""
     if _RULES:
         return
-    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import register_sharding
     aten = torch.ops.aten
 
     @register_sharding(aten.gather.default)
     def gather_rule(x, dim, index, sparse_grad=False):
         dim %= x.ndim
-        out = [([Replicate()], [Replicate(), None, Replicate()])]
+        out = [([Replicate()], [Replicate(), None, Replicate()]),
+               ([Partial()], [Partial(), None, Replicate()])]
         out += [([Shard(d)], [Shard(d), None, Shard(d)])
                 for d in range(x.ndim) if d != dim]
         return out
@@ -320,6 +333,8 @@ def _register_rules() -> None:
         dim %= x.ndim
         tail = [None] * len(rest)
         out = [([Replicate()], [Replicate(), None, Replicate(), Replicate()]
+                + tail),
+               ([Partial()], [Partial(), None, Replicate(), Partial()]
                 + tail)]
         out += [([Shard(d)], [Shard(d), None, Shard(d), Shard(d)] + tail)
                 for d in range(x.ndim)
@@ -329,6 +344,37 @@ def _register_rules() -> None:
     for op in (aten.scatter.src, aten.scatter_add.default):
         register_sharding(op)(scatter_rule)
     _RULES.extend((gather_rule, pad_rule, scatter_rule))
+
+
+def _pointwise_ops() -> tuple:
+    """The elementwise aten ops that ``_pointwise`` places: what the
+    model steps run on DTensors (the attention's masks and online
+    softmax, the norms, RoPE, SwiGLU, the loss, the optimizer's update,
+    their gradients)."""
+    aten = torch.ops.aten
+    names = ("add.Tensor", "add_.Tensor", "sub.Tensor", "sub_.Tensor",
+             "mul.Tensor", "mul_.Tensor", "div.Tensor", "div_.Tensor",
+             "mul.Scalar", "div.Scalar", "where.self", "where.ScalarOther",
+             "where.ScalarSelf", "masked_fill.Scalar", "masked_fill_.Scalar",
+             "masked_fill.Tensor", "masked_fill_.Tensor", "maximum.default",
+             "minimum.default", "eq.Tensor", "ne.Tensor", "gt.Tensor",
+             "ge.Tensor", "lt.Tensor", "le.Tensor", "eq.Scalar",
+             "ne.Scalar", "gt.Scalar", "ge.Scalar", "lt.Scalar",
+             "le.Scalar", "bitwise_and.Tensor", "bitwise_and_.Tensor",
+             "bitwise_or.Tensor", "bitwise_or_.Tensor",
+             "bitwise_xor.Tensor", "bitwise_not.default",
+             "logical_not.default", "exp.default", "neg.default",
+             "rsqrt.default", "sqrt.default", "cos.default", "sin.default",
+             "silu.default", "silu_backward.default", "sigmoid.default",
+             "tanh.default", "relu.default", "threshold_backward.default",
+             "pow.Tensor_Scalar", "clamp.default", "abs.default",
+             "log.default", "reciprocal.default", "remainder.Scalar",
+             "_to_copy.default")
+    return tuple(getattr(getattr(aten, n.split(".")[0]), n.split(".")[1])
+                 for n in names)
+
+
+POINTWISE_OPS = _pointwise_ops()
 
 
 def _handlers() -> dict:
@@ -360,16 +406,51 @@ def _handlers() -> dict:
         and the others; the attention masks, the wide crosses): DTensor
         takes them for in-place ops by their trailing underscore, and
         under inference mode returns the first operand unchanged, so they
-        run as ``bitwise_and`` / ``bitwise_or`` / ``bitwise_xor``;
-      * ``aten.view`` / ``aten._unsafe_view``: DTensor's view rule is
-        strict, and refuses a view that would need its input
-        redistributed (GQA's 32 query heads over "model" 16 regrouped as
-        8 KV heads x 4; the flattening of a strided shard in the gradient
-        of deepseek's MoE groups); ``_view_or_gather`` redistributes the
-        input as DTensor's rule for a reshape asks first.
+        run as ``bitwise_and`` / ``bitwise_or`` / ``bitwise_xor``; and
+        ``&=`` / ``|=`` / ``^=`` (``aten.__iand__``, ...; the sliding
+        window's mask) as ``bitwise_and_`` and the others, which torch
+        2.13 would first try to propagate through their decomposition,
+        fail, and keep the failure's traceback (every tensor of its
+        frames) until the collector runs;
+      * ``aten.view`` / ``aten._unsafe_view`` / ``aten.reshape`` (the
+        last under inference mode, which hands it over whole): DTensor's
+        view rule is strict, and refuses a view that would need its input
+        redistributed (the flattening of a strided shard in the gradient
+        of deepseek's MoE groups), and torch 2.11's dispatch of some views
+        of a split dimension gives the local op the global shape;
+        ``_view_or_gather`` redistributes the input as DTensor's rule for
+        a reshape asks and views each rank's part itself;
+      * ``aten.slice`` / ``aten.slice_backward`` (MLA's nope / rope
+        split, the attention's key blocks, a token batch's inputs and
+        labels, their gradients): DTensor gathers the dimension a slice
+        cuts where it is split, each torch its own way;
+        ``_sharded_slice`` / ``_sharded_slice_backward`` keep a split
+        that each rank's part gives its share of
+        (``_slice_keeps_split``), and otherwise move it to another
+        dimension (an all-to-all) before a local slice;
+      * ``aten.select`` / ``aten.select_backward`` (RoPE's even and odd
+        lanes, a layer of a stacked cache): a local select, the selected
+        dimension gathered only where it is split;
+      * ``aten.cat`` / ``aten.stack`` (RoPE's pairs, the Q blocks of the
+        blocked attention, MLA's key): ``_joined``, the result split as
+        its largest operand along the other dimensions;
+      * ``aten.softmax`` (the decode attention's and the router's, which
+        inference mode hands over whole): ``_softmax``, the ``_softmax``
+        it lowers to, whose rule DTensor has on every torch; torch 2.13
+        would first try to propagate through its decomposition, fail and
+        keep the failure's traceback, and with it every tensor of the
+        frames it holds, until the collector runs;
+      * the elementwise ops of ``POINTWISE_OPS`` (masks, the online
+        softmax, norms, RoPE, SwiGLU, the loss, the optimizer, their
+        gradients): ``_pointwise``, which decides where a partial sum is
+        reduced and which operand's split the result takes; DTensor's
+        rules for them differ between torch 2.11 and 2.13, and every op
+        after them follows.
 
     None of them reads data, and no shape depends on it: they run on the
-    dry run's fake tensors as on real ones."""
+    dry run's fake tensors as on real ones. Each runs as the unplaced
+    step runs its op where every rank holds every operand whole
+    (``_on_whole_operands``)."""
     aten = torch.ops.aten
     out = {aten.index_put_.default: _sharded_index_put,
            aten.index_put.default: _sharded_index_put,
@@ -379,14 +460,78 @@ def _handlers() -> dict:
            aten.matmul.default: _planned_matmul,
            aten.embedding.default: _sharded_embedding,
            aten.view.default: _view_or_gather,
-           aten._unsafe_view.default: _view_or_gather}
+           aten._unsafe_view.default: _view_or_gather,
+           aten.reshape.default: _view_or_gather,
+           aten.cat.default: _joined,
+           aten.stack.default: _joined,
+           aten.slice.Tensor: _sharded_slice,
+           aten.slice_backward.default: _sharded_slice_backward,
+           aten.select.int: _sharded_select,
+           aten.select_backward.default: _sharded_select_backward,
+           aten.softmax.int: _softmax}
+    for op in POINTWISE_OPS:
+        out[op] = _pointwise
     for name, fn in (("__and__", torch.bitwise_and),
                      ("__or__", torch.bitwise_or),
-                     ("__xor__", torch.bitwise_xor)):
+                     ("__xor__", torch.bitwise_xor),
+                     ("__iand__", torch.Tensor.bitwise_and_),
+                     ("__ior__", torch.Tensor.bitwise_or_),
+                     ("__ixor__", torch.Tensor.bitwise_xor_)):
         for overload in ("Tensor", "Scalar"):
             out[getattr(getattr(aten, name), overload)] = functools.partial(
                 _as_function, fn)
-    return out
+    return {op: functools.partial(_on_whole_operands, h)
+            for op, h in out.items()}
+
+
+def _whole_mesh(args, kwargs):
+    """The mesh of the DTensors among an op's operands (in a list too)
+    where every rank holds each of them whole: the mesh has one rank, or
+    every placement is ``Replicate``. None otherwise, or where there is
+    no DTensor."""
+    from torch.distributed.tensor import DTensor
+    mesh = None
+    for a in (*args, *kwargs.values()):
+        for t in (a if isinstance(a, (list, tuple)) else (a,)):
+            if isinstance(t, DTensor):
+                mesh = t.device_mesh
+                if mesh.size() > 1 and not all(
+                        pl.is_replicate() for pl in t.placements):
+                    return None
+    return mesh
+
+
+def _local(a):
+    from torch.distributed.tensor import DTensor
+    if isinstance(a, (list, tuple)):
+        return type(a)(_local(t) for t in a)
+    return a._local_tensor if isinstance(a, DTensor) else a
+
+
+@functools.lru_cache(maxsize=None)
+def _writes_first(op_call) -> bool:
+    """Whether ``op_call`` writes its first argument in place."""
+    args = op_call._schema.arguments
+    info = args[0].alias_info if args else None
+    return info is not None and info.is_write
+
+
+def _on_whole_operands(handler, op_call, args, kwargs):
+    """``handler``'s op where every rank holds every operand whole
+    (``_whole_mesh``: a one-rank mesh, or nothing split nor a partial
+    sum): the op on each rank's local tensors, as the unplaced step runs
+    it, its result whole (``self`` of an in-place op, as it was placed);
+    ``handler`` itself otherwise. The placement there is moot, and
+    working it out on the host costs more than the op on the card."""
+    from torch.distributed.tensor import Replicate
+    mesh = _whole_mesh(args, kwargs)
+    if mesh is None:
+        return handler(op_call, args, kwargs)
+    out = op_call(*_local(args), **{k: _local(v) for k, v in kwargs.items()})
+    if _writes_first(op_call):
+        return args[0]
+    return _wrap(out, mesh, [Replicate()] * mesh.ndim, out.shape,
+                 out.stride())
 
 
 # DTensor's dispatcher keeps one table of op handlers for the process. The
@@ -447,6 +592,15 @@ def _dispatch_unhandled(op_call, args, kwargs):
                 table[op_call] = handler
 
 
+def _softmax(op_call, args, kwargs):
+    """``aten.softmax(x, dim, dtype)`` as the ``_softmax`` it lowers to."""
+    x, dim = args[:2]
+    dtype = args[2] if len(args) > 2 else kwargs.get("dtype")
+    if dtype is not None:
+        x = x.to(dtype)
+    return torch.ops.aten._softmax.default(x, dim, False)
+
+
 def _as_function(fn, op_call, args, kwargs):
     """``op_call`` as the out-of-place function ``fn``."""
     return fn(*args, **kwargs)
@@ -490,16 +644,16 @@ def _local_numel(shape, pls, mesh_sizes):
 
 
 def _view_placements(x, shape) -> tuple:
-    """The placements ``x`` must have for DTensor to view it as
-    ``shape``: DTensor's own rule for a reshape (``view_groups`` and
-    ``propagate_shape_and_sharding`` without strictness), which demotes
-    to ``Replicate`` each split that the view cannot keep (a dimension
-    split into factors the mesh does not divide, a split dimension
-    flattened behind another). That rule checks a dimension split over
-    two mesh dimensions (the batch over ("pod", "data")) against each
-    mesh dimension alone; where the shards it gives the output do not
-    hold the input's elements, the input's innermost split is demoted too,
-    until they do."""
+    """(the placements ``x`` must have to be viewed as ``shape``, the
+    view's placements then): DTensor's own rule for a reshape
+    (``view_groups`` and ``propagate_shape_and_sharding`` without
+    strictness), which demotes to ``Replicate`` each split that the view
+    cannot keep (a dimension split into factors the mesh does not
+    divide, a split dimension flattened behind another). That rule checks
+    a dimension split over two mesh dimensions (the batch over ("pod",
+    "data")) against each mesh dimension alone; where the shards it gives
+    the output do not hold the input's elements, the input's innermost
+    split is demoted too, until they do."""
     from torch.distributed.tensor import Replicate
     from torch.distributed.tensor._ops._view_ops import (
         propagate_shape_and_sharding, view_groups)
@@ -513,17 +667,24 @@ def _view_placements(x, shape) -> tuple:
             src, in_shape, rule, sizes, strict_view=False)
         n_in = _local_numel(in_shape, want, sizes)
         if n_in is None or n_in == _local_numel(out_shape, out, sizes):
-            return tuple(want)
+            return tuple(want), tuple(out)
         src[max(j for j, pl in enumerate(src) if _splits(pl))] = Replicate()
 
 
-def _view_fits(sizes, strides, new_sizes) -> bool:
-    """Whether a tensor of ``sizes`` laid out by ``strides`` can be viewed
-    as ``new_sizes`` (``new_sizes`` with no -1): torch's own test
-    (``computeStride``), which cuts each run of dimensions that are laid
-    out one after another into whole new dimensions."""
-    if not sizes or 0 in sizes:
-        return True
+def _view_strides(sizes, strides, new_sizes):
+    """The strides of a view as ``new_sizes`` (no -1) of a tensor of
+    ``sizes`` laid out by ``strides``, or None where it has none (a
+    reshape copies): torch's own ``computeStride``, which cuts each run
+    of dimensions laid out one after another into whole new dimensions.
+    Worked out here rather than by viewing a meta tensor, which the
+    dry run's analysis would count as an op."""
+    new_sizes = tuple(new_sizes)
+    if not sizes:
+        return (1,) * len(new_sizes)
+    if 0 in sizes:
+        return tuple(strides) if tuple(sizes) == new_sizes else \
+            _contiguous_strides(new_sizes)
+    out = [0] * len(new_sizes)
     view_d = len(new_sizes) - 1
     base = strides[-1]
     t_numel = v_numel = 1
@@ -533,41 +694,378 @@ def _view_fits(sizes, strides, new_sizes) -> bool:
                       and strides[d - 1] != t_numel * base):
             while view_d >= 0 and (v_numel < t_numel
                                    or new_sizes[view_d] == 1):
+                out[view_d] = v_numel * base
                 v_numel *= new_sizes[view_d]
                 view_d -= 1
             if v_numel != t_numel:
-                return False
+                return None
             if d > 0:
                 base = strides[d - 1]
                 t_numel = v_numel = 1
-    return view_d == -1
+    return tuple(out) if view_d == -1 else None
 
 
 def _view_or_gather(op_call, args, kwargs):
-    """A view of a DTensor whose input first takes the placements that
-    DTensor's rule for a reshape gives it (``_view_placements``: an
-    all-gather of each split the view cannot keep, which the analysis
-    counts), and whose local tensor is first made contiguous where it is
-    not and may not take the view: a split shard, or a whole one whose
-    own strides do not fit it (``_view_fits``) — a permuted local tensor
-    (an einsum's operand before its flattening) cannot take a view that
-    the DTensor's strides allow."""
-    from torch.distributed.tensor import DTensor
+    """A view (``view``, ``_unsafe_view``, or a ``reshape`` that
+    inference mode hands over whole) of a DTensor, run by the port
+    itself: the input first takes the placements that DTensor's rule for
+    a reshape gives it (``_view_placements``: an all-gather of each
+    split the view cannot keep, which the analysis counts), then each
+    rank views its part as its share of the result. The local part is
+    first made contiguous where it cannot take that view
+    (``_view_strides``: a permuted local tensor — an einsum's operand before
+    its flattening — or a split shard); a ``view`` of a DTensor whose own
+    strides allow it keeps them. DTensor's own dispatch of a view
+    differs between torch 2.11 and 2.13 (2.11 gives some views of a
+    split dimension the global shape as the local one)."""
+    from torch.distributed.tensor import Shard
     x = args[0]
-    if any(_splits(pl) for pl in x.placements):
-        x = _placed_as(x, _view_placements(x, args[1]))
+    shape = _resolved(args[1], x.numel())
+    if any(isinstance(pl, Shard) and type(pl) is not Shard
+           for pl in x.placements):
+        return _dispatch_unhandled(op_call, args, kwargs)
+    want = out_p = tuple(x.placements)
+    if any(_splits(pl) for pl in want):
+        want, out_p = _view_placements(x, shape)
+    if any(isinstance(pl, Shard) and type(pl) is not Shard for pl in out_p):
+        return _dispatch_unhandled(op_call, args, kwargs)
+    x = _placed_as(x, want)
+    mesh = x.device_mesh
+    lshape, _ = _extent(shape, out_p, mesh)
     local = x._local_tensor
-    if not local.is_contiguous() and (
-            any(_splits(pl) for pl in x.placements)
-            or not _view_fits(local.shape, local.stride(),
-                              _resolved(args[1], x.numel()))):
-        x = DTensor.from_local(local.contiguous(), x.device_mesh,
-                               x.placements, run_check=False, shape=x.shape,
-                               stride=x.stride())
-    return _dispatch_unhandled(op_call, (x, *args[1:]), kwargs)
+    if _view_strides(tuple(local.shape), local.stride(), lshape) is None:
+        local = local.contiguous()
+    # a reshape that copies: contiguous
+    stride = _view_strides(tuple(x.shape), x.stride(), shape) or \
+        _contiguous_strides(shape)
+    return _wrap(local.view(lshape), mesh, out_p, shape, stride)
+
+
+def _joined(op_call, args, kwargs):
+    """``aten.cat(tensors, dim)`` and ``aten.stack(tensors, dim)`` on
+    DTensors, per mesh dimension: the operands are joined along ``dim``
+    whole (a split of it gathered); along the other dimensions the
+    result is split as the largest operand is split there, the others
+    cut or moved to that split (the placement ``_pointwise`` gives a
+    binary op); partial sums of one kind stay one. DTensor's own rules
+    differ between torch versions."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    stack = op_call.overloadpacket is torch.ops.aten.stack
+    tensors = list(args[0])
+    dim = args[1] if len(args) > 1 else kwargs.get("dim", 0)
+    mesh = _mesh_of(*tensors)
+    ts = [_as_dtensor(t, mesh) for t in tensors]
+    if any(type(pl) not in (Shard, Replicate, Partial)
+           for t in ts for pl in t.placements) or \
+            len({t.ndim for t in ts}) != 1:
+        return _dispatch_unhandled(op_call, args, kwargs)
+    nd = ts[0].ndim
+    dim %= nd + 1 if stack else nd
+    want = [list(t.placements) for t in ts]
+    out_p = []
+    for j in range(mesh.ndim):
+        pj = [t.placements[j] for t in ts]
+        if all(pl.is_partial() for pl in pj) and \
+                len({pl.reduce_op for pl in pj}) == 1:
+            out_p.append(pj[0])
+            continue
+        split = [(t.numel(), -n, pl.dim % nd) for n, (t, pl) in
+                 enumerate(zip(ts, pj)) if isinstance(pl, Shard)
+                 and (stack or pl.dim % nd != dim)]
+        k = max(split)[2] if split else None
+        for w in want:
+            w[j] = Replicate() if k is None else Shard(k)
+        out_p.append(Replicate() if k is None else
+                     Shard(k + (stack and k >= dim)))
+    ts = [_placed_as(t, w) for t, w in zip(ts, want)]
+    local = op_call([t._local_tensor for t in ts], dim)
+    shape = list(ts[0].shape)
+    if stack:
+        shape.insert(dim, len(ts))
+    else:
+        shape[dim] = sum(t.shape[dim] for t in ts)
+    return _wrap(local, mesh, out_p, shape)
 
 
 # ----------------------------------------- the port's own placements --- //
+
+def _norm_slice(n: int, start, end, step) -> tuple:
+    """(start, end, step) of ``x[start:end:step]`` along a dimension of
+    ``n``, with Python's clamping and negative indices resolved."""
+    start = 0 if start is None else start
+    end = n if end is None else end
+    start = min(max(start + n if start < 0 else start, 0), n)
+    end = min(max(end + n if end < 0 else end, start), n)
+    return start, end, step
+
+
+def _slice_keeps_split(n: int, parts: int, start: int, end: int,
+                       step: int) -> bool:
+    """Whether ``x[start:end:step]`` along a dimension of ``n`` split
+    evenly in ``parts`` is every rank's own ``[start:n/parts:step]`` of
+    its part, the parts in rank order: the step divides the part's size,
+    the start falls below the step, and the slice runs to the end (the
+    whole dimension at step 1; the even lanes of each rank's pairs)."""
+    if n % parts:
+        return False
+    count = -(-(end - start) // step)
+    return (n // parts) % step == 0 and start < step and \
+        count == n // step
+
+
+def split_mesh_dims(x, dim: int) -> list:
+    """The mesh dimensions whose placement splits dimension ``dim`` of
+    ``x`` (a plain split or a strided one; none for a plain tensor)."""
+    from torch.distributed.tensor import DTensor, Shard
+    if not isinstance(x, DTensor):
+        return []
+    return [j for j, pl in enumerate(x.placements)
+            if isinstance(pl, Shard) and pl.dim % x.ndim == dim]
+
+
+def _moved_split(x, dim: int):
+    """``x`` with every split of ``dim`` moved to the largest other
+    dimension that no mesh dimension splits and that the moved splits
+    divide (an all-to-all of each rank's part), or gathered where there
+    is none (an all-gather)."""
+    from torch.distributed.tensor import Replicate, Shard
+    nd, mesh = x.ndim, x.device_mesh
+    split = split_mesh_dims(x, dim)
+    parts = math.prod(mesh.size(j) for j in split)
+    taken = {pl.dim % nd for pl in x.placements if isinstance(pl, Shard)}
+    free = [d for d in range(nd) if d not in taken
+            and x.shape[d] % parts == 0 and x.shape[d] >= parts]
+    to = max(free, key=lambda d: (x.shape[d], -d)) if free else None
+    return _placed_as(x, [(Replicate() if to is None else Shard(to))
+                          if j in split else pl
+                          for j, pl in enumerate(x.placements)])
+
+
+def _sliced_split(x, dim: int, n: int, start: int, end: int, step: int):
+    """-> (x placed for a slice along ``dim`` of a dimension of ``n``, the
+    local (start, end) of the slice, the local size of ``dim``): a split
+    of ``dim`` that the slice keeps (``_slice_keeps_split``) stays; any
+    other split of ``dim`` is moved to another dimension
+    (``_moved_split``)."""
+    from torch.distributed.tensor import Shard
+    mesh = x.device_mesh
+    split = split_mesh_dims(x, dim)
+    parts = math.prod(mesh.size(j) for j in split)
+    if split and all(type(x.placements[j]) is Shard for j in split) and \
+            _slice_keeps_split(n, parts, start, end, step):
+        return x, (start, n // parts), n // parts
+    if split:
+        x = _moved_split(x, dim)
+    return x, (start, end), n
+
+
+def _sharded_slice(op_call, args, kwargs):
+    """``aten.slice(x, dim, start, end, step)`` on a DTensor: a local
+    slice that keeps every placement along a dimension no mesh dimension
+    splits, and along a split one where each rank's part gives its share
+    of the slice (``_slice_keeps_split``: the odd lanes of a split
+    head_dim); otherwise that dimension's split is first moved to another
+    dimension (an all-to-all) or, where none can take it, gathered (an
+    all-gather; both counted by the analysis), and the slice is local. A
+    partial sum stays one: a slice is linear."""
+    x = args[0]
+    dim, start, end, step = (list(args[1:]) + [0, None, None, 1][
+        len(args) - 1:])[:4]
+    dim, start, end, step = (kwargs.get("dim", dim),
+                             kwargs.get("start", start),
+                             kwargs.get("end", end), kwargs.get("step", step))
+    dim %= x.ndim
+    n = x.shape[dim]
+    start, end, step = _norm_slice(n, start, end, step)
+    x, (l0, l1), _ = _sliced_split(x, dim, n, start, end, step)
+    out = torch.ops.aten.slice.Tensor(x._local_tensor, dim, l0, l1, step)
+    shape, stride = list(x.shape), list(x.stride())
+    shape[dim] = max(0, -(-(end - start) // step))
+    stride[dim] *= step
+    return _wrap(out, x.device_mesh, x.placements, shape, stride)
+
+
+def _sharded_slice_backward(op_call, args, kwargs):
+    """``aten.slice_backward(grad, sizes, dim, start, end, step)`` (the
+    gradient of a slice: zeros of ``sizes`` holding ``grad`` at the
+    slice) on a DTensor ``grad``, placed as ``_sharded_slice`` places
+    the slice: a local ``slice_backward`` into each rank's part, every
+    placement kept, where the slice keeps a split of ``dim`` or no mesh
+    dimension splits it; otherwise ``grad``'s split of ``dim`` is first
+    moved to another dimension, or gathered where none can take it."""
+    g, sizes, dim, start, end, step = args[:6]
+    dim %= len(sizes)
+    n = sizes[dim]
+    start, end, step = _norm_slice(n, start, end, step)
+    g, (l0, l1), local_n = _sliced_split(g, dim, n, start, end, step)
+    lsizes = list(g._local_tensor.shape)
+    lsizes[dim] = local_n
+    out = torch.ops.aten.slice_backward.default(g._local_tensor, lsizes, dim,
+                                                l0, l1, step)
+    return _wrap(out, g.device_mesh, g.placements, sizes)
+
+
+def _sharded_select(op_call, args, kwargs):
+    """``aten.select(x, dim, index)`` on a DTensor: a local select where
+    no mesh dimension splits ``dim`` (each split of a later dimension
+    moves down one), else ``dim`` gathered first."""
+    from torch.distributed.tensor import Replicate, Shard
+    x, dim, index = args[:3]
+    nd = x.ndim
+    dim %= nd
+    if any(isinstance(pl, Shard) and type(pl) is not Shard
+           for pl in x.placements):
+        return _dispatch_unhandled(op_call, args, kwargs)
+    x = _placed_as(x, [Replicate() if isinstance(pl, Shard)
+                       and pl.dim % nd == dim else pl
+                       for pl in x.placements])
+    pls = [Shard(pl.dim % nd - 1) if isinstance(pl, Shard)
+           and pl.dim % nd > dim else pl for pl in x.placements]
+    out = torch.ops.aten.select.int(x._local_tensor, dim, index)
+    shape = list(x.shape)
+    stride = list(x.stride())
+    del shape[dim], stride[dim]
+    return _wrap(out, x.device_mesh, pls, shape, stride)
+
+
+def _sharded_select_backward(op_call, args, kwargs):
+    """``aten.select_backward(grad, sizes, dim, index)`` on a DTensor
+    ``grad``: a local ``select_backward`` into each rank's part, ``dim``
+    whole and each split of ``grad`` moved up one past it."""
+    from torch.distributed.tensor import Shard
+    g, sizes, dim, index = args[:4]
+    nd = len(sizes)
+    dim %= nd
+    if any(isinstance(pl, Shard) and type(pl) is not Shard
+           for pl in g.placements):
+        return _dispatch_unhandled(op_call, args, kwargs)
+    pls = [Shard(pl.dim % g.ndim + (pl.dim % g.ndim >= dim))
+           if isinstance(pl, Shard) else pl for pl in g.placements]
+    local = g._local_tensor
+    lsizes = list(local.shape)
+    lsizes.insert(dim, sizes[dim])
+    out = torch.ops.aten.select_backward.default(local, lsizes, dim, index)
+    return _wrap(out, g.device_mesh, pls, sizes)
+
+
+def _kept_partial(op_call, args, pj: dict, pos: list, in_place: bool):
+    """Where an elementwise op's result can stay the partial sum an
+    operand is on one mesh dimension (``pj``: the tensor operands'
+    placements there, by position) -> (that placement, whether only the
+    mesh dimension's first rank applies the op), or None where the
+    partial sum must be reduced first:
+
+      * ``add`` / ``sub`` of two partial sums of one kind, sum or avg (a
+        sum of maxima is no maximum of sums);
+      * ``add`` / ``sub`` of a partial avg, max or min and a whole
+        operand or a number (each rank's part moves by the same amount);
+        of a partial sum, only in place, where the first rank alone adds
+        it (every rank adding it would add it once a rank; out of place
+        the sum is reduced first, as DTensor's own rule does);
+      * ``mul`` of a partial sum by a whole operand or a number, and
+        ``div`` of one by them."""
+    aten = torch.ops.aten
+    packet = op_call.overloadpacket
+    partial = [i for i in pos if pj[i].is_partial()]
+    if not partial or len({pj[i].reduce_op for i in partial}) != 1:
+        return None
+    kind = pj[partial[0]].reduce_op
+    whole = all(pj[i].is_replicate() for i in pos if i not in partial)
+    if packet in (aten.add, aten.add_, aten.sub, aten.sub_):
+        both = len(partial) == 2 and all(
+            isinstance(a, torch.Tensor) for a in args[:2])
+        if both:
+            return (pj[partial[0]], False) if kind in ("sum", "avg") \
+                else None
+        if partial != [0] or not whole:
+            return None
+        if kind in ("avg", "max", "min"):
+            return pj[0], False
+        return (pj[0], True) if in_place and kind == "sum" else None
+    if packet in (aten.mul, aten.mul_, aten.div, aten.div_) and \
+            len(partial) == 1 and kind == "sum" and whole and (
+                partial[0] == pos[0] or packet in (aten.mul, aten.mul_)):
+        return pj[partial[0]], False
+    return None
+
+
+def _pointwise(op_call, args, kwargs):
+    """An elementwise op (unary, binary, ``where``, ``masked_fill``; in
+    place or not) on DTensors, on a placement the port chooses, per mesh
+    dimension, the same on every torch:
+
+      * a partial sum stays one where the op is linear in it
+        (``_kept_partial``: added to another of its kind, moved by a
+        whole amount, scaled by one);
+      * otherwise a partial sum is reduced first, into the split the
+        result takes there (a reduce-scatter), or whole (an all-reduce)
+        where the result is not split;
+      * the result is split along the dimension of the largest operand
+        split there (the first such operand on a tie; an in-place op's
+        along ``self``'s), whole where no operand is split; each other
+        operand is cut to it (free where it is whole, an all-to-all
+        where it is split along another dimension) or, where it is
+        broadcast along that dimension, made whole.
+
+    DTensor's own rules for these ops differ between torch 2.11 and 2.13
+    (which operand's placement wins, when a partial sum is reduced and
+    how), and every later op of a step follows them. An operand with a
+    placement other than a plain split, whole or partial sum (a masked
+    or strided one), and an in-place op on a partial sum that must be
+    reduced, take DTensor's own dispatch."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    in_place = op_call._schema.name.endswith("_")
+    if in_place and not isinstance(args[0], DTensor):
+        return _dispatch_unhandled(op_call, args, kwargs)
+    pos = [i for i, a in enumerate(args) if isinstance(a, torch.Tensor)]
+    mesh = _mesh_of(*(args[i] for i in pos))
+    ops = {i: _as_dtensor(args[i], mesh) for i in pos}
+    if any(type(pl) not in (Shard, Replicate, Partial)
+           for t in ops.values() for pl in t.placements):
+        return _dispatch_unhandled(op_call, args, kwargs)
+    shape = tuple(torch.broadcast_shapes(*(t.shape for t in ops.values())))
+    ond = len(shape)
+
+    def aligned(t, k):      # t's dimension at the result's k, if not broadcast
+        d = k - (ond - t.ndim)
+        return d if d >= 0 and t.shape[d] == shape[k] else None
+
+    want = {i: list(t.placements) for i, t in ops.items()}
+    out_p, lead = [], []
+    for j in range(mesh.ndim):
+        pj = {i: t.placements[j] for i, t in ops.items()}
+        kept = _kept_partial(op_call, args, pj, pos, in_place)
+        if kept is not None:
+            out_p.append(kept[0])
+            if kept[1]:
+                lead.append(j)
+            continue
+        if in_place:
+            target = pj[pos[0]]
+            if target.is_partial():
+                return _dispatch_unhandled(op_call, args, kwargs)
+            k = None if target.is_replicate() else \
+                target.dim % ops[pos[0]].ndim + ond - ops[pos[0]].ndim
+        else:
+            split = [(ops[i].numel(), -n, pj[i].dim % ops[i].ndim
+                      + ond - ops[i].ndim) for n, i in enumerate(pos)
+                     if isinstance(pj[i], Shard)]
+            k = max(split)[2] if split else None
+        out_p.append(Replicate() if k is None else Shard(k))
+        for i, t in ops.items():
+            d = None if k is None else aligned(t, k)
+            want[i][j] = Replicate() if d is None else Shard(d)
+    ops = {i: _placed_as(t, want[i]) for i, t in ops.items()}
+    if in_place and any(mesh.get_coordinate()[j] for j in lead):
+        return args[0]              # the first rank of each ``lead`` adds it
+    local = list(args)
+    for i, t in ops.items():
+        local[i] = t._local_tensor
+    out = op_call(*local, **kwargs)
+    if in_place:
+        return args[0]
+    return _wrap(out, mesh, out_p, shape)
+
 
 def _as_dtensor(t, mesh):
     """A plain tensor as a replicated DTensor on ``mesh`` (every rank
@@ -609,12 +1107,18 @@ def _placed_as(t, pls):
     return t.redistribute(t.device_mesh, pls)
 
 
-def _wrap(local, mesh, pls, shape):
-    """A DTensor of global ``shape`` from each rank's ``local`` part."""
+def _wrap(local, mesh, pls, shape, stride=None):
+    """A DTensor of global ``shape`` (laid out by ``stride``, contiguous
+    by default) from each rank's ``local`` part, made as DTensor's own
+    dispatch makes its results: the handlers run below autograd, where
+    ``DTensor.from_local``'s autograd function only costs time."""
     from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._dtensor_spec import DTensorSpec, TensorMeta
     shape = torch.Size(shape)
-    return DTensor.from_local(local, mesh, tuple(pls), run_check=False,
-                              shape=shape, stride=_contiguous_strides(shape))
+    stride = _contiguous_strides(shape) if stride is None else tuple(stride)
+    spec = DTensorSpec(mesh, tuple(pls), TensorMeta(shape, stride,
+                                                    local.dtype))
+    return DTensor(local, spec, requires_grad=local.requires_grad)
 
 
 def _split_dim(pl, ndim: int):
@@ -626,7 +1130,7 @@ def _split_dim(pl, ndim: int):
 def _extent(shape, pls, mesh) -> tuple:
     """(local shape, global offset) of this rank's part of a tensor of
     ``shape`` under ``pls`` (a partial part is whole)."""
-    return shard_extent(tuple(shape), pls, tuple(mesh.mesh.shape),
+    return shard_extent(tuple(shape), pls, tuple(mesh.shape),
                         mesh.get_coordinate())
 
 
@@ -1027,9 +1531,20 @@ def placed_einsum(equation: str, *operands):
     nothing is split (a one-rank mesh) there is nothing to plan: the
     einsum runs as the unplaced step runs it, gradients and all, so the
     two agree bit for bit."""
+    from torch.distributed.tensor import DTensor, Replicate
+    grad = torch.is_grad_enabled() and any(o.requires_grad for o in operands)
     if _replicated(operands):
-        return torch.einsum(equation, *operands)
-    if torch.is_grad_enabled() and any(o.requires_grad for o in operands):
+        if grad:
+            return torch.einsum(equation, *operands)
+        # a whole einsum would reach DTensor undecomposed, which torch
+        # 2.13 first tries to propagate through its decomposition and
+        # fails (keeping the failure's frames until the collector runs):
+        # every rank holds all of each operand, so it runs on them
+        mesh = _mesh_of(*operands)
+        local = torch.einsum(equation, *(o._local_tensor if isinstance(
+            o, DTensor) else o for o in operands))
+        return _wrap(local, mesh, [Replicate()] * mesh.ndim, local.shape)
+    if grad:
         return _PlannedEinsum.apply(equation, *operands)
     return plan_einsum(equation, operands)
 

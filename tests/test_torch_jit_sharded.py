@@ -13,8 +13,11 @@ groups of 20 (4 groups on each "data" rank; pairs drop), the GNN
 cell splits it) and a recsys ranker (DLRM-RM2, its tables' rows over
 "model"); the dense LM again in 2 microbatches, each rank holding one
 row of each; and decode steps with the reference's sequence-parallel
-cache. No ``index_add`` or ``index_put`` of any step reaches DTensor's
-own dispatch: the port places them itself. Each rank runs as a process
+cache; and the dense LM with one KV head for its four query heads,
+whose attention regroups its queries under "model" 2. No index op,
+slice or select of any step reaches DTensor's own dispatch: the port
+places them itself, and RoPE and the slice handlers equal the plain ops
+on a split DTensor. Each rank runs as a process
 of its own; the reference runs in
 this process on the same numpy-seeded params and inputs. Every parameter
 leaf after the step within 1e-5 of the tree's max |value|, and the loss
@@ -34,6 +37,7 @@ import pytest
 
 from repro.configs import get_arch as j_get_arch
 from repro.models import gnn as JG
+from repro.models import layers as JL
 from repro.models import recsys as JR
 from repro.models import transformer as JT
 from repro.optim import init_opt_state as j_init_opt
@@ -43,10 +47,13 @@ from repro_torch.launch.meshcheck import LR, TOL, flat as _flat, mismatches
 from test_torch_sharded import run_ranks
 
 FAMILIES = {f: arch_id for f, (arch_id, _) in meshcheck.FAMILIES.items()}
+# RoPE's input in the handler checks: (B, S, H, D), D split over "model"
+ROPE_X = np.random.default_rng(3).standard_normal((2, 6, 3, 8)).astype(
+    np.float32)
 # "lm_accum": the LM step in 2 microbatches; its batch of 4 rows is split
 # over "data" 2, so each rank holds one row of each microbatch
 ACCUM = {f: a for f, (_, a) in meshcheck.FAMILIES.items() if a > 1}
-LM_FAMILIES = ("lm", "lm_accum", "moe", "moe_grouped")
+LM_FAMILIES = ("lm", "lm_accum", "lm_gqa", "moe", "moe_grouped")
 
 
 def no_warmup(cfg):
@@ -67,6 +74,8 @@ def _reference(family: str, arch_id: str):
     reference's step on them -> (params after, loss, grad norm))."""
     jarch = j_get_arch(arch_id)
     rc = jarch.smoke()
+    if family == "lm_gqa":
+        rc = dataclasses.replace(rc, n_kv_heads=1)
     if family == "moe_grouped":
         tc = meshcheck.smoke_config(family)
         rc = dataclasses.replace(rc, n_experts=tc.n_experts,
@@ -111,7 +120,8 @@ rank, world = int(os.environ["RANK"]), int(os.environ["WORLD"])
 dist.init_process_group("gloo", init_method="file://" + os.environ["STORE"],
                         rank=rank, world_size=world)
 mesh = make_local_mesh(model=2, device="cpu")
-lr, cases = pickle.load(open(os.path.join(tmp, "cases.pkl"), "rb"))
+lr, cases, ROPE_X = pickle.load(open(os.path.join(tmp, "cases.pkl"),
+                                   "rb"))
 # every family and the decode steps (one KV head: the cache's sequence
 # splits over "model" and its batch over "data", the reference's
 # seq-parallel cache, each slot write an index_put_ into both split
@@ -137,6 +147,79 @@ with _sharding_handlers():
     th.join(60)
 out["view_on_another_thread"] = bool(got) and bool(torch.equal(
     got[0], torch.arange(32.0).view(8, 2, 2)))
+# RoPE on a head_dim split over "model" (each rank whole pairs), and the
+# slice / select handlers, each against the plain op on the same values,
+# with the collectives each issued
+from torch.distributed.tensor.debug import CommDebugMode
+from repro_torch.models.layers import apply_rope
+from repro_torch.train.steps import _replicate_plain_tensors
+aten = torch.ops.aten
+
+
+def run(fn, *ts):
+    with _sharding_handlers(), _replicate_plain_tensors(), \
+            CommDebugMode() as comm:
+        y = fn(*ts)
+    return {"placements": [str(p) for p in y.placements],
+            "collectives": comm.get_total_counts(),
+            "value": y.full_tensor().numpy()}
+
+
+x = torch.from_numpy(ROPE_X)
+pos = torch.arange(x.shape[1], dtype=torch.int32).expand(x.shape[:2])
+out["rope"] = run(lambda t: apply_rope(t, pos, 1e4), distribute_tensor(
+    x, mesh, [Shard(0), Shard(3)], src_data_rank=None))
+g = torch.arange(64.0).view(8, 8)
+slices = {"unsplit": ([Shard(0), Replicate()], lambda t: t[:, 1:6]),
+          "aligned_even": ([Shard(0), Shard(1)], lambda t: t[:, 0::2]),
+          "aligned_odd": ([Shard(0), Shard(1)], lambda t: t[:, 1::2]),
+          "unaligned": ([Shard(0), Shard(1)], lambda t: t[:, 1:6]),
+          "select_unsplit": ([Shard(1), Replicate()], lambda t: t[3]),
+          "select_split": ([Shard(0), Shard(1)], lambda t: t[:, 5]),
+          "backward_aligned": ([Shard(0), Shard(1)], lambda t:
+                               aten.slice_backward(t, [8, 16], 1, 1, 16, 2)),
+          "backward_unsplit": ([Shard(1), Replicate()], lambda t:
+                               aten.slice_backward(t, [12, 8], 0, 2, 10, 1)),
+          "select_backward": ([Shard(0), Shard(1)], lambda t:
+                              aten.select_backward(t, [8, 3, 8], 1, 2))}
+out["slices"] = {}
+for name, (pls, fn) in slices.items():
+    out["slices"][name] = run(fn, distribute_tensor(g, mesh, pls,
+                                                    src_data_rank=None))
+    out["slices"][name]["plain"] = fn(g).numpy()
+# elementwise ops on partial sums over "data" (each rank's part a
+# function of its "data" coordinate c), against the plain op on the
+# reduced values
+from torch.distributed.tensor import Partial
+c = mesh.get_coordinate()[0]
+base = torch.arange(8.0).view(2, 4) - 3.0
+part_a, part_b = base * (c + 1) + c, base.flip(1) * (2 - c) - c
+want_a = {"sum": sum(base * (k + 1) + k for k in (0, 1)),
+          "max": torch.maximum(base, base * 2 + 1)}
+want_b = {"sum": sum(base.flip(1) * (2 - k) - k for k in (0, 1)),
+          "max": torch.maximum(base.flip(1) * 2, base.flip(1) - 1)}
+
+
+def partial(local, kind):
+    return DTensor.from_local(local.clone(), mesh,
+                              [Partial(kind), Replicate()], run_check=False)
+
+
+pointwise = {
+    "sum_plus_number": ("sum", lambda a, b: a + 1.5,
+                        lambda a, b: a + 1.5),
+    "sum_minus_number": ("sum", lambda a, b: a - 2, lambda a, b: a - 2),
+    "sum_add_number_in_place": ("sum", lambda a, b: a.add_(1.5),
+                                lambda a, b: a + 1.5),
+    "sum_plus_sum": ("sum", lambda a, b: a + b, lambda a, b: a + b),
+    "sum_times_number": ("sum", lambda a, b: a * 3.0, lambda a, b: a * 3.0),
+    "max_plus_max": ("max", lambda a, b: a + b, lambda a, b: a + b),
+    "max_plus_number": ("max", lambda a, b: a + 1.5, lambda a, b: a + 1.5)}
+out["pointwise"] = {}
+for name, (kind, fn, plain) in pointwise.items():
+    r = run(fn, partial(part_a, kind), partial(part_b, kind))
+    r["plain"] = plain(want_a[kind], want_b[kind]).numpy()
+    out["pointwise"][name] = r
 if rank == 0:
     with open(os.path.join(tmp, "out.pkl"), "wb") as f:
         pickle.dump(out, f)
@@ -157,7 +240,7 @@ def steps(tmp_path_factory):
     cases["decode"] = meshcheck.decode_case(
         jax.tree.map(np.asarray, JT.init(rc, jax.random.PRNGKey(1))))
     with open(tmp / "cases.pkl", "wb") as f:
-        pickle.dump((LR, cases), f)
+        pickle.dump((LR, cases, ROPE_X), f)
     # the ranks run while this process compiles and runs the reference
     with ThreadPoolExecutor(1) as pool:
         ranks = pool.submit(run_ranks, WORKER, tmp, 4)
@@ -169,7 +252,7 @@ def steps(tmp_path_factory):
 
 
 def test_no_index_op_reaches_dtensor_dispatch(steps):
-    """Every ``index_add`` / ``index_put`` of every family's step and of
+    """Every index op, slice and select of every family's step and of
     the decode steps ran through the port's own handlers: none was passed
     on to DTensor's per-version strategy."""
     _, port, _ = steps
@@ -225,6 +308,68 @@ def test_sharded_decode_equals_plain(steps):
     for k, b in p_cache.items():
         assert np.abs(s_cache[k] - b).max() <= TOL * max(np.abs(b).max(),
                                                          1.0), k
+
+
+def test_rope_keeps_a_head_dim_split(steps):
+    """``apply_rope`` of a (B, S, H, D) DTensor whose D is split over
+    "model" (whole pairs on each rank): its result keeps the split, no
+    collective runs, and it equals ``repro.models.layers.apply_rope`` of
+    the same values."""
+    _, port, _ = steps
+    r = port["rope"]
+    assert r["placements"] == ["S(0)", "S(3)"]
+    assert r["collectives"] == 0
+    pos = np.broadcast_to(np.arange(ROPE_X.shape[1], dtype=np.int32),
+                          ROPE_X.shape[:2])
+    want = np.asarray(JL.apply_rope(jnp.asarray(ROPE_X), jnp.asarray(pos),
+                                    1e4))
+    np.testing.assert_allclose(r["value"], want, rtol=1e-6, atol=1e-6)
+
+
+# the slices whose split each rank keeps (or that cut no split dimension),
+# which move nothing
+LOCAL_SLICES = ("unsplit", "aligned_even", "aligned_odd", "select_unsplit",
+                "backward_aligned", "backward_unsplit", "select_backward")
+
+
+@pytest.mark.parametrize("name", ["unsplit", "aligned_even", "aligned_odd",
+                                  "unaligned", "select_unsplit",
+                                  "select_split", "backward_aligned",
+                                  "backward_unsplit", "select_backward"])
+def test_slice_handlers_equal_the_plain_op(steps, name):
+    """The port's ``aten.slice`` / ``slice_backward`` / ``select`` /
+    ``select_backward`` on (8, 8) DTensors over the (2, 2) gloo mesh:
+    the plain op's values; no collective where the slice keeps each
+    rank's split (the even or odd lanes of a split dimension whose parts
+    hold whole pairs) or cuts no split dimension; a split the slice
+    cannot keep is moved or gathered first."""
+    _, port, _ = steps
+    r = port["slices"][name]
+    np.testing.assert_array_equal(r["value"], r["plain"])
+    if name in LOCAL_SLICES:
+        assert r["collectives"] == 0, r
+    else:
+        assert r["collectives"] > 0, r
+
+
+@pytest.mark.parametrize("name", ["sum_plus_number", "sum_minus_number",
+                                  "sum_add_number_in_place", "sum_plus_sum",
+                                  "sum_times_number", "max_plus_max",
+                                  "max_plus_number"])
+def test_pointwise_on_partial_sums_equals_the_plain_op(steps, name):
+    """The port's elementwise handler on (2, 4) DTensors that are partial
+    sums (or maxima) over "data" of the (2, 2) gloo mesh: the plain op's
+    values on the reduced tensors. A number added to a partial sum is
+    added once, not once a rank (in place: by the first rank alone, the
+    sum kept); two partial sums add as one, with no collective; two
+    partial maxima are reduced before they add."""
+    _, port, _ = steps
+    r = port["pointwise"][name]
+    np.testing.assert_array_equal(r["value"], r["plain"])
+    if name in ("sum_add_number_in_place", "sum_plus_sum",
+                "sum_times_number", "max_plus_number"):
+        assert r["collectives"] == 0, r
+        assert r["placements"][0].startswith("P"), r
 
 
 def test_handlers_are_removed_after_the_steps(steps):
