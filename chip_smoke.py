@@ -227,8 +227,8 @@ memory), and ``compressed_psum`` of the 100m gradients over the mesh's
 "data" group equal bit for bit to the one-rank form of the reference's
 formula (quantize, then dequantize), its error state finite. Last, on
 this machine's CPU by design (the card is not used; its torch is the one
-the checks are for), ``repro_torch.launch.meshcheck``'s five parts as
-five processes at once: the (2, 2) gloo steps of the smoke configs
+the checks are for), ``repro_torch.launch.meshcheck``'s six parts as
+six processes at once: the (2, 2) gloo steps of the smoke configs
 (qwen3-8b, qwen3-8b at accumulation 2, qwen3-8b with one KV head — its
 queries regrouped —, mixtral-8x7b, deepseek-v2-236b routed in groups,
 MeshGraphNet, DLRM-RM2) and the sequence-split decode, each sharded
@@ -243,9 +243,13 @@ train steps on a fake (4, 1) mesh, their flops a 4x split of (1, 1)'s
 within 2%; the GQA analogs (8 query heads, 2 KV heads) of mixtral-8x7b
 and qwen3-8b on a fake (1, 4) mesh, their attention split 4x with
 nothing of the queries gathered (``meshcheck.attention_sublayer_ok``)
-and their steps' flops within 5% of the reference's plan; and the
+and their steps' flops within 5% of the reference's plan; the
 per-layer count of three smoke cells equal to their full-depth traces
-(every additive term, temp within 5%).
+(every additive term, temp within 5%); and the smoke head check
+(qwen3-8b's smoke step at one layer, vocab 4096 and 512, on fake (1, 1),
+(1, 4), (2, 2) and (4, 1) meshes: no mesh holds more than 1.1x the
+copies of each rank's fp32 logits that one rank holds,
+``meshcheck.head_temp_ok``).
 
 Then the "graph_recsys" phase: GNN and recsys (``repro_torch.models.gnn``
 and ``.recsys``), fp32 with TF32 off, weights from the port's seeded init.
@@ -486,7 +490,8 @@ MOE_LOCKSTEP = ("deepseek-v2-236b", 4, 40, 2)   # the MoE card-vs-CPU check:
 MESH_STEPS = 2                   # steps of each form from one state
 MESH_TOL = 1e-5                  # sharded vs plain, of max |value|
 MESH_CHECK_TIMEOUT = 600         # s, each part of repro_torch.launch.meshcheck
-MESH_CHECK_PARTS = ("steps", "traces", "moe", "attention", "depth")
+MESH_CHECK_PARTS = ("steps", "traces", "moe", "attention", "depth",
+                    "memory")
 MESH_DECODE_TEMP = 69683264      # qwen3-8b decode_32k temp bytes per device
                                  # under torch 2.13 (PERF.md, section 6)
 MESH_DECODE_TEMP_TOL = 0.10
@@ -3117,8 +3122,9 @@ def phase_mesh(card, kept):
 
 
 def mesh_checks_on_cpu() -> dict:
-    """``repro_torch.launch.meshcheck``'s five parts, each a process of
-    its own (the steps' four gloo ranks theirs), all at once on this
+    """``repro_torch.launch.meshcheck``'s six parts, each a process of
+    its own (the steps' four gloo ranks and the head check's four traces
+    theirs), all at once on this
     machine's CPU with no card visible: the sharding checks run under
     this machine's torch, port against port. Fails on any miss."""
     t0 = time.perf_counter()
@@ -3142,8 +3148,8 @@ def mesh_checks_on_cpu() -> dict:
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    steps, traces, moe, attn, depth = (res.get(p, {})
-                                       for p in MESH_CHECK_PARTS)
+    steps, traces, moe, attn, depth, memory = (res.get(p, {})
+                                               for p in MESH_CHECK_PARTS)
     import torch
     log(f"[mesh] on this machine's CPU, by design (torch {torch.__version__}"
         f"; no card): the (2, 2) gloo steps, sharded vs plain, largest "
@@ -3167,11 +3173,15 @@ def mesh_checks_on_cpu() -> dict:
     log(f"[mesh] the per-layer count against full-depth traces of the "
         f"smoke cells (terms that differ; temp ratio): "
         f"{ {c: depth[c] for c in depth if c not in ('ok', 's')} } "
-        f"({depth.get('s')} s); the five parts at once "
+        f"({depth.get('s')} s)")
+    log(f"[mesh] the smoke head check (copies of each rank's fp32 logits "
+        f"the step holds, by fake mesh): "
+        f"{ {m: r.get('copies') for m, r in memory.get('meshes', {}).items()} }"
+        f" ({memory.get('s')} s); the six parts at once "
         f"{time.perf_counter() - t0:.1f} s")
     temp_ok = abs(temp / MESH_DECODE_TEMP - 1) <= MESH_DECODE_TEMP_TOL
     if errs or not (all(r.get("ok") for r in (steps, traces, moe, attn,
-                                               depth)) and temp_ok):
+                                               depth, memory)) and temp_ok):
         raise AssertionError(f"mesh: the CPU sharding checks failed: "
                              f"{errs or 'a check missed'}")
     return res

@@ -196,17 +196,64 @@ def _propagation_uncounted(propagating: _Propagating):
         yield
 
 
-def _mem_tracker(propagating: _Propagating):
-    """A ``MemTracker`` that leaves DTensor's shape propagation out."""
+def _call_site() -> str:
+    """The innermost frame of the port's model, data or optimizer code on
+    the stack (not the placement's or the analysis's own), as
+    ``models/layers.py:459 weighted_xent``; "step" where there is none."""
+    import os
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    skip = (os.path.join(root, "launch"), os.path.join(root, "train",
+                                                       "steps.py"))
+    f = sys._getframe(2)
+    while f is not None:
+        name = f.f_code.co_filename
+        if name.startswith(root) and not name.startswith(skip):
+            return (f"{os.path.relpath(name, root)}:{f.f_lineno} "
+                    f"{f.f_code.co_name}")
+        f = f.f_back
+    return "step"
+
+
+def _mem_tracker(propagating: _Propagating, by_op: bool = False):
+    """A ``MemTracker`` that leaves DTensor's shape propagation out.
+    ``by_op``: it also keeps, at each new peak, the bytes then live of
+    each storage made in the step by the aten op and the port's line that
+    made it (``peak_by_op``; the arguments are left out)."""
     from torch.distributed._tools.mem_tracker import MemTracker
+    from torch.utils.weak import WeakIdKeyDictionary
 
     class Tracker(MemTracker):
+        peak_by_op: dict = {}
+
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
             if propagating.depth and not _is_dtensor(types):
                 return func(*args, **(kwargs or {}))
+            if by_op and not _is_dtensor(types):
+                self._op = f"{func.overloadpacket} @ {_call_site()}"
             return super().__torch_dispatch__(func, types, args, kwargs)
 
-    return Tracker()
+        def _track(self, reftype, t):
+            super()._track(reftype, t)
+            if by_op:
+                st = t.untyped_storage()
+                if st not in self._made_by:
+                    self._made_by[st] = self._op
+
+        def _update_peak_stats(self, peak_state):
+            before = dict(self._peak_mem)
+            super()._update_peak_stats(peak_state)
+            if by_op and self._peak_mem != before:
+                live = defaultdict(int)
+                for st, (winfo, _) in list(self._WINFO.items()):
+                    site = self._made_by.get(st)
+                    if site is not None:
+                        live[site] += winfo.mem_consumed
+                self.peak_by_op = dict(live)
+
+    mt = Tracker()
+    mt._made_by, mt._op = WeakIdKeyDictionary(), "step"
+    return mt
 
 
 class _OpCounter(TorchDispatchMode):
@@ -341,14 +388,17 @@ def _alltoall_as_the_card_runs_it(propagating, mt, counter, comm):
         placement_types.shard_dim_alltoall = orig
 
 
-def analyze_step(step_fn, args) -> dict:
+def analyze_step(step_fn, args, peak_by_op: bool = False) -> dict:
     """Run ``step_fn(*args)`` once and count it, per device. -> {"cost",
     "memory", "collectives_bytes", "collectives_counts", "run_s",
-    "outputs"} (the step's outputs, for the caller to use or drop)."""
+    "outputs"} (the step's outputs, for the caller to use or drop).
+    ``peak_by_op``: ``memory["peak_by_op"]`` holds the temp live at the
+    peak by the op and line that made it ({"aten.exp @
+    models/layers.py:458 weighted_xent": bytes}, largest first)."""
     from torch.distributed.tensor.debug import CommDebugMode
     arg_st = _storage_bytes(args)
     propagating = _Propagating()
-    mt = _mem_tracker(propagating)
+    mt = _mem_tracker(propagating, peak_by_op)
     mt.track_external(*_tensors(args))
     counter = _OpCounter(propagating)
     comm = CommDebugMode()
@@ -363,17 +413,21 @@ def analyze_step(step_fn, args) -> dict:
     coll_bytes = dict(counter.coll)
     coll_bytes["total"] = sum(coll_bytes.values())
     counts = _by_kind(comm.get_comm_counts())
+    memory = {
+        "argument_size_in_bytes": sum(arg_st.values()),
+        "output_size_in_bytes": sum(out_st.values()),
+        "alias_size_in_bytes": sum(b for s, b in out_st.items()
+                                   if s in arg_st),
+        "temp_size_in_bytes": max(0, peak - sum(arg_st.values()))}
+    if peak_by_op:
+        memory["peak_by_op"] = dict(sorted(mt.peak_by_op.items(),
+                                           key=lambda kv: -kv[1]))
     return {
         "cost": {"flops": float(counter.flops),
                  "bytes_accessed": float(counter.bytes),
                  "bytes_by_op": dict(counter.by_op),
                  "flops_by_op": dict(counter.flops_by_op)},
-        "memory": {
-            "argument_size_in_bytes": sum(arg_st.values()),
-            "output_size_in_bytes": sum(out_st.values()),
-            "alias_size_in_bytes": sum(b for s, b in out_st.items()
-                                       if s in arg_st),
-            "temp_size_in_bytes": max(0, peak - sum(arg_st.values()))},
+        "memory": memory,
         "collectives_bytes": coll_bytes,
         "collectives_by_op": {op: dict(k) for op, k in
                               counter.coll_by_op.items()},

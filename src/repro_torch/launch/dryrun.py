@@ -133,11 +133,12 @@ def _summary(rec: dict) -> None:
     print(f"[dryrun]   memory: {mem}")
 
 
-def _trace_once(arch, shape: str, mesh, fsdp=None, update_fn=None) -> dict:
+def _trace_once(arch, shape: str, mesh, fsdp=None, update_fn=None,
+                peak_by_op: bool = False) -> dict:
     """``arch``'s cell traced at its own depth (see ``trace_cell``). An
     LM cell's ``fsdp`` (None: the arch's own choice) goes to its param
     and optimizer specs, a train step's ``update_fn`` to its step
-    (``make_train_step``)."""
+    (``make_train_step``); ``peak_by_op`` to ``analyze_step``."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     cell = arch.shapes[shape]
     dev = "cpu"
@@ -180,7 +181,7 @@ def _trace_once(arch, shape: str, mesh, fsdp=None, update_fn=None) -> dict:
         with torch.inference_mode(cell.kind != "train"):
             placed = fn.place(*args)
         t_place = time.perf_counter() - t0
-        rec = analyze_step(fn.placed, placed)
+        rec = analyze_step(fn.placed, placed, peak_by_op)
     rec.pop("outputs")
     rec["trace_s"] = round(rec.pop("run_s"), 2)
     rec["place_s"] = round(t_place, 2)
@@ -402,10 +403,14 @@ def dryrun_cell(arch_id: str, shape: str, multi_pod: bool,
     if cell.skip:
         rec["skipped"] = cell.skip
         return rec
+    from ..train.steps import GATHER_REPLICATED
+    GATHER_REPLICATED.clear()
     with fake_world(_n_chips(multi_pod)):
         mesh = make_production_mesh(multi_pod, device="cpu")
         rec["mesh_shape"] = dict(production_axes(multi_pod).shape)
         rec.update(trace_cell(arch, shape, mesh, full_depth))
+    # the lines whose gather replicated a split gathered dimension
+    rec["gather_replicated"] = dict(GATHER_REPLICATED)
     rec["n_chips"] = _n_chips(multi_pod)
     _summary(rec)
     return rec

@@ -5,7 +5,7 @@ make against the reference, in a form that needs no JAX, so that the
 card machine's torch runs them too.
 
     PYTHONPATH=src python -m repro_torch.launch.meshcheck            # all
-    PYTHONPATH=src python -m repro_torch.launch.meshcheck --part steps
+    PYTHONPATH=src python -m repro_torch.launch.meshcheck --part memory
 
 ``steps``: one train step of each family's smoke config (``FAMILIES``)
 through ``train.jit_sharded`` on a (2, 2) ("data", "model") mesh of four
@@ -31,9 +31,15 @@ heads, 2 KV heads) on a fake (1, 4) mesh: the attention split 4x,
 nothing of the queries gathered, the step's flops against the
 reference's plan (``attention_split``). ``depth``: the dry run's
 per-layer count of ``DEPTH_CELLS`` against their full-depth traces
-(``depth_differences``). Each part takes about a minute on one core;
-they run apart as processes of their own (``--part``) where time
-counts.
+(``depth_differences``). ``memory``: the smoke head check, qwen3-8b's
+smoke step at one layer traced at two vocab sizes on fake (1, 1), (1, 4),
+(2, 2) and (4, 1) meshes (``head_copies``), no mesh holding more copies
+of each rank's fp32 logits than ``HEAD_TOL`` times the one-rank step
+(``head_temp_ok``); four processes at once, ~15 s. Each other part
+takes about a minute on one core; they run apart as processes of their
+own (``--part``) where time counts. ``REFERENCE_TEMP`` holds the
+reference's temp per device of the LM train_4k and prefill_32k cells,
+which ``scripts/dryrun_table.py --reference`` sets beside the port's.
 
 Prints one JSON object as its last line; exit 0 when every check
 passes. Nothing here touches a card.
@@ -347,15 +353,20 @@ def run_cases(mesh, cases: dict, lr: float) -> dict:
     """What each rank runs: every family of ``cases`` and the decode ->
     {family: run_family's result, "decode": run_decode's, "unhandled":
     {op: count} of the index ops, slices and selects passed on to
-    DTensor's dispatch}."""
+    DTensor's dispatch, "gather_replicated": ``train.steps``'
+    ``GATHER_REPLICATED``, the lines whose gather replicated a split
+    gathered dimension}."""
+    from ..train import steps
     counts = collections.Counter()
     out = {}
+    steps.GATHER_REPLICATED.clear()
     with counting_unhandled(counts):
         for family, case in cases.items():
             out[family] = (run_decode(mesh, case) if family == "decode"
                            else run_family(mesh, family, case, lr))
     out["unhandled"] = {op: n for op, n in counts.items()
                         if any(k in op for k in UNHANDLED_WATCHED)}
+    out["gather_replicated"] = dict(steps.GATHER_REPLICATED)
     return out
 
 
@@ -465,10 +476,12 @@ def check_steps(timeout: float = 900) -> dict:
         with open(os.path.join(tmp, "out.pkl"), "rb") as f:
             out = pickle.load(f)
     unhandled = out.pop("unhandled")
+    replicated = out.pop("gather_replicated")
     dist = distances(out)
     ok = not unhandled and all(v <= TOL for d in dist.values()
                                for v in d.values())
-    return {"distances": dist, "unhandled": unhandled, "ok": ok,
+    return {"distances": dist, "unhandled": unhandled,
+            "gather_replicated": replicated, "ok": ok,
             "s": round(time.perf_counter() - t0, 1)}
 
 
@@ -864,8 +877,138 @@ def check_depth() -> dict:
     return out
 
 
+# ------------------------------------------------------------- memory --- //
+
+# the smoke head check: qwen3-8b's smoke config at one layer, one
+# microbatch of HEAD_CELL tokens, traced at both HEAD_VOCABS on each fake
+# ("data", "model") mesh of HEAD_MESHES; Δtemp over Δ(each rank's fp32
+# logits) is the number of copies of its logits the step holds, which a
+# mesh may not raise past HEAD_TOL times the (1, 1) mesh's (five: the
+# logits, logsumexp's backward's x - lse, its exp and their product, the
+# gold logit's gradient). The attention runs in one block of the
+# sequence: the smoke config's 32-token blocks hold the same copies at
+# 2.3x the trace's ops
+HEAD_CELL = {"batch": 16, "seq": 128}
+HEAD_VOCABS = (4096, 512)
+HEAD_MESHES = ((1, 1), (1, 4), (2, 2), (4, 1))
+HEAD_TOL = 1.1
+# the reference's temp per device of the LM train_4k and prefill_32k cells
+# on both production meshes (``scripts/reference_dryrun_memory.py``: XLA's
+# memory analysis of the module compiled for 256 / 512 host devices, Auto
+# axes; computed from shapes, jax 0.9.0), and the most the port's dry run
+# may read against it in a train_4k cell
+REFERENCE_TEMP = {
+    "qwen3-8b/train_4k/single": 18327156384,
+    "qwen3-8b/train_4k/multi": 15955875744,
+    "qwen3-8b/prefill_32k/single": 5721689008,
+    "qwen3-8b/prefill_32k/multi": 3825732528,
+    "codeqwen1.5-7b/train_4k/single": 14282041720,
+    "codeqwen1.5-7b/train_4k/multi": 14284077432,
+    "codeqwen1.5-7b/prefill_32k/single": 5785912304,
+    "codeqwen1.5-7b/prefill_32k/multi": 3889955824,
+    "h2o-danube-3-4b/train_4k/single": 19027575744,
+    "h2o-danube-3-4b/train_4k/multi": 19542713536,
+    "h2o-danube-3-4b/prefill_32k/single": 4588356336,
+    "h2o-danube-3-4b/prefill_32k/multi": 2810888944,
+    "mixtral-8x7b/train_4k/single": 38250894160,
+    "mixtral-8x7b/train_4k/multi": 38264578656,
+    "mixtral-8x7b/prefill_32k/single": 41046788200,
+    "mixtral-8x7b/prefill_32k/multi": 20891027760,
+    "deepseek-v2-236b/train_4k/single": 45555365496,
+    "deepseek-v2-236b/train_4k/multi": 45602993856,
+    "deepseek-v2-236b/prefill_32k/single": 53687092360,
+    "deepseek-v2-236b/prefill_32k/multi": 26843546768}
+REFERENCE_TEMP_TOL = 1.5
+
+
+def head_arch(vocab: int):
+    """qwen3-8b's smoke ``LMArch`` at one layer and ``vocab``, its
+    attention in one block, with its ``train_4k`` cell cut to
+    ``HEAD_CELL`` in one microbatch."""
+    from ..configs import get_arch
+    from ..configs.registry import ShapeCell
+    base = get_arch("qwen3-8b")
+    seq = HEAD_CELL["seq"]
+    cfg = dataclasses.replace(base.smoke(), n_layers=1, vocab=vocab,
+                              attn_q_block=seq, attn_k_block=seq)
+    arch = type(base)("qwen3-8b", cfg, accum={"train_4k": 1})
+    arch.shapes["train_4k"] = ShapeCell("train_4k", "train", dict(HEAD_CELL))
+    return arch
+
+
+def head_copies(data: int, model: int) -> dict:
+    """The smoke head check's step at both ``HEAD_VOCABS`` on a fake
+    (data, model) mesh -> {"temp_bytes": at each vocab, "logits_bytes":
+    the difference of each rank's fp32 logits, "copies": Δtemp over it,
+    "collectives_bytes": at the larger vocab}."""
+    from .dryrun import fake_world, trace_cell
+    from .mesh import make_local_mesh
+    recs = {}
+    for vocab in HEAD_VOCABS:
+        with fake_world(data * model):
+            recs[vocab] = trace_cell(head_arch(vocab), "train_4k",
+                                     make_local_mesh(model=model,
+                                                     device="cpu"))
+    hi, lo = HEAD_VOCABS
+    tokens = HEAD_CELL["batch"] * HEAD_CELL["seq"] // data
+    logits = tokens * (hi - lo) // model * 4
+    temp = [recs[v]["memory"]["temp_size_in_bytes"] for v in HEAD_VOCABS]
+    return {"mesh": [data, model], "temp_bytes": temp,
+            "logits_bytes": logits, "copies": (temp[0] - temp[1]) / logits,
+            "collectives_bytes": recs[hi]["collectives_bytes"]}
+
+
+def head_temp_ok(copies: dict) -> bool:
+    """Whether no mesh of ``copies`` ({(data, model): the copies of each
+    rank's logits, ``head_copies``}) holds more than ``HEAD_TOL`` times
+    the (1, 1) mesh's."""
+    one = copies[(1, 1)]
+    return all(c <= HEAD_TOL * one for c in copies.values())
+
+
+HEAD_WORKER = """
+import json, sys
+from repro_torch.launch import meshcheck
+print(json.dumps(meshcheck.head_copies(int(sys.argv[1]), int(sys.argv[2])),
+                 default=float))
+"""
+
+
+def check_memory(timeout: float = 600) -> dict:
+    """The smoke head check: ``head_copies`` of every mesh of
+    ``HEAD_MESHES``, each in a process of its own (a fake process group
+    is global to its process), all at once, held by ``head_temp_ok`` ->
+    {"meshes": each record, "ok", "s"}."""
+    t0 = time.perf_counter()
+    root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    env = {**os.environ, "PYTHONPATH": root, "OMP_NUM_THREADS": "1"}
+    procs = [subprocess.Popen([sys.executable, "-c", HEAD_WORKER, str(d),
+                               str(m)], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True, env=env)
+             for d, m in HEAD_MESHES]
+    try:
+        outs = [p.communicate(timeout=timeout) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    meshes = {}
+    for (d, m), p, (out, err) in zip(HEAD_MESHES, procs, outs):
+        if p.returncode:
+            raise RuntimeError(f"the ({d}, {m}) trace exited {p.returncode}"
+                               f": {err[-3000:]}")
+        meshes[f"{d}x{m}"] = json.loads(out.strip().splitlines()[-1])
+    ok = head_temp_ok({tuple(r["mesh"]): r["copies"]
+                       for r in meshes.values()})
+    return {"meshes": meshes, "ok": ok,
+            "s": round(time.perf_counter() - t0, 1)}
+
+
 PARTS = {"steps": check_steps, "traces": check_traces, "moe": check_moe,
-         "attention": check_attention, "depth": check_depth}
+         "attention": check_attention, "depth": check_depth,
+         "memory": check_memory}
 
 
 def main(argv=None) -> int:

@@ -305,6 +305,17 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a @ b
 
 
+def gather(x: torch.Tensor, dim: int, index: torch.Tensor) -> torch.Tensor:
+    """``torch.gather``; on DTensors the port's own placement,
+    ``train.steps.placed_gather``: along a split dimension each rank
+    reads its own slice, where DTensor would gather it whole."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(x, DTensor):
+        from ..train.steps import placed_gather
+        return placed_gather(x, dim, index)
+    return torch.gather(x, dim, index)
+
+
 def attention_scores_mask(q_pos: torch.Tensor, k_pos: torch.Tensor,
                           window: Optional[int] = None) -> torch.Tensor:
     """(..., Sq, Sk) bool mask: causal, optionally sliding-window."""
@@ -453,11 +464,13 @@ def weighted_xent(logits: torch.Tensor, labels: torch.Tensor,
     """logits (..., V) any float dtype, labels (...,) int, weights (...,) —
     the mean over weighted tokens, in fp32 (``_wide``). A weight of 0
     drops a record (the dedup pipeline's "drop" mode); the denominator is
-    max(sum w, 1), so all-zero weights give a loss of 0."""
+    max(sum w, 1), so all-zero weights give a loss of 0. On logits whose
+    vocab is split (a placed step) both reductions stay on each rank's
+    slice: ``logsumexp`` as ``train.steps``' handler places it, the gold
+    logit through ``gather``."""
     logits = _wide(logits)
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.take_along_dim(logits, labels[..., None].long(),
-                                dim=-1)[..., 0]
+    gold = gather(logits, -1, labels[..., None].long())[..., 0]
     nll = logz - gold
     w = _wide(weights)
     return (nll * w).sum() / torch.clamp(w.sum(), min=1.0)

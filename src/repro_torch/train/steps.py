@@ -27,6 +27,7 @@ computes its share of it.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import copy
 import functools
@@ -276,6 +277,10 @@ def _place_tree(x, specs, mesh, in_place: bool):
 
 
 _RULES = []
+# {the port's line: times}: each gather whose gathered dimension is split,
+# which the public gather rule replicates (DTensor caches a rule's answer
+# by the operands' shapes and placements: a line counts once a placement)
+GATHER_REPLICATED = collections.Counter()
 
 
 def _register_rules() -> None:
@@ -283,14 +288,17 @@ def _register_rules() -> None:
     DTensor's own rule does not fit the port's steps, registered once per
     process (DTensor's registry is global):
 
-      * ``aten.gather`` along a sharded dimension (``weighted_xent``'s
-        gold logit over a vocab split across "model"): DTensor's rule
-        gives a masked partial whose mask does not fit the output, so the
-        gathered dimension is replicated (an all-gather, which the
-        analysis counts), other dimensions stay split; a partial sum
-        gathered by a whole index stays one (a gather is linear: the MoE
-        combine reads the experts' partial outputs, reduced once at the
-        residual add);
+      * ``aten.gather`` (the MoE sort dispatch's reads): the gathered
+        dimension whole, other dimensions that the operands share may
+        stay split; a partial sum gathered by a whole index stays one (a
+        gather is linear: the MoE combine reads the experts' partial
+        outputs, reduced once at the residual add). A gather along a
+        split dimension would replicate it (an all-gather, which the
+        analysis counts): the loss head's gold logit over a vocab split
+        across "model" is ``placed_gather`` instead, and each time the
+        rule sees a split gathered dimension it records the port's line
+        that called it in ``GATHER_REPLICATED`` (the model steps leave
+        it empty);
       * ``aten.constant_pad_nd`` (``flash_sdpa``'s padding of its query
         and key blocks): torch 2.11's rule gives its output one
         placement whatever the mesh's rank; the rule here keeps each
@@ -314,6 +322,10 @@ def _register_rules() -> None:
     @register_sharding(aten.gather.default)
     def gather_rule(x, dim, index, sparse_grad=False):
         dim %= x.ndim
+        if any(isinstance(pl, Shard) and pl.dim % x.ndim == dim
+               for pl in x.placements):
+            from ..launch.analysis import _call_site
+            GATHER_REPLICATED[_call_site()] += 1
         out = [([Replicate()], [Replicate(), None, Replicate()]),
                ([Partial()], [Partial(), None, Replicate()])]
         out += [([Shard(d)], [Shard(d), None, Shard(d)])
@@ -440,6 +452,20 @@ def _handlers() -> dict:
         would first try to propagate through its decomposition, fail and
         keep the failure's traceback, and with it every tensor of the
         frames it holds, until the collector runs;
+      * ``aten.logsumexp`` (the loss head's normaliser over a vocab
+        split across "model"): ``_sharded_logsumexp``, a local max and a
+        local sum of ``exp`` on each rank's slice, combined across the
+        split by a max and then a sum all-reduce of one value a row;
+        autograd's backward of it, ``grad * exp(x - result)``, is
+        elementwise and stays on each rank's slice (DTensor would gather
+        the logits whole over the vocab, and its backward with them);
+      * ``aten.new_zeros`` / ``new_empty`` / ``new_ones`` / ``new_full``
+        (the MoE sort dispatch's expert buffer and combine, the backward
+        of a gather or a scatter): ``_new_factory``, which keeps each
+        split of ``self`` along a dimension the new shape has at the
+        same size (the groups over "data"), where DTensor makes every
+        tensor of a new shape whole on every rank (deepseek's prefill
+        buffer of all its groups' experts);
       * the elementwise ops of ``POINTWISE_OPS`` (masks, the online
         softmax, norms, RoPE, SwiGLU, the loss, the optimizer, their
         gradients): ``_pointwise``, which decides where a partial sum is
@@ -468,7 +494,12 @@ def _handlers() -> dict:
            aten.slice_backward.default: _sharded_slice_backward,
            aten.select.int: _sharded_select,
            aten.select_backward.default: _sharded_select_backward,
-           aten.softmax.int: _softmax}
+           aten.softmax.int: _softmax,
+           aten.logsumexp.default: _sharded_logsumexp,
+           aten.new_zeros.default: _new_factory,
+           aten.new_empty.default: _new_factory,
+           aten.new_ones.default: _new_factory,
+           aten.new_full.default: _new_factory}
     for op in POINTWISE_OPS:
         out[op] = _pointwise
     for name, fn in (("__and__", torch.bitwise_and),
@@ -1146,6 +1177,173 @@ def _own_rows(idx, dim: int, lshape, offset):
 def _along(mask, dim: int, ndim: int):
     """A 1-D mask shaped to broadcast along ``dim`` of an ``ndim`` tensor."""
     return mask.reshape([-1 if d == dim else 1 for d in range(ndim)])
+
+
+def _sharded_logsumexp(op_call, args, kwargs):
+    """``aten.logsumexp(x, dim, keepdim)`` on a DTensor: a partial sum of
+    ``x`` reduced first (the op is not linear); where no mesh dimension
+    splits a reduced dimension, the op on each rank's part; otherwise, as
+    torch computes it, the max m of each rank's slice combined across the
+    split (a max all-reduce), then the sum of ``exp(x - m)`` of each
+    slice combined likewise (a sum all-reduce), and ``log`` of it plus m
+    (m taken as 0 where it is infinite). The result is whole over the
+    mesh dimensions that split a reduced dimension and split as ``x``
+    over the others."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    x = args[0]
+    dims = args[1] if len(args) > 1 else kwargs.get("dim")
+    keepdim = args[2] if len(args) > 2 else kwargs.get("keepdim", False)
+    nd = x.ndim
+    dims = [dims] if isinstance(dims, int) else list(dims)
+    if not dims or any(type(pl) not in (Shard, Replicate, Partial)
+                       for pl in x.placements):
+        return _dispatch_unhandled(op_call, args, kwargs)
+    dims = sorted({d % nd for d in dims})
+    mesh = x.device_mesh
+    x = _placed_as(x, [Replicate() if pl.is_partial() else pl
+                       for pl in x.placements])
+    red = [j for j, pl in enumerate(x.placements)
+           if isinstance(pl, Shard) and pl.dim % nd in dims]
+    shape = [1 if d in dims else n for d, n in enumerate(x.shape)]
+    kept = [Replicate() if j in red else pl
+            for j, pl in enumerate(x.placements)]
+    local = x._local_tensor
+    if red:
+        def combined(t, op):
+            part = _wrap(t, mesh, [Partial(op) if j in red else pl
+                                   for j, pl in enumerate(kept)], shape)
+            return _placed_as(part, kept)._local_tensor
+
+        m = combined(local.amax(dims, keepdim=True), "max")
+        total = combined(torch.exp(local - m).sum(dims, keepdim=True),
+                         "sum")
+        out = torch.log(total) + torch.where(m.abs() == math.inf, 0, m)
+    else:
+        out = torch.logsumexp(local, dims, keepdim=True)
+    if not keepdim:
+        out = out.squeeze(dims)
+        shape = [n for d, n in enumerate(x.shape) if d not in dims]
+        kept = [Shard(pl.dim % nd - sum(d < pl.dim % nd for d in dims))
+                if isinstance(pl, Shard) else pl for pl in kept]
+    return _wrap(out, mesh, kept, shape)
+
+
+def _new_factory(op_call, args, kwargs):
+    """``self.new_zeros(size)`` (``new_empty``, ``new_ones``,
+    ``new_full``) on a DTensor: the new tensor is split over each mesh
+    dimension where ``self`` is split along a dimension that the new
+    shape has at the same size and the split divides (the MoE groups'
+    axis over "data"), and whole over the others; each rank makes its own
+    part. Any placement of a constant holds the same values; this one
+    keeps the work on it where ``self``'s is."""
+    from torch.distributed.tensor import Replicate, Shard
+    self_ = args[0]
+    size = tuple(args[1])
+    mesh = self_.device_mesh
+    pls, parts = [], [1] * len(size)
+    for j, pl in enumerate(_plain_placements(self_)):
+        d = _split_dim(pl, self_.ndim)
+        ok = d is not None and d < len(size) and \
+            size[d] == self_.shape[d] and \
+            size[d] % (parts[d] * mesh.size(j)) == 0
+        if ok:
+            parts[d] *= mesh.size(j)
+        pls.append(Shard(d) if ok else Replicate())
+    lshape, _ = _extent(size, pls, mesh)
+    out = op_call(self_._local_tensor, list(lshape), *args[2:], **kwargs)
+    return _wrap(out, mesh, pls, size)
+
+
+def _gather_plan(x, dim: int, index):
+    """(x's placements, the index's, the result's, the mesh dimensions
+    that split ``dim``) of ``placed_gather``, per mesh dimension: where
+    ``x`` splits ``dim`` the index whole and the result a partial sum;
+    where ``x`` splits another dimension that the index has at the same
+    size, the index split alike and the result too; anywhere else all
+    three whole."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    nd = x.ndim
+    xp, ip = _plain_placements(x), _plain_placements(index)
+    out_p, masked = [], []
+    for j in range(len(xp)):
+        xd = _split_dim(xp[j], nd)
+        if xd == dim:
+            ip[j] = Replicate()
+            out_p.append(Partial())
+            masked.append(j)
+        elif xd is not None and x.shape[xd] == index.shape[xd]:
+            ip[j] = Shard(xd)
+            out_p.append(Shard(xd))
+        else:
+            xp[j] = ip[j] = Replicate()
+            out_p.append(Replicate())
+    return xp, ip, out_p, masked
+
+
+def _gather_local(shape, mesh, dim: int, index, xp, masked) -> tuple:
+    """(each rank's index into its part, under ``xp``, of a tensor of
+    ``shape`` along ``dim``, whether it falls in that part): the index
+    shifted by the part's offset where ``masked`` mesh dimensions split
+    ``dim``, an index outside the part 0."""
+    li = index._local_tensor.long()
+    if not masked:
+        return li, None
+    lshape, off = _extent(shape, xp, mesh)
+    t = li - off[dim]
+    inside = (t >= 0) & (t < lshape[dim])
+    return torch.where(inside, t, 0), inside
+
+
+class _PlacedGather(torch.autograd.Function):
+    """``torch.gather(x, dim, index)`` on a split ``x`` (the loss head's
+    gold logit, its batch split over "data", its vocab over "model"):
+    where ``x`` splits ``dim``, each rank reads the entries that fall in
+    its slice and zeros elsewhere, a partial sum over those mesh
+    dimensions, reduced where it is used (``_gather_plan``). The
+    backward adds the gradient into zeros of each rank's part of ``x``
+    at the entries it read, ``x``'s placement, where autograd's own
+    backward of a gather makes zeros of ``x``'s whole shape on every
+    rank."""
+
+    @staticmethod
+    def forward(ctx, x, dim, index):
+        from torch.distributed.tensor import Replicate
+        xp, ip, out_p, masked = _gather_plan(x, dim, index)
+        x = _placed_as(x, xp)
+        index = _placed_as(_as_dtensor(index, x.device_mesh), ip)
+        li, inside = _gather_local(x.shape, x.device_mesh, dim, index, xp,
+                                   masked)
+        out = x._local_tensor.gather(dim, li)
+        if inside is not None:
+            out = torch.where(inside, out, 0)
+        ctx.save_for_backward(index)
+        ctx.dim, ctx.xp, ctx.masked = dim, xp, masked
+        ctx.x_meta = (tuple(x.shape), x.device_mesh)
+        ctx.grad_p = [Replicate() if pl.is_partial() else pl for pl in out_p]
+        return _wrap(out, x.device_mesh, out_p, index.shape)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (index,) = ctx.saved_tensors
+        shape, mesh = ctx.x_meta
+        dim, xp = ctx.dim, ctx.xp
+        g = _placed_as(_as_dtensor(grad, mesh), ctx.grad_p)._local_tensor
+        li, inside = _gather_local(shape, mesh, dim, index, xp, ctx.masked)
+        if inside is not None:
+            g = torch.where(inside, g, 0)
+        lshape, _ = _extent(shape, xp, mesh)
+        out = g.new_zeros(lshape).scatter_add_(dim, li, g)
+        return _wrap(out, mesh, xp, shape), None, None
+
+
+def placed_gather(x, dim: int, index):
+    """``torch.gather(x, dim, index)``; on a DTensor ``x`` split over more
+    than one rank (and no partial sum), ``_PlacedGather`` — what
+    ``models.layers.gather`` runs on DTensors. Anywhere else the gather
+    runs as it is (its placement the public gather rule's)."""
+    if _replicated((x,)) or any(pl.is_partial() for pl in x.placements):
+        return torch.gather(x, dim, index)
+    return _PlacedGather.apply(x, dim % x.ndim, index)
 
 
 def _sharded_index_select(op_call, args, kwargs):
