@@ -14,7 +14,9 @@ ones. ``--reference``: each LM train_4k and prefill_32k cell's temp
 against the reference's (``meshcheck.REFERENCE_TEMP``, from
 ``scripts/reference_dryrun_memory.py``), a train cell's held to
 ``REFERENCE_TEMP_TOL`` times it, and arguments plus temp to the card's
-memory.
+memory; then, where the reference's records are at ``--reference-file``
+(that script's ``--out``), the same cells' collective bytes by kind and
+flops beside the reference's trip-count-corrected (``loop_aware``) ones.
 """
 
 import argparse
@@ -33,6 +35,8 @@ from repro_torch.launch.meshcheck import (REFERENCE_TEMP,  # noqa: E402
                                           REFERENCE_TEMP_TOL)
 
 KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all")
+# the reference's HLO also names collective-permute
+REF_KINDS = KINDS + ("collective-permute",)
 AGREE = 0.01
 
 
@@ -164,6 +168,38 @@ def reference_table(a: dict) -> None:
           f"{CHIP_HBM_BYTES / 2**30:.0f} GiB of arguments and temp)\n")
 
 
+def reference_collectives(a: dict, path: str) -> None:
+    """The LM train_4k and prefill_32k cells' collective bytes by kind
+    and flops, per device, beside the reference's loop-aware ones (the
+    records of ``scripts/reference_dryrun_memory.py``)."""
+    if not os.path.exists(path):
+        print(f"(no reference records at {path}: run "
+              f"scripts/reference_dryrun_memory.py)\n")
+        return
+    ref = {r["cell"]: r for r in json.load(open(path)) if "error" not in r}
+    print("GB per device: AG · AR · RS · A2A · CP (collective-permute) · "
+          "total; flops in TFLOP")
+    print("| Cell | port | reference (loop-aware) | flops port / "
+          "reference |\n| --- | --- | --- | --- |")
+    for arch_id in all_arch_ids():
+        for shape in ("train_4k", "prefill_32k"):
+            for mesh in ("single", "multi"):
+                r = a.get((arch_id, shape, mesh))
+                f = ref.get(f"{arch_id}/{shape}/{mesh}", {}).get(
+                    "loop_aware") or {}
+                if not traced(r) or not f.get("collectives_bytes"):
+                    continue
+                c, fc = r["collectives_bytes"], f["collectives_bytes"]
+                print(f"| {arch_id} {shape} {mesh} | "
+                      + " · ".join(g(c.get(k, 0)) for k in REF_KINDS)
+                      + f" · {g(c.get('total', 0))} | "
+                      + " · ".join(g(fc.get(k, 0)) for k in REF_KINDS)
+                      + f" · {g(fc.get('total', 0))} | "
+                      f"{r['cost']['flops'] / 1e12:.4g} / "
+                      f"{f['flops'] / 1e12:.4g} |")
+    print()
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--a", required=True, help="records of torch A")
@@ -173,8 +209,12 @@ def main() -> None:
     ap.add_argument("--before", help="an earlier run's records of A's "
                                      "torch")
     ap.add_argument("--reference", action="store_true",
-                    help="the LM train / prefill cells' temp against the "
-                         "reference's")
+                    help="the LM train / prefill cells' temp and "
+                         "collectives against the reference's")
+    ap.add_argument("--reference-file", default=os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        "experiments", "reference_dryrun_memory.json"),
+        help="the records of scripts/reference_dryrun_memory.py")
     args = ap.parse_args()
     a = records(args.a)
     b = records(args.b) if args.b else {}
@@ -182,6 +222,7 @@ def main() -> None:
         before_table(records(args.before), a)
     if args.reference:
         reference_table(a)
+        reference_collectives(a, args.reference_file)
     print("| Cell | A: args + temp GB; TFLOP; AG · AR · RS · A2A GB; "
           "trace | B against A | flops / shape count (train: also against "
           "the count as both packages compute it) |")

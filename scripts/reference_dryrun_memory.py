@@ -65,9 +65,14 @@ def run_cell(cell: str) -> dict:
     if p.returncode:
         return {"cell": cell, "error": p.stderr[-2000:]}
     rec = json.loads(p.stdout.strip().splitlines()[-1])
+    loop = rec.get("loop_aware", {})
     return {"cell": cell, "memory": rec["memory"],
             "compile_s": rec.get("compile_s"), "lower_s": rec.get("lower_s"),
-            "flops": rec.get("cost", {}).get("flops")}
+            "flops": rec.get("cost", {}).get("flops"),
+            "collectives_bytes": rec.get("collectives_bytes"),
+            "loop_aware": {"flops": loop.get("flops"),
+                           "collectives_bytes": loop.get(
+                               "collectives_bytes")}}
 
 
 def main(argv=None) -> int:

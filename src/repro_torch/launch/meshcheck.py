@@ -525,13 +525,15 @@ def moe_step_arch(arch_id: str, batch: int, seq: int, group: int):
 
 
 def moe_apply_trace(arch_id: str, dispatch: str, mesh=None,
-                    batch: int = 4, seq: int = 64, group: int = 32) -> dict:
+                    batch: int = 4, seq: int = 64, group: int = 32,
+                    **fields) -> dict:
     """``moe_apply`` alone, forward and backward (the gradients of its
     params, placed as the params are, and of its input), of the smoke
-    config's MoE layer with ``dispatch`` and groups of ``group`` tokens,
-    on fake (batch, seq, d) tokens split by rows over ``mesh``'s batch
-    axes, under ``analysis.analyze_step``; ``mesh`` None runs it unplaced.
-    The record's ``param_bytes`` are the MoE params' bytes."""
+    config's MoE layer (its other ``fields`` replaced) with ``dispatch``
+    and groups of ``group`` tokens, on fake (batch, seq, d) tokens split
+    by rows over ``mesh``'s batch axes, under ``analysis.analyze_step``;
+    ``mesh`` None runs it unplaced. The record's ``param_bytes`` are the
+    MoE params' bytes."""
     import torch
     from torch._subclasses.fake_tensor import FakeTensorMode
     from ..configs import get_arch
@@ -542,7 +544,7 @@ def moe_apply_trace(arch_id: str, dispatch: str, mesh=None,
     from .dryrun import _fake_params, _strided_offsets_on_host
     arch = get_arch(arch_id)
     tcfg = dataclasses.replace(arch.smoke(), moe_dispatch=dispatch,
-                               moe_group_size=group)
+                               moe_group_size=group, **fields)
     cfg = tcfg.moe_cfg
     params = moe_init(None, cfg, tcfg.dtype, "meta")
     names = [n for n, _ in params.named_parameters()]
@@ -1006,9 +1008,238 @@ def check_memory(timeout: float = 600) -> dict:
             "s": round(time.perf_counter() - t0, 1)}
 
 
+# ---------------------------------------------------------- placement --- //
+
+# the MoE sort dispatch on meshes with more batch ranks than a microbatch
+# has routing groups ("groups": moe_grouped's 4 x 40 tokens routed in 2
+# groups of PLACE_GROUP over a (4, 1) mesh, each group's rows on two
+# ranks) and with the experts' slots split over "model" ("combine": its
+# 8 experts over a (1, 4) mesh); the token embedding's gradient on each
+# rank's rows (EMBED_CELL's table over "model", its ids by batch)
+PLACE_GROUP = 80
+PLACE_MESHES = {"groups": (4, 1), "combine": (1, 4)}
+EMBED_CELL = {"vocab": 4096, "d": 64, "batch": 4, "seq": 64}
+EMBED_MESHES = ((1, 4), (2, 2))
+
+
+def placement_cases() -> dict:
+    """{mesh name: the moe_grouped case it runs}: "groups" with routing
+    groups of ``PLACE_GROUP`` tokens, "combine" with the family's own."""
+    cases = {}
+    for name in PLACE_MESHES:
+        cfg = smoke_config("moe_grouped")
+        if name == "groups":
+            cfg = dataclasses.replace(cfg, moe_group_size=PLACE_GROUP)
+        arch_id = FAMILIES["moe_grouped"][0]
+        cases[name] = (arch_id, config_dict(cfg),
+                       seeded_params(arch_id, cfg, 0),
+                       family_inputs("moe_grouped", cfg), 1)
+    return cases
+
+
+def embedding_inputs() -> tuple:
+    """(table, ids, weights) of ``EMBED_CELL`` as numpy arrays."""
+    rng = np.random.default_rng(30)
+    c = EMBED_CELL
+    table = rng.standard_normal((c["vocab"], c["d"])).astype(np.float32)
+    ids = rng.integers(0, c["vocab"], (c["batch"], c["seq"]))
+    # every edge of the table's slices over 4 ranks, and a repeated id
+    ids.reshape(-1)[:9] = [0, 1023, 1024, 2047, 2048, 3071, 3072, 4095, 0]
+    w = rng.random((c["batch"], c["seq"])).astype(np.float32)
+    return table, ids.astype(np.int64), w
+
+
+def embedding_loss(table, ids, w):
+    from ..models.layers import embedding
+    return (embedding(table, ids).float().pow(2).sum(-1) * w).sum()
+
+
+def embedding_grad(mesh, table, ids, w):
+    """The gradient of ``embedding_loss`` at numpy inputs, the table over
+    "model" by rows and over "data" by features, the ids and weights by
+    batch; on ``mesh`` None the unplaced op -> (the gradient, its
+    placements or None)."""
+    import torch
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from ..train import steps
+    table, ids, w = (torch.from_numpy(a) for a in (table, ids, w))
+    if mesh is None:
+        table.requires_grad_()
+        (g,) = torch.autograd.grad(embedding_loss(table, ids, w), table)
+        return g.numpy(), None
+    t = distribute_tensor(table, mesh, [Shard(1), Shard(0)],
+                          src_data_rank=None).requires_grad_()
+    rows = [Shard(0), Replicate()]
+    ids = distribute_tensor(ids, mesh, rows, src_data_rank=None)
+    w = distribute_tensor(w, mesh, rows, src_data_rank=None)
+    with steps._sharding_handlers(), steps._replicate_plain_tensors():
+        (g,) = torch.autograd.grad(embedding_loss(t, ids, w), t)
+    return g.full_tensor().numpy(), [str(pl) for pl in g.placements]
+
+
+def run_placement(lr: float, cases: dict, embed: tuple) -> dict:
+    """What each gloo rank of the placement check runs: each case of
+    ``placement_cases`` on its mesh (``run_family``, with the lines whose
+    gather replicated a split dimension) and the embedding's gradient on
+    each of ``EMBED_MESHES``."""
+    from ..train import steps
+    from .mesh import make_local_mesh
+    out = {}
+    for name, (_, model) in PLACE_MESHES.items():
+        mesh = make_local_mesh(model=model, device="cpu")
+        steps.GATHER_REPLICATED.clear()
+        out[name] = run_family(mesh, "moe_grouped", cases[name], lr)
+        out[f"{name}_replicated"] = dict(steps.GATHER_REPLICATED)
+    for data, model in EMBED_MESHES:
+        out[f"embed_{data}x{model}"] = embedding_grad(
+            make_local_mesh(model=model, device="cpu"), *embed)
+    return out
+
+
+PLACE_WORKER = """
+import os, pickle, sys
+import torch, torch.distributed as dist
+torch.set_num_threads(1)
+from repro_torch.launch import meshcheck
+tmp = sys.argv[1]
+rank, world = int(os.environ["RANK"]), int(os.environ["WORLD"])
+dist.init_process_group("gloo", init_method="file://" + os.environ["STORE"],
+                        rank=rank, world_size=world)
+args = pickle.load(open(os.path.join(tmp, "cases.pkl"), "rb"))
+out = meshcheck.run_placement(*args)
+if rank == 0:
+    with open(os.path.join(tmp, "out.pkl"), "wb") as f:
+        pickle.dump(out, f)
+dist.destroy_process_group()
+"""
+
+
+def group_split() -> dict:
+    """``moe_apply_trace`` of deepseek-v2-236b's smoke layer with no shared
+    experts (all of its work routed in groups), 4 x 64 tokens in 2
+    groups, on a fake (4, 1) mesh against unplaced: each rank computes
+    the one group its rows belong to, half the unplaced flops -> {"flops":
+    [unplaced, (4, 1)], "collectives_bytes"}."""
+    from .dryrun import fake_world
+    from .mesh import make_local_mesh
+    kw = {"group": 128, "n_shared_experts": 0}
+    plain = moe_apply_trace("deepseek-v2-236b", "sort", **kw)
+    with fake_world(4):
+        split = moe_apply_trace("deepseek-v2-236b", "sort",
+                                make_local_mesh(model=1, device="cpu"), **kw)
+    return {"flops": [r["cost"]["flops"] for r in (plain, split)],
+            "collectives_bytes": split["collectives_bytes"]}
+
+
+def embedding_trace(data: int, model: int) -> dict:
+    """``embedding_loss``'s gradient at ``EMBED_CELL`` on a fake (data,
+    model) mesh under ``analysis.analyze_step(..., peak_by_op=True)`` ->
+    {"largest": the largest storage live at the peak, by the op and line
+    that made it, "table_bytes": the whole table's, "collectives_bytes"}."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from ..distributed.sharding import P
+    from ..models.layers import Params
+    from ..train import jit_sharded
+    from .analysis import analyze_step
+    from .dryrun import _strided_offsets_on_host, fake_world
+    from .mesh import make_local_mesh
+    c = EMBED_CELL
+
+    def step(p, ids, w):
+        return torch.autograd.grad(embedding_loss(p["table"], ids, w),
+                                   [p["table"]])
+
+    with fake_world(data * model):
+        mesh = make_local_mesh(model=model, device="cpu")
+        with _strided_offsets_on_host(), \
+                FakeTensorMode(allow_non_fake_inputs=True):
+            params = Params(table=torch.nn.Parameter(
+                torch.empty((c["vocab"], c["d"]))))
+            spec = {"table": P("model", "data")}
+            fn = jit_sharded(step, mesh, (spec, P("data"), P("data")),
+                             out_specs=(spec["table"],), donate_argnums=())
+            rec = analyze_step(fn.placed, fn.place(
+                params, torch.zeros((c["batch"], c["seq"]),
+                                    dtype=torch.int64),
+                torch.empty((c["batch"], c["seq"]))), peak_by_op=True)
+    peak = rec["memory"]["peak_by_op"]
+    return {"largest": max(peak.items(), key=lambda kv: kv[1]),
+            "table_bytes": c["vocab"] * c["d"] * 4,
+            "collectives_bytes": rec["collectives_bytes"]}
+
+
+TRACE_WORKER = """
+import json, sys
+from repro_torch.launch import meshcheck
+print(json.dumps({"groups": meshcheck.group_split(),
+                  "embed": meshcheck.embedding_trace(1, 4)}, default=float))
+"""
+
+
+def placement_ok(out: dict) -> bool:
+    """Whether the placement check's record holds: each gloo step within
+    ``TOL`` of the plain one and no gather replicated in it, each rank
+    one group's routed flops, the embedding's gradient within ``TOL`` of
+    the plain one's largest entry on every mesh, and no storage as large
+    as the whole table live at the embedding step's peak."""
+    flops = out["traces"]["groups"]["flops"]
+    emb = out["traces"]["embed"]
+    return (all(v <= TOL for d in out["distances"].values()
+                for v in d.values())
+            and not any(out["replicated"].values())
+            and flops[0] == 2 * flops[1]
+            and emb["largest"][1] < emb["table_bytes"])
+
+
+def check_placement(timeout: float = 600) -> dict:
+    """The gloo steps of ``run_placement`` (four ranks) and the fake
+    traces of ``group_split`` and ``embedding_trace`` (a process of
+    their own), all at once, held by ``placement_ok`` -> {"distances",
+    "replicated", "traces", "ok", "s"}."""
+    t0 = time.perf_counter()
+    root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    trace = subprocess.Popen(
+        [sys.executable, "-c", TRACE_WORKER], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True,
+        env={**os.environ, "PYTHONPATH": root, "OMP_NUM_THREADS": "1"})
+    embed = embedding_inputs()
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            with open(os.path.join(tmp, "cases.pkl"), "wb") as f:
+                pickle.dump((LR, placement_cases(), embed), f)
+            finish_ranks(start_ranks(PLACE_WORKER, tmp), timeout)
+            with open(os.path.join(tmp, "out.pkl"), "rb") as f:
+                res = pickle.load(f)
+        t_out, t_err = trace.communicate(timeout=timeout)
+    finally:
+        if trace.poll() is None:
+            trace.kill()
+            trace.wait()
+    if trace.returncode:
+        raise RuntimeError(f"the placement traces exited "
+                           f"{trace.returncode}: {t_err[-3000:]}")
+    want, _ = embedding_grad(None, *embed)
+    scale = np.abs(want).max()
+    dist = distances({name: res[name] for name in PLACE_MESHES})
+    for data, model in EMBED_MESHES:
+        got, _ = res[f"embed_{data}x{model}"]
+        dist[f"embed_{data}x{model}"] = {
+            "grad": float(np.abs(got - want).max() / scale)}
+    out = {"distances": dist,
+           "replicated": {n: res[f"{n}_replicated"] for n in PLACE_MESHES},
+           "placements": {f"{d}x{m}": res[f"embed_{d}x{m}"][1]
+                          for d, m in EMBED_MESHES},
+           "traces": json.loads(t_out.strip().splitlines()[-1])}
+    out["ok"] = placement_ok(out)
+    out["s"] = round(time.perf_counter() - t0, 1)
+    return out
+
+
 PARTS = {"steps": check_steps, "traces": check_traces, "moe": check_moe,
          "attention": check_attention, "depth": check_depth,
-         "memory": check_memory}
+         "memory": check_memory, "placement": check_placement}
 
 
 def main(argv=None) -> int:

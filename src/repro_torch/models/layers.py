@@ -316,6 +316,60 @@ def gather(x: torch.Tensor, dim: int, index: torch.Tensor) -> torch.Tensor:
     return torch.gather(x, dim, index)
 
 
+def embedding(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``table[ids]`` as an embedding lookup; on DTensors the port's own
+    placement, ``train.steps.placed_embedding``, whose backward adds each
+    rank's gradient rows into its own slice of the table, where
+    autograd's would make the whole table's gradient on every rank."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(table, DTensor) or isinstance(ids, DTensor):
+        from ..train.steps import placed_embedding
+        return placed_embedding(table, ids)
+    return torch.nn.functional.embedding(ids, table)
+
+
+def combine(out_e: torch.Tensor, slot: torch.Tensor, tok: torch.Tensor,
+            w: torch.Tensor, keep: torch.Tensor,
+            x: torch.Tensor) -> torch.Tensor:
+    """The MoE sort dispatch's combine: (n, S, d) expert outputs, each of
+    n groups' (token, slot) pairs (n, P) at ``slot`` (S for a dropped
+    pair, ``keep`` False: read as slot 0 with weight 0), times its
+    weight ``w``, added into its token ``tok`` of the group's tokens
+    ``x`` (n, T, d), whose shape the result takes. On DTensors whose
+    slots are split (the experts over "model") the port's own placement,
+    ``train.steps.placed_combine``: each rank adds its own slots' outputs
+    into their tokens, where a gather along the split slots would move
+    the experts' outputs."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(out_e, DTensor):
+        from ..train.steps import placed_combine
+        return placed_combine(out_e, slot, tok, w, keep, x)
+    return _combined(out_e, slot, tok, w, keep, x)
+
+
+def _combined(out_e, slot, tok, w, keep, x):
+    rows = (*slot.shape, out_e.shape[-1])
+    src = torch.where(keep, slot, 0)[..., None].expand(rows)
+    gathered = torch.gather(out_e, 1, src) * (w * keep).to(x.dtype)[
+        ..., None]
+    return x.new_zeros(x.shape).scatter_add(1, tok[..., None].expand(rows),
+                                            gathered)
+
+
+def in_groups(fn, x: torch.Tensor, n: int) -> torch.Tensor:
+    """``fn`` over ``x``'s rows viewed as ``n`` groups (a leading batch
+    axis of what ``fn`` computes), viewed back as ``x``'s rows; on a
+    DTensor the port's own placement, ``train.steps.placed_groups``,
+    under which each rank computes the group its rows belong to, where
+    a view would hold several groups whole on every rank when the
+    groups are fewer than the ranks that split the rows."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(x, DTensor):
+        from ..train.steps import placed_groups
+        return placed_groups(fn, x, n)
+    return fn(x.reshape(n, -1, *x.shape[1:])).reshape(x.shape)
+
+
 def attention_scores_mask(q_pos: torch.Tensor, k_pos: torch.Tensor,
                           window: Optional[int] = None) -> torch.Tensor:
     """(..., Sq, Sk) bool mask: causal, optionally sliding-window."""

@@ -29,8 +29,8 @@ from typing import NamedTuple
 
 import torch
 
-from .layers import (Params, _wide, einsum, fan_in_init, matmul,
-                     swiglu_apply, swiglu_init)
+from .layers import (Params, _wide, combine, einsum, fan_in_init, in_groups,
+                     matmul, swiglu_apply, swiglu_init)
 
 
 class MoEConfig(NamedTuple):
@@ -123,7 +123,10 @@ def _moe_sort(params, x, cfg: MoEConfig):
     a batch dimension of every op, as the reference's ``vmap`` has it:
     each group's tokens are gathered, its (E·C + 1, d) buffer written and
     its tokens' outputs added back along dim 1, so that a split of the
-    groups (over "data") stays a split through the dispatch."""
+    groups (over "data") stays a split through the dispatch. The experts'
+    outputs go back to their tokens through ``layers.combine``: on a mesh
+    that splits the experts over "model", each rank adds its own slots'
+    outputs into its tokens, and the partial sums are reduced once."""
     n, T, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
     C = _capacity(T, cfg)
@@ -154,10 +157,7 @@ def _moe_sort(params, x, cfg: MoEConfig):
         1, slot[..., None].expand(rows), torch.gather(x, 1, tok))
     xin = buf[:, :E * C].reshape(n, E, C, d)
     out_e = _experts(params, xin).reshape(n, E * C, d)
-    src = torch.where(keep, slot, 0)[..., None].expand(rows)
-    gathered = torch.gather(out_e, 1, src) * (w_sorted * keep).to(
-        x.dtype)[..., None]
-    return x.new_zeros((n, T, d)).scatter_add(1, tok, gathered)
+    return combine(out_e, slot, t_sorted, w_sorted, keep, x)
 
 
 # ----------------------------------------------------------- public ---- //
@@ -167,14 +167,16 @@ def moe_apply(params, x, cfg: MoEConfig):
 
     With ``group_size`` g, where T > g and g divides T, tokens route
     independently inside T/g groups (GShard's grouping): the dispatch and
-    capacity tensors are (g, E, C_g) per group instead of (T, E, C)."""
+    capacity tensors are (g, E, C_g) per group instead of (T, E, C). On a
+    mesh each rank computes the groups its rows belong to
+    (``layers.in_groups``)."""
     d = x.shape[-1]
     xt = x.reshape(-1, d)
     T = xt.shape[0]
     fn = {"einsum": _moe_einsum, "sort": _moe_sort}[cfg.dispatch]
     g = cfg.group_size
     if g and T > g and T % g == 0:
-        out = fn(params, xt.reshape(T // g, g, d), cfg).reshape(T, d)
+        out = in_groups(lambda xg: fn(params, xg, cfg), xt, T // g)
     else:
         out = fn(params, xt[None], cfg)[0]
     if cfg.n_shared:

@@ -50,7 +50,7 @@ from torch import nn
 from ..core.device import resolve_device
 from .layers import (_NEG, LayerList, Params, _wide, apply_rope,
                      as_torch_dtype, attention_scores_mask, einsum,
-                     fan_in_init, flash_sdpa, matmul, normal_init, rmsnorm,
+                     embedding, fan_in_init, flash_sdpa, matmul, normal_init, rmsnorm,
                      sdpa, swiglu_apply, swiglu_init, weighted_xent)
 from .moe import MoEConfig, moe_apply, moe_init
 
@@ -432,11 +432,10 @@ def _dots_policy(ctx, op, *args, **kwargs):
 
 def _embed(params, tokens):
     """The embedding rows of ``tokens`` — ``embed[tokens]`` as an
-    embedding lookup, whose backward (``embedding_dense_backward``) and
-    DTensor rule (a vocab split across ranks) are the same op placed or
-    not, so a step on a mesh sums each row's gradient as the plain one
-    does."""
-    return torch.nn.functional.embedding(tokens, params["embed"])
+    embedding lookup (``layers.embedding``), whose backward
+    (``embedding_dense_backward``, or each rank's slice of it on a mesh)
+    sums each row's gradient as the plain one does."""
+    return embedding(params["embed"], tokens)
 
 
 def _dense_layers(params):

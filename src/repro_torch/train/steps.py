@@ -1346,6 +1346,294 @@ def placed_gather(x, dim: int, index):
     return _PlacedGather.apply(x, dim % x.ndim, index)
 
 
+class _PlacedEmbedding(torch.autograd.Function):
+    """``embedding(table, ids)`` on DTensors (the token embedding: rows
+    over "model", a big model's features over "data", the ids split by
+    batch): the lookup is ``_sharded_embedding``'s. The backward adds
+    the gradient rows of each rank's ids that fall in its slice of the
+    table's rows into zeros of that slice only (``_sharded_index_add``),
+    a partial sum over the batch axes reduced into the table's own
+    placement, where autograd's ``embedding_dense_backward`` makes the
+    whole (vocab, d) gradient on every rank and reduces it before the
+    split cuts it."""
+
+    @staticmethod
+    def forward(ctx, table, ids):
+        mesh = _mesh_of(table, ids)
+        ids = _as_dtensor(ids, mesh)
+        ctx.save_for_backward(ids)
+        ctx.table = (tuple(table.shape), tuple(_plain_placements(table)),
+                     mesh)
+        return _sharded_embedding(torch.ops.aten.embedding.default,
+                                  (table, ids), {})
+
+    @staticmethod
+    def backward(ctx, grad):
+        (ids,) = ctx.saved_tensors
+        shape, pls, mesh = ctx.table
+        grad = _as_dtensor(grad, mesh)
+        lshape, _ = _extent(shape, pls, mesh)
+        zeros = _wrap(grad._local_tensor.new_zeros(lshape), mesh, pls, shape)
+        out = _sharded_index_add(
+            torch.ops.aten.index_add.default,
+            (zeros, 0, ids.reshape(-1), grad.reshape(-1, shape[-1])), {})
+        return out, None
+
+
+def placed_embedding(table, ids):
+    """``torch.nn.functional.embedding(ids, table)``; on DTensors
+    ``_PlacedEmbedding`` (what ``models.layers.embedding`` runs), on a
+    one-rank mesh or a whole table the op itself."""
+    if _replicated((table, ids)):
+        return torch.nn.functional.embedding(ids, table)
+    return _PlacedEmbedding.apply(table, ids)
+
+
+def _combine_plan(out_e):
+    """(the placements of ``placed_combine``'s pair tensors, of its
+    result, the mesh dimensions that split the slots) for experts'
+    outputs ``out_e`` (n, S, d), per mesh dimension: where ``out_e``
+    splits the slots, the pairs whole and the result split along its
+    features; where it splits the groups, everything split alike; where
+    it splits the features, the pairs whole and the result split alike;
+    anywhere else all whole (a partial sum of ``out_e`` made whole
+    first)."""
+    from torch.distributed.tensor import Replicate, Shard
+    pair_p, out_p, slots = [], [], []
+    for j, pl in enumerate(_plain_placements(out_e)):
+        d = _split_dim(pl, 3)
+        if d == 1:
+            slots.append(j)
+        pair_p.append(Shard(0) if d == 0 else Replicate())
+        out_p.append(Replicate() if d is None else Shard(0 if d == 0 else 2))
+    return pair_p, out_p, slots
+
+
+class _PlacedCombine(torch.autograd.Function):
+    """``layers.combine`` on experts' outputs whose slots are split over
+    some mesh dimensions (deepseek-v2-236b's 160 experts over "model"):
+    each rank reads the pairs whose slot falls in its slice, writes
+    each of its slots' token and weight (a slot no pair holds: token 0,
+    weight 0), adds its slots' weighted outputs into its tokens — a
+    partial sum — and reduces the sums into a split of the features (a
+    reduce-scatter). The (pairs, d) tensor of the plain combine is never
+    made. The backward gathers the features of the gradient, reads each
+    own slot's token's gradient, and gives the outputs' gradient on each
+    rank's slots and the weights' as a partial sum over the slots'
+    split, reduced into the weights' placement."""
+
+    @staticmethod
+    def forward(ctx, out_e, slot, tok, w, keep, x):
+        from torch.distributed.tensor import Partial, Replicate
+        mesh = out_e.device_mesh
+        pair_p, out_p, slots = _combine_plan(out_e)
+        oe_p = [Replicate() if pl.is_partial() else pl
+                for pl in _plain_placements(out_e)]
+        out_e = _placed_as(out_e, oe_p)
+        ls, lt, lw, lk = (
+            _placed_as(_as_dtensor(t, mesh), pair_p)._local_tensor
+            for t in (slot, tok, w, keep))
+        lw = (lw * lk).to(x.dtype)
+        oe = out_e._local_tensor
+        n, s_l = oe.shape[:2]
+        _, off = _extent(out_e.shape, oe_p, mesh)
+        t = ls - off[1]
+        at = torch.where((t >= 0) & (t < s_l), t, s_l)
+        # each own slot's token and weight; the spare column s_l takes the
+        # pairs of the other ranks' slots and the dropped ones
+        tok_s = lt.new_zeros((n, s_l + 1)).scatter_(1, at, lt)[:, :s_l]
+        w_s = lw.new_zeros((n, s_l + 1)).scatter_(1, at, lw)[:, :s_l]
+        rows = tok_s[..., None].expand(oe.shape)
+        part = oe.new_zeros((n, x.shape[1], oe.shape[2])).scatter_add_(
+            1, rows, oe * w_s[..., None])
+        ctx.save_for_backward(oe, tok_s, w_s, at, lk)
+        ctx.plan = (mesh, slots, tuple(oe_p), tuple(pair_p),
+                    tuple(out_e.shape), tuple(slot.shape), w.dtype,
+                    [Replicate() if j in slots else pl
+                     for j, pl in enumerate(out_p)])
+        shape = (x.shape[0], x.shape[1], out_e.shape[2])
+        part_p = [Partial() if j in slots else pl
+                  for j, pl in enumerate(out_p)]
+        return _placed_as(_wrap(part, mesh, part_p, shape), out_p)
+
+    @staticmethod
+    def backward(ctx, grad):
+        from torch.distributed.tensor import Partial
+        (mesh, slots, oe_p, pair_p, oe_shape, pair_shape, w_dtype,
+         grad_p) = ctx.plan
+        oe, tok_s, w_s, at, lk = ctx.saved_tensors
+        g = _placed_as(_as_dtensor(grad, mesh), grad_p)._local_tensor
+        g_s = g.gather(1, tok_s[..., None].expand(oe.shape))
+        d_oe = g_s * w_s[..., None]
+        d_ws = (g_s * oe).sum(-1)
+        n, s_l = d_ws.shape
+        d_w = torch.cat([d_ws, d_ws.new_zeros((n, 1))], 1).gather(1, at)
+        # as autograd gives it through (w * keep).to(x.dtype)
+        d_w = _wrap(d_w.to(w_dtype) * lk, mesh,
+                    [Partial() if j in slots else pl
+                     for j, pl in enumerate(pair_p)], pair_shape)
+        return (_wrap(d_oe, mesh, oe_p, oe_shape), None, None,
+                _placed_as(d_w, pair_p), None, None)
+
+
+def placed_combine(out_e, slot, tok, w, keep, x):
+    """``layers.combine`` on DTensors: ``_PlacedCombine`` where the
+    experts' outputs split their slots over more than one rank; anywhere
+    else the plain combine, placed by the rules of its ops."""
+    from ..models.layers import _combined
+    if _replicated((out_e,)) or not any(
+            _split_dim(pl, 3) == 1 for pl in _plain_placements(out_e)):
+        return _combined(out_e, slot, tok, w, keep, x)
+    return _PlacedCombine.apply(out_e, slot, tok, w, keep, x)
+
+
+def _group_plan(x, n: int):
+    """(the mesh dimension, k) where ``x``'s rows, viewed as ``n`` groups,
+    lie k ranks to a group within one mesh dimension: the rows split over
+    D ranks (their mesh dimensions in mesh order, rank r holding the r-th
+    of D blocks of rows), D = n k with k > 1, and k dividing the size of
+    the innermost of those dimensions, so that each group's k ranks are
+    consecutive along it. None otherwise (each rank's rows are whole
+    groups, or a group's ranks do not lie in one dimension)."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return None
+    dims = _row_split_dims(x)
+    if not dims:
+        return None
+    mesh = x.device_mesh
+    d = math.prod(mesh.size(j) for j in dims)
+    if n >= d or d % n or x.shape[0] % d or mesh.size(dims[-1]) % (d // n):
+        return None
+    return dims[-1], d // n
+
+
+def _group_ranks(mesh, j: int, k: int) -> tuple:
+    """(this rank's position among its group's k ranks along mesh
+    dimension ``j``, the coordinates along ``j`` of the other k - 1)."""
+    q = mesh.get_coordinate()[j]
+    pos, base = q % k, q - q % k
+    return pos, [base + i for i in range(k) if i != pos]
+
+
+def _exchange(mesh, j: int, peers, send: list):
+    """``send[i]`` (rows) to ``peers[i]`` along mesh dimension ``j``, one
+    ``all_to_all_single`` over that dimension with nothing for the other
+    ranks -> the rows each peer sent, in ``peers``' order."""
+    from torch.distributed import _functional_collectives as funcol
+    size = [0] * mesh.size(j)
+    for p, t in zip(peers, send):
+        size[p] = t.shape[0]
+    buf = torch.cat(send) if len(send) > 1 else send[0].contiguous()
+    got = funcol.wait_tensor(funcol.all_to_all_single(buf, size, size,
+                                                      (mesh, j)))
+    return list(got.split([size[p] for p in peers]))
+
+
+def _shifted(pls, by: int, ndim: int) -> list:
+    """Placements with each split of a dimension past the first moved
+    ``by`` dimensions (the first keeps its split)."""
+    from torch.distributed.tensor import Shard
+    return [Shard(pl.dim % ndim + by) if isinstance(pl, Shard)
+            and pl.dim % ndim else pl for pl in pls]
+
+
+def _rows_placed(t, rows: set, whole: set):
+    """``t`` split along its first dimension over the mesh dimensions
+    ``rows`` (in mesh order), and over no other mesh dimension along a
+    dimension of ``whole``."""
+    from torch.distributed.tensor import Replicate, Shard
+    pls = [Shard(0) if j in rows else
+           Replicate() if _split_dim(pl, t.ndim) in whole else pl
+           for j, pl in enumerate(_plain_placements(t))]
+    return _placed_as(t, pls)
+
+
+class _GroupRows(torch.autograd.Function):
+    """``x`` (T, ...) with its rows split over D ranks, as the D groups of
+    g = T k / D rows (D, g, ...) that its ranks compute, one a rank: the
+    k ranks of a group (``_group_plan``) exchange their blocks of rows
+    (one all-to-all along the mesh dimension they share), so that each
+    holds its group whole, the k copies of a group split over its k
+    ranks. The backward sends each copy's gradient rows back to the rank
+    that holds them and adds them there."""
+
+    @staticmethod
+    def forward(ctx, x, j, k):
+        mesh = x.device_mesh
+        rows = set(_row_split_dims(x))
+        x = _rows_placed(x, rows, {0})
+        pos, peers = _group_ranks(mesh, j, k)
+        local = x._local_tensor
+        got = _exchange(mesh, j, peers, [local] * len(peers))
+        got.insert(pos, local)
+        d = math.prod(mesh.size(i) for i in rows)
+        ctx.plan = (mesh, j, k, rows, tuple(x.shape))
+        shape = (d, x.shape[0] * k // d) + tuple(x.shape[1:])
+        return _wrap(torch.cat(got)[None], mesh,
+                     _shifted(x.placements, 1, x.ndim), shape)
+
+    @staticmethod
+    def backward(ctx, grad):
+        mesh, j, k, rows, shape = ctx.plan
+        grad = _rows_placed(_as_dtensor(grad, mesh), rows, {0, 1})
+        pos, peers = _group_ranks(mesh, j, k)
+        parts = grad._local_tensor[0].chunk(k)
+        got = _exchange(mesh, j, peers, [parts[p % k] for p in peers])
+        out = parts[pos]
+        for t in got:
+            out = out + t
+        return (_wrap(out, mesh, _shifted(grad.placements, -1, grad.ndim),
+                      shape), None, None)
+
+
+class _UngroupRows(torch.autograd.Function):
+    """The rows of ``_GroupRows``' groups back in the batch's placement:
+    each rank keeps the block of its group's rows that it held (no
+    collective); the backward puts each rank's gradient rows into zeros
+    of its group."""
+
+    @staticmethod
+    def forward(ctx, y, j, k, rows):
+        mesh = y.device_mesh
+        y = _rows_placed(y, rows, {0, 1})
+        pos, _ = _group_ranks(mesh, j, k)
+        local = y._local_tensor[0].chunk(k)[pos]
+        ctx.plan = (mesh, j, k, rows, tuple(y.shape))
+        shape = (y.shape[0] * y.shape[1] // k,) + tuple(y.shape[2:])
+        return _wrap(local, mesh, _shifted(y.placements, -1, y.ndim), shape)
+
+    @staticmethod
+    def backward(ctx, grad):
+        mesh, j, k, rows, shape = ctx.plan
+        grad = _rows_placed(_as_dtensor(grad, mesh), rows, {0})
+        pos, _ = _group_ranks(mesh, j, k)
+        g = grad._local_tensor
+        out = g.new_zeros((1, k * g.shape[0]) + tuple(g.shape[1:]))
+        out[0, pos * g.shape[0]:(pos + 1) * g.shape[0]] = g
+        return (_wrap(out, mesh, _shifted(grad.placements, 1, grad.ndim),
+                      shape), None, None, None)
+
+
+def placed_groups(fn, x, n: int):
+    """``fn(x.reshape(n, g, ...)).reshape(x.shape)`` (each group of g rows
+    of ``x`` through ``fn``, which treats the leading axis as a batch
+    axis: the MoE's routing groups); on a DTensor whose rows are split
+    over more ranks than there are groups (deepseek-v2-236b's 16 groups
+    of a microbatch over the multi mesh's 32 batch ranks), each rank runs
+    ``fn`` on the one group its rows belong to (``_GroupRows``) and keeps
+    its own rows of the result (``_UngroupRows``), where a view of the
+    rows as n groups would hold several groups whole on every rank. A
+    group's rows, its routing and its outputs are those of the unplaced
+    step."""
+    plan = _group_plan(x, n)
+    if plan is None:
+        return fn(x.reshape(n, -1, *x.shape[1:])).reshape(x.shape)
+    j, k = plan
+    rows = set(_row_split_dims(x))
+    return _UngroupRows.apply(fn(_GroupRows.apply(x, j, k)), j, k, rows)
+
+
 def _sharded_index_select(op_call, args, kwargs):
     """``self.index_select(dim, index)`` on DTensors, per mesh dimension:
 
